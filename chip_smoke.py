@@ -14,16 +14,25 @@ Phases (any failure raises, exits nonzero and prints no "ok" line):
    rounds, layouts generated on the card.  T is above max_steps=640, so
    every lane resets.  The pool's layouts must hold DoorKey's invariants.
 3. B1: ``tabular.solve`` on 1024 DoorKey-8x8 layouts, 128 sweeps, at
-   max_doors 1 and 2; the kernel's V must equal the plain version's exactly.
-4. B2: ``cuda_key_value_iteration`` on 512 layouts, 96 sweeps, within 1e-6
-   of the plain version.
+   max_doors 1 and 2; the kernel's V must equal the plain version's
+   exactly.  Then the kernel's other two ways of holding walkability, also
+   exactly: a 64-bit mask (DoorKey-8x8, max_doors 3) and bytes in shared
+   memory (DoorKey-5x5, max_doors 4).
+4. B2: ``cuda_key_value_iteration`` on 512 DoorKey-8x8 layouts, 96
+   sweeps, within 1e-6 of the plain version, on the cluster route (V in a
+   thread-block cluster's shared memory), at one door slot (a cluster of
+   4) and two (a cluster of 8); then on 32 DoorKey-16x16 layouts, 24
+   sweeps, on the global route (V in device memory), the route for V too
+   large for a cluster of 8.  The global route is also timed at the 8x8
+   shape, as the yardstick of the cluster route.
 5. greedy solve: the max_doors=1 policy of phase 3, stepped by the port's
    ``step_lanes`` on the card, reaches the goal in every layout in exactly
    ``steps_to_go`` steps with the closed-form return.
 6. the kernels line: for each kernel, its launches on the main path (each
    part of it driven with the counts set to 0 just before and read just
-   after), its largest difference from the plain version, and the times of
-   kernel, plain version and bound.
+   after), its largest difference from the plain version, the times of
+   kernel, plain version and bound, its design and route, and the
+   registers and shared memory the compiler gave it.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -46,6 +55,10 @@ GAMMA = 0.995
 ROLLOUT_B, ROLLOUT_T, POOL_ROUNDS = 65536, 768, 4
 VI_B, VI_SWEEPS = 1024, 128
 KEY_B, KEY_SWEEPS = 512, 96
+KEY16_ENV, KEY16_B, KEY16_SWEEPS = "MiniGrid-DoorKey-16x16-v0", 32, 24
+# B1 at more door slots: (env, max_doors) for the 64-bit walk mask and for
+# walkability bytes in shared memory.
+VI_MANY_DOORS = (("MiniGrid-DoorKey-8x8-v0", 3), ("MiniGrid-DoorKey-5x5-v0", 4))
 KEY_ATOL = 1e-6
 RETURN_ATOL = 1e-5
 
@@ -95,6 +108,31 @@ def bound(nbytes: int, ops: int):
     and the operations (float32 multiplies and maxes) over their rate."""
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def ptxas_report(logs) -> dict:
+    """Registers, spills and shared memory of each kernel, from the
+    ``-Xptxas -v`` output kept beside each built library: a map from the
+    mangled kernel name to its "Used ..." line and spill line."""
+    report, name = {}, None
+    for log in logs:
+        for line in log.read_text().splitlines():
+            if "Compiling entry function" in line:
+                name = line.split("'")[1]
+                report[name] = {}
+            elif name and "bytes spill stores" in line:
+                report[name]["spills"] = line.split(":", 1)[-1].strip()
+            elif name and "Used" in line and "registers" in line:
+                report[name]["used"] = line.split(":", 1)[-1].strip()
+    return report
+
+
+def compiled(report: dict, kernel: str) -> dict:
+    """The ptxas lines of the one kernel whose mangled name holds
+    ``kernel``; raises unless exactly one does."""
+    hits = [v for k, v in report.items() if kernel in k]
+    require(len(hits) == 1, f"one compiled kernel named {kernel}")
+    return hits[0]
 
 
 def gen(seed: int) -> torch.Generator:
@@ -155,15 +193,20 @@ def main(argv=None) -> int:
         print(f"chip_smoke: run from the repository root ({e})", file=sys.stderr)
         return 1
     counters = {"vi": cuda_vi.cuda_value_iteration, "key_vi": cuda_vi.cuda_key_value_iteration}
+    key_routes = cuda_vi.cuda_key_value_iteration.route_launches
 
     def drive(part, fn):
         """Run one part of the main path with every launch count set to 0
-        just before it; returns (fn's result, the counts just after)."""
+        just before it; returns (fn's result, the counts just after), the
+        key-domain kernel's split by route as "key_vi_<route>"."""
         for c in counters.values():
             c.launches = 0
+        for r in key_routes:
+            key_routes[r] = 0
         out = fn()
         torch.cuda.synchronize()
         counts = {name: c.launches for name, c in counters.items()}
+        counts.update({f"key_vi_{r}": n for r, n in key_routes.items()})
         print(f"[main path] {part}: launches {counts}", flush=True)
         return out, counts
 
@@ -175,6 +218,10 @@ def main(argv=None) -> int:
     libs = _kernels.build()
     print(f"[build] {sorted(libs)} in {time.perf_counter() - t0:.2f} s", flush=True)
     results = {"card": card, "build_s": time.perf_counter() - t0}
+    ptxas = ptxas_report(p.with_suffix(".log") for p in libs.values())
+    for name, lines in sorted(ptxas.items()):
+        print(f"[ptxas] {name}: {lines.get('used')}; {lines.get('spills')}", flush=True)
+    results["ptxas"] = ptxas
 
     # 2. Rollout.
     env = make(ENV_ID)
@@ -220,7 +267,7 @@ def main(argv=None) -> int:
 
     kernels = []
 
-    def kernel_row(name, source, replaces, launches, err, call, kernel_only, plain, work, reps):
+    def kernel_row(name, source, replaces, launches, err, call, kernel_only, plain, work, reps, **design):
         ms = cuda_ms(call, reps)
         kernel_ms = cuda_ms(kernel_only, reps)
         plain_ms = cuda_ms(plain, 2)
@@ -229,12 +276,13 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "kernel_only_ms": kernel_ms,
+            "kernel_only_ms": kernel_ms, **design,
         }
         print(
             f"[{name}] max|kernel - plain| {err:.3g}; kernel {ms:.4f} ms "
             f"(the launch alone {kernel_ms:.4f} ms), plain {plain_ms:.3f} ms, "
-            f"bound {bound_ms:.4f} ms by {bound_by}; main-path launches {launches}",
+            f"bound {bound_ms:.4f} ms by {bound_by}; main-path launches {launches}; "
+            f"{json.dumps(design)}",
             flush=True,
         )
         kernels.append(row)
@@ -255,36 +303,141 @@ def main(argv=None) -> int:
         require(err == 0.0, f"B1 equals its plain version at max_doors={doors}")
         require(bool((v > 0).any()), "some state reaches the goal")
         masks = cuda_vi.vi_masks(layouts)
+        C, D = v.shape[1], layouts.n_doors
+        lpb, G = cuda_vi.vi_plan(C, D, h * w)
         kernel_row(
             f"vi_max_doors{doors}", f"{CSRC}/vi.cu", f"{PALLAS_VI}:201", counts["vi"], err,
             lambda: cuda_vi.cuda_value_iteration(layouts, GAMMA, VI_SWEEPS),
             lambda: cuda_vi._vi_kernel(masks, GAMMA, VI_SWEEPS, v.shape),
             lambda: T.vi_values(layouts, GAMMA, VI_SWEEPS),
             cuda_vi.vi_work(layouts, VI_SWEEPS), reps=10,
+            design="a thread per (cell, config group) with its 4 directions and per-cell data "
+            "in registers; V in shared memory",
+            kernel_route="shared", route_launches={"shared": counts["vi"]},
+            layouts_per_block=lpb, config_groups=G, threads_per_block=lpb * G * h * w,
+            walk_bits=cuda_vi.vi_walk_bits(C),
+            shared_bytes=cuda_vi.vi_shared_bytes(C, D, h * w, lpb),
+            compiled=compiled(ptxas, f"vi_kernelILi{cuda_vi.vi_walk_bits(C)}ELi{h}ELi{w}E"),
         )
         del v_plain
     require(torch.equal(solved[1][0].grid_obj, solved[2][0].grid_obj), "same layouts at both budgets")
+    results["vi_many_doors"] = []
+    for env_id, doors in VI_MANY_DOORS:
+        e = make(env_id)
+        lay = T.extract_layout(e.generate(gen(5), e.params, VI_B, device=DEVICE), doors)
+        got = cuda_vi.cuda_value_iteration(lay, GAMMA, VI_SWEEPS)
+        C = got.shape[1]
+        err = float((got - T.vi_values(lay, GAMMA, VI_SWEEPS)).abs().max())
+        require(err == 0.0, f"B1 equals its plain version on {env_id} at max_doors={doors}")
+        require(bool((got > 0).any()), "some state reaches the goal")
+        hw = e.params.height * e.params.width
+        entry = {
+            "env": env_id, "max_doors": doors, "C": C, "layouts": VI_B, "sweeps": VI_SWEEPS,
+            "walk_bits": cuda_vi.vi_walk_bits(C), "plan": cuda_vi.vi_plan(C, doors, hw),
+            "max_abs_err": err,
+        }
+        print(f"[vi_many_doors] {entry}", flush=True)
+        results["vi_many_doors"].append(entry)
+        del got, lay
 
-    # 4. B2 on the key-position domain.
+    # 4. B2 on the key-position domain: the cluster route at 8x8, then the
+    # global route at 16x16.
     def key_path():
         states = env.generate(gen(3), env.params, KEY_B, device=DEVICE)
         layouts = TK.extract_key_layout(states, max_doors=1)
         return layouts, cuda_vi.cuda_key_value_iteration(layouts, GAMMA, KEY_SWEEPS)
 
-    (key_layouts, kv), counts = drive("key-domain VI", key_path)
+    (key_layouts, kv), counts = drive("key-domain VI, DoorKey-8x8", key_path)
     require(counts["key_vi"] == 1, "the B2 kernel launched once")
+    require(counts["key_vi_cluster"] == 1, "B2 took the cluster route at DoorKey-8x8")
     kv_plain = TK.key_vi_values(key_layouts, GAMMA, KEY_SWEEPS)
     err = float((kv - kv_plain).abs().max())
     require(err <= KEY_ATOL, f"B2 within {KEY_ATOL} of its plain version")
     require(bool((kv > 0).any()), "some key-domain state reaches the goal")
-    del kv_plain
     key_masks = cuda_vi.key_vi_masks(key_layouts)
+    _, K, C, _, _, _ = kv.shape
+    route, n = cuda_vi.key_vi_route(K, C, h * w)
+    require(route == "cluster", "the 8x8 shape's route is the cluster")
+    kv_global = cuda_vi._key_vi_kernel_global(key_masks, GAMMA, KEY_SWEEPS, kv.shape)
+    err_global = float((kv_global - kv_plain).abs().max())
+    require(err_global <= KEY_ATOL, f"B2's global route within {KEY_ATOL} at 8x8")
+    del kv_plain, kv_global
+    G = cuda_vi.key_vi_groups(h * w)
+    key_work = cuda_vi.key_vi_work(key_layouts, KEY_SWEEPS)
     kernel_row(
         "key_vi", f"{CSRC}/key_vi.cu", f"{PALLAS_VI}:452", counts["key_vi"], err,
         lambda: cuda_vi.cuda_key_value_iteration(key_layouts, GAMMA, KEY_SWEEPS),
         lambda: cuda_vi._key_vi_kernel(key_masks, GAMMA, KEY_SWEEPS, kv.shape),
         lambda: TK.key_vi_values(key_layouts, GAMMA, KEY_SWEEPS),
-        cuda_vi.key_vi_work(key_layouts, KEY_SWEEPS), reps=5,
+        key_work, reps=5,
+        design="V split by key row over a thread-block cluster's shared memory",
+        kernel_route="cluster",
+        route_launches={r: counts[f"key_vi_{r}"] for r in cuda_vi.ROUTES},
+        cluster=n, groups=G, threads_per_cta=G * h * w,
+        active_clusters=cuda_vi.key_vi_active_clusters(C, h, w, n),
+        shared_bytes=cuda_vi.key_vi_cluster_shared_bytes(C, h * w, n),
+        compiled=compiled(ptxas, f"key_vi_cluster_kernelILi{h}ELi{w}E"),
+    )
+
+    # The same layouts at two door slots (C=4), where the route takes a
+    # cluster of 8.
+    def key2_path():
+        states = env.generate(gen(3), env.params, KEY_B, device=DEVICE)
+        layouts = TK.extract_key_layout(states, max_doors=2)
+        return layouts, cuda_vi.cuda_key_value_iteration(layouts, GAMMA, KEY_SWEEPS)
+
+    (l2, kv2), counts2 = drive("key-domain VI, DoorKey-8x8, max_doors=2", key2_path)
+    require(counts2["key_vi_cluster"] == 1, "B2 took the cluster route at two door slots")
+    C2 = kv2.shape[2]
+    route2, n2 = cuda_vi.key_vi_route(K, C2, h * w)
+    require(route2 == "cluster", "the 8x8 shape's route at two door slots is the cluster")
+    err2 = float((kv2 - TK.key_vi_values(l2, GAMMA, KEY_SWEEPS)).abs().max())
+    require(err2 <= KEY_ATOL, f"B2 within {KEY_ATOL} of its plain version at two door slots")
+    m2 = cuda_vi.key_vi_masks(l2)
+    kernel_row(
+        "key_vi_max_doors2", f"{CSRC}/key_vi.cu", f"{PALLAS_VI}:452", counts2["key_vi"], err2,
+        lambda: cuda_vi.cuda_key_value_iteration(l2, GAMMA, KEY_SWEEPS),
+        lambda: cuda_vi._key_vi_kernel(m2, GAMMA, KEY_SWEEPS, kv2.shape),
+        lambda: TK.key_vi_values(l2, GAMMA, KEY_SWEEPS),
+        cuda_vi.key_vi_work(l2, KEY_SWEEPS), reps=5,
+        design="V split by key row over a thread-block cluster's shared memory",
+        kernel_route="cluster",
+        route_launches={r: counts2[f"key_vi_{r}"] for r in cuda_vi.ROUTES},
+        cluster=n2, groups=G, threads_per_cta=G * h * w,
+        active_clusters=cuda_vi.key_vi_active_clusters(C2, h, w, n2),
+        shared_bytes=cuda_vi.key_vi_cluster_shared_bytes(C2, h * w, n2),
+        compiled=compiled(ptxas, f"key_vi_cluster_kernelILi{h}ELi{w}E"),
+    )
+    del l2, kv2, m2
+
+    env16 = make(KEY16_ENV)
+
+    def key16_path():
+        states = env16.generate(gen(4), env16.params, KEY16_B, device=DEVICE)
+        layouts = TK.extract_key_layout(states, max_doors=1)
+        return layouts, cuda_vi.cuda_key_value_iteration(layouts, GAMMA, KEY16_SWEEPS)
+
+    (l16, kv16), counts16 = drive("key-domain VI, DoorKey-16x16", key16_path)
+    require(counts16["key_vi_global"] == 1, "B2 took the global route at DoorKey-16x16")
+    err16 = float((kv16 - TK.key_vi_values(l16, GAMMA, KEY16_SWEEPS)).abs().max())
+    require(err16 <= KEY_ATOL, f"B2's global route within {KEY_ATOL} at DoorKey-16x16")
+    print(f"[key_vi 16x16] {KEY16_B} layouts, {KEY16_SWEEPS} sweeps: max|kernel - plain| {err16:.3g}", flush=True)
+    del l16, kv16
+    # The global route's row is timed at the 8x8 shape, beside the cluster
+    # route; its launches are those of the 16x16 part of the main path.
+    kernel_row(
+        "key_vi_global", f"{CSRC}/key_vi.cu", f"{PALLAS_VI}:452", counts16["key_vi"], err_global,
+        lambda: cuda_vi._key_vi_kernel_global(cuda_vi.key_vi_masks(key_layouts), GAMMA, KEY_SWEEPS, kv.shape),
+        lambda: cuda_vi._key_vi_kernel_global(key_masks, GAMMA, KEY_SWEEPS, kv.shape),
+        lambda: TK.key_vi_values(key_layouts, GAMMA, KEY_SWEEPS),
+        key_work, reps=5,
+        design="V double-buffered in device memory, one block per layout",
+        kernel_route="global",
+        route_launches={r: counts16[f"key_vi_{r}"] for r in cuda_vi.ROUTES},
+        launches_on=f"{KEY16_ENV}, {KEY16_B} layouts, {KEY16_SWEEPS} sweeps (max|diff| {err16})",
+        cluster=None, active_clusters=None,
+        shared_bytes=(C + 2) * 4 * h * w,
+        compiled=compiled(ptxas, "key_vi_global_kernel"),
     )
     del kv
 

@@ -8,16 +8,25 @@ versions.
 * :func:`cuda_key_value_iteration` (``csrc/key_vi.cu``) replaces
   ``pallas_vi.py:_key_vi_kernel`` (launched by
   ``pallas_key_value_iteration``).  Plain version:
-  ``tabular_key.key_vi_values``, ``key_value_iteration``'s V.
+  ``tabular_key.key_vi_values``, ``key_value_iteration``'s V.  It has two
+  routes, which :func:`key_vi_route` picks from the shape alone: V in the
+  shared memory of a thread-block cluster, or, where V is too large for a
+  cluster of 8, V in device memory.
 
 What bounds each kernel on an H100, and what its design does about it, is
 noted at the top of its ``.cu`` file.  A wrapper checks its inputs, then
 runs the plain version for tensors on the CPU and launches its kernel for
-CUDA tensors (raising if the launch fails; there is no fallback).  Each
-wrapper counts its launches in a plain integer attribute,
-``cuda_value_iteration.launches``, so a run can show that it went through
-the kernel.  Like ``pallas_vi``, the wrappers return V only: the policy is
-one plain backup over it.
+CUDA tensors (raising if the launch fails; there is no fallback, and no
+other route is tried).  Each wrapper counts its launches in a plain
+integer attribute, ``cuda_value_iteration.launches``, so a run can show
+that it went through the kernel; ``cuda_key_value_iteration.route_launches``
+splits its count by route.  Like ``pallas_vi``, the wrappers return V
+only: the policy is one plain backup over it.
+
+Each kernel's launch plan (which thread owns which states, how many
+layouts or key rows a block holds, its shared memory) is mirrored here in
+Python from the constants of its ``.cu`` file, so the CPU tests can check
+it; the on-card tests check the mirror against the C side.
 
 The per-layout masks are packed here into bytes from the same per-direction
 decode of the layout that the plain backups read (``tabular._front_tables``,
@@ -27,7 +36,7 @@ decode of the layout that the plain backups read (``tabular._front_tables``,
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import List, Tuple
 
 import torch
 
@@ -36,7 +45,7 @@ from minigrid_dynamicprogramming_tpu_torch.dp import tabular, tabular_key
 from minigrid_dynamicprogramming_tpu_torch.dp.tabular import _DIRS, TabularLayout, _num_cfg
 from minigrid_dynamicprogramming_tpu_torch.dp.tabular_key import KeyTabularLayout
 
-__all__ = ["cuda_value_iteration", "cuda_key_value_iteration"]
+__all__ = ["cuda_value_iteration", "cuda_key_value_iteration", "key_vi_route"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _U8, _I32, _BOOL = torch.uint8, torch.int32, torch.bool
@@ -95,6 +104,10 @@ def _nbytes(record) -> int:
     return sum(t.numel() * t.element_size() for t in record.__dict__.values())
 
 
+SMEM_PER_BLOCK = 232_448  # the 227 KB of shared memory a block may use (H100)
+SMEM_PER_SM = 233_472  # an SM's 228 KB; each resident block also takes 1 KB of it
+
+
 # --- B1: restricted domain ---------------------------------------------------
 
 _LAYOUT_SPEC = {
@@ -147,9 +160,52 @@ def vi_work(layouts: TabularLayout, n_sweeps: int) -> Tuple[int, int]:
     return _nbytes(layouts) + b * C * 4 * hw * 4, n_sweeps * per_sweep
 
 
+VI_LAYOUT_THREADS = 256  # at most, per layout: cells times config groups
+VI_BLOCK_THREADS = 256  # threads per block to aim for
+VI_MAX_THREADS = 1024
+
+
+def vi_walk_bits(C: int) -> int:
+    """How ``csrc/vi.cu`` holds walkability per config: a 32- or 64-bit mask
+    in registers, or 0 for bytes in shared memory (C > 64, four or more
+    door slots).  Each is an instance of the kernel (``kWalkBits``)."""
+    return 32 if C <= 32 else 64 if C <= 64 else 0
+
+
+def vi_shared_bytes(C: int, D: int, hw: int, lpb: int) -> int:
+    """A block's shared memory: two V buffers and the toggle table for each
+    of its lpb layouts, then their walkability bytes where C > 64."""
+    S = C * 4 * hw
+    return lpb * (2 * S * 4 + C * D * 4 + (0 if vi_walk_bits(C) else S))
+
+
+def vi_plan(C: int, D: int, hw: int) -> Tuple[int, int]:
+    """(layouts per block lpb, config groups G) of ``csrc/vi.cu``.  A
+    layout has G * HW threads, (group g, cell) = divmod(thread, HW); group
+    g owns the carry pairs p = g, g + G, ... of the C / 2 = 3**D pairs.  G
+    is the largest power of 3 that divides the pairs and keeps a layout
+    within VI_LAYOUT_THREADS; lpb fills VI_BLOCK_THREADS as far as shared
+    memory allows."""
+    pairs, G = C // 2, 1
+    while pairs % (3 * G) == 0 and 3 * G * hw <= VI_LAYOUT_THREADS:
+        G *= 3
+    lpb = min(VI_BLOCK_THREADS // (G * hw), SMEM_PER_BLOCK // vi_shared_bytes(C, D, hw, 1))
+    return max(1, lpb), G
+
+
+def _check_vi_plan(C: int, D: int, hw: int, lpb: int, G: int) -> None:
+    smem = vi_shared_bytes(C, D, hw, lpb)
+    if lpb * G * hw > VI_MAX_THREADS or smem > SMEM_PER_BLOCK:
+        raise ValueError(
+            f"csrc/vi.cu takes at most {VI_MAX_THREADS} threads a block (one per cell "
+            f"and config group) and {SMEM_PER_BLOCK} bytes of shared memory; got "
+            f"H*W={hw}, C={C}, D={D}, {lpb} layouts of {G} groups a block ({smem} bytes)"
+        )
+
+
 def _vi_kernel(masks, gamma: float, n_sweeps: int, shape) -> torch.Tensor:
-    """Launch ``csrc/vi.cu`` on the masks of :func:`vi_masks`: V of ``shape``
-    (B, C, 4, H, W) f32."""
+    """Launch ``csrc/vi.cu`` on the masks of :func:`vi_masks`, with the
+    (lpb, G) of :func:`vi_plan`: V of ``shape`` (B, C, 4, H, W) f32."""
     walk_front, cell_flags, door_slot, toggle_cfg = masks
     b, C, _, h, w = shape
     D = toggle_cfg.shape[2]
@@ -157,13 +213,15 @@ def _vi_kernel(masks, gamma: float, n_sweeps: int, shape) -> torch.Tensor:
     _check_mask(cell_flags, "cell_flags", _U8, (b, 4, h * w))
     _check_mask(door_slot, "door_slot", torch.int8, (b, 4, h * w))
     _check_mask(toggle_cfg, "toggle_cfg", _I32, (b, C, D))
+    lpb, G = vi_plan(C, D, h * w)
+    _check_vi_plan(C, D, h * w, lpb, G)
     dev = walk_front.device
     v = torch.empty(shape, dtype=torch.float32, device=dev)
-    fn = _lib_fn("vi", "vi_launch", [_P] * 5 + [_I] * 5 + [_F, _I, _P])
+    fn = _lib_fn("vi", "vi_launch", [_P] * 5 + [_I] * 7 + [_F, _I, _P])
     _launch(
         dev, fn,
         walk_front.data_ptr(), cell_flags.data_ptr(), door_slot.data_ptr(),
-        toggle_cfg.data_ptr(), v.data_ptr(), b, C, D, h, w, gamma, n_sweeps,
+        toggle_cfg.data_ptr(), v.data_ptr(), b, C, D, h, w, lpb, G, gamma, n_sweeps,
     )
     cuda_value_iteration.launches += 1
     return v
@@ -257,24 +315,118 @@ def key_vi_work(layouts: KeyTabularLayout, n_sweeps: int) -> Tuple[int, int]:
     return _nbytes(layouts) + b * K * C * 4 * hw * 4, n_sweeps * per_sweep
 
 
-def _key_vi_kernel(masks, gamma: float, n_sweeps: int, shape) -> torch.Tensor:
-    """Launch ``csrc/key_vi.cu`` on the masks of :func:`key_vi_masks`: V of
-    ``shape`` (B, K, C, 4, H, W) f32."""
+KEY_CTA_THREADS = 256  # threads of a cluster CTA, at most (csrc/key_vi.cu:kCtaThreads)
+KEY_CTAS_PER_SM = 3  # CTAs an SM should hold, so that one's barrier wait overlaps the others' work
+KEY_MAX_CLUSTER = 8  # the portable limit of a thread-block cluster
+ROUTES = ("cluster", "global")
+
+
+def key_vi_groups(hw: int) -> int:
+    """Thread groups G of a cluster CTA: its G * HW threads are (group,
+    cell) = divmod(thread, HW)."""
+    return max(1, KEY_CTA_THREADS // hw)
+
+
+def key_vi_rows(K: int, n: int) -> List[Tuple[int, int]]:
+    """(first key row, rows) that each CTA of a cluster of ``n`` owns: the
+    first K % n CTAs take one row more."""
+    q, rem = divmod(K, n)
+    starts = [r * q + min(r, rem) for r in range(n + 1)]
+    return [(starts[r], starts[r + 1] - starts[r]) for r in range(n)]
+
+
+def key_vi_cluster_shared_bytes(C: int, hw: int, n: int) -> int:
+    """A cluster CTA's shared memory: two V buffers, each of ceil(K / n)
+    key rows, then the per-(config, cell) flags."""
+    K = hw + 1
+    return 2 * -(-K // n) * C * 4 * hw * 4 + C * hw * 4
+
+
+def key_vi_route(K: int, C: int, hw: int) -> Tuple[str, int]:
+    """The kernel for V of (K, C, 4, HW) per layout: ``("cluster", n)``,
+    the smallest power-of-two cluster whose CTAs' share of V lets an SM
+    hold KEY_CTAS_PER_SM of them, else the smallest whose share fits at
+    all; or ``("global", 0)`` where even a cluster of 8 cannot hold V (or
+    a CTA cannot give each cell its thread).  The shape alone decides."""
+    fits = [
+        n for n in (1, 2, 4, KEY_MAX_CLUSTER)
+        if n <= K and key_vi_cluster_shared_bytes(C, hw, n) <= SMEM_PER_BLOCK
+    ]
+    if hw > KEY_CTA_THREADS or not fits:
+        return "global", 0
+    for n in fits:
+        per_sm = SMEM_PER_SM // (key_vi_cluster_shared_bytes(C, hw, n) + 1024)
+        if per_sm >= KEY_CTAS_PER_SM:
+            return "cluster", n
+    return "cluster", fits[0]
+
+
+def key_vi_active_clusters(C: int, h: int, w: int, n: int) -> int:
+    """Clusters of ``n`` CTAs of the cluster kernel that the current card
+    can hold at once (``cudaOccupancyMaxActiveClusters``)."""
+    fn = _lib_fn("key_vi", "key_vi_cluster_occupancy", [_I] * 5)
+    got = fn(C, h, w, n, key_vi_groups(h * w))
+    if got < 0:
+        raise RuntimeError(f"key_vi_cluster_occupancy failed: CUDA error {-got}")
+    return got
+
+
+def _check_key_masks(masks, shape) -> None:
     cell_flags, cfg_flags, door_bit = masks
     b, K, C, _, h, w = shape
     _check_mask(cell_flags, "cell_flags", _U8, (b, 4, h * w))
     _check_mask(cfg_flags, "cfg_flags", _U8, (b, C, 4, h * w))
     _check_mask(door_bit, "door_bit", _U8, (b, 4, h * w))
-    dev = cell_flags.device
+
+
+def _key_vi_kernel_cluster(masks, gamma: float, n_sweeps: int, shape, n: int) -> torch.Tensor:
+    """Launch the cluster route of ``csrc/key_vi.cu`` with clusters of
+    ``n`` CTAs of :func:`key_vi_groups` groups: V of ``shape`` (B, K, C, 4,
+    H, W) f32."""
+    _check_key_masks(masks, shape)
+    b, K, C, _, h, w = shape
+    G = key_vi_groups(h * w)
+    smem = key_vi_cluster_shared_bytes(C, h * w, n)
+    if not (1 <= n <= min(KEY_MAX_CLUSTER, K) and G * h * w <= KEY_CTA_THREADS
+            and smem <= SMEM_PER_BLOCK):
+        raise ValueError(f"no cluster of {n} CTAs of {G} groups for K={K}, H*W={h * w}")
+    dev = masks[0].device
+    v = torch.empty(shape, dtype=torch.float32, device=dev)
+    fn = _lib_fn("key_vi", "key_vi_cluster_launch", [_P] * 4 + [_I] * 6 + [_F, _I, _P])
+    _launch(
+        dev, fn, *(m.data_ptr() for m in masks), v.data_ptr(), b, C, h, w, n, G,
+        gamma, n_sweeps,
+    )
+    return v
+
+
+def _key_vi_kernel_global(masks, gamma: float, n_sweeps: int, shape) -> torch.Tensor:
+    """Launch the global route of ``csrc/key_vi.cu`` (V double-buffered in
+    device memory): V of ``shape`` (B, K, C, 4, H, W) f32."""
+    _check_key_masks(masks, shape)
+    b, K, C, _, h, w = shape
+    dev = masks[0].device
     v = torch.empty(shape, dtype=torch.float32, device=dev)
     scratch = torch.empty(shape, dtype=torch.float32, device=dev)
-    fn = _lib_fn("key_vi", "key_vi_launch", [_P] * 5 + [_I] * 4 + [_F, _I, _P])
+    fn = _lib_fn("key_vi", "key_vi_global_launch", [_P] * 5 + [_I] * 4 + [_F, _I, _P])
     _launch(
-        dev, fn,
-        cell_flags.data_ptr(), cfg_flags.data_ptr(), door_bit.data_ptr(),
-        v.data_ptr(), scratch.data_ptr(), b, C, h, w, gamma, n_sweeps,
+        dev, fn, *(m.data_ptr() for m in masks), v.data_ptr(), scratch.data_ptr(),
+        b, C, h, w, gamma, n_sweeps,
     )
+    return v
+
+
+def _key_vi_kernel(masks, gamma: float, n_sweeps: int, shape) -> torch.Tensor:
+    """Launch ``csrc/key_vi.cu`` on the masks of :func:`key_vi_masks` by the
+    route :func:`key_vi_route` gives the shape, and count the launch."""
+    _, K, C, _, h, w = shape
+    route, n = key_vi_route(K, C, h * w)
+    if route == "cluster":
+        v = _key_vi_kernel_cluster(masks, gamma, n_sweeps, shape, n)
+    else:
+        v = _key_vi_kernel_global(masks, gamma, n_sweeps, shape)
     cuda_key_value_iteration.launches += 1
+    cuda_key_value_iteration.route_launches[route] += 1
     return v
 
 
@@ -296,3 +448,4 @@ def cuda_key_value_iteration(
 
 
 cuda_key_value_iteration.launches = 0
+cuda_key_value_iteration.route_launches = dict.fromkeys(ROUTES, 0)

@@ -8,9 +8,16 @@ there.
 
 The kernels themselves run only on a card (``tests/test_torch_on_card.py``);
 what can be checked here is the contract between a wrapper and its kernel.
-``_emulate_vi`` and ``_emulate_key_vi`` replay each ``.cu`` file's
-per-state arithmetic over the byte masks the wrapper builds, and must
-reproduce the plain values.
+The ``*_plan`` helpers mirror how each ``.cu`` file splits the states over
+its threads and CTAs, from the plan the wrapper hands the kernel
+(``cuda_vi.vi_plan``, ``key_vi_groups``, ``key_vi_rows``): which thread
+owns which states, and where each candidate's read lands (for the key
+domain: which CTA of the cluster, at which offset of its shared memory;
+for the restricted domain: which toggle-table entry a door-facing thread
+reads).
+``_run_vi_plan`` and ``_run_key_vi_plan`` replay each kernel's arithmetic
+over the byte masks the wrapper builds, thread by thread and item by item
+through those plans, and must reproduce the plain values.
 """
 
 from __future__ import annotations
@@ -76,82 +83,6 @@ def test_cuda_key_vi_plain_path_matches_pallas_interpret():
     np.testing.assert_allclose(got.numpy(), np.asarray(jv_pl), rtol=0, atol=1e-6)
 
 
-def _emulate_vi(layouts, gamma: float, n_sweeps: int) -> torch.Tensor:
-    """``csrc/vi.cu``'s sweep over the wrapper's masks, all states at once."""
-    walk, flags, slot, tog = cuda_vi.vi_masks(layouts)
-    b, C, _, hw = walk.shape
-    w = layouts.base_walk.shape[2]
-    cell = torch.arange(hw)
-    front = torch.stack([cell + 1, cell + w, cell - 1, cell - w]).clamp(0, hw - 1)
-    fwd_ok = (walk == 1) & ((flags & 2) == 0)[:, None]
-    pick_ok = ((flags & 4) != 0)[:, None] & (torch.arange(C) % 2 == 0)[None, :, None, None]
-    safe = slot.long().clamp(min=0)
-    tog_cfg = tog.gather(2, safe.reshape(b, 1, 4 * hw).expand(b, C, 4 * hw)).reshape(b, C, 4, hw)
-    v = torch.zeros(b, C, 4, hw)
-    for _ in range(n_sweeps):
-        q = torch.maximum(v, torch.maximum(v.roll(1, 2), v.roll(-1, 2)))
-        ahead = v.gather(3, front[None, None].expand(b, C, 4, hw))
-        q = torch.where(fwd_ok, torch.maximum(q, ahead), q)
-        flipped = v.reshape(b, C // 2, 2, 4, hw).flip(2).reshape(b, C, 4, hw)
-        q = torch.where(pick_ok, torch.maximum(q, flipped), q)
-        toggled = v.gather(1, tog_cfg.long())
-        q = torch.where((slot >= 0)[:, None], torch.maximum(q, toggled), q)
-        v = torch.where(((flags & 1) != 0)[:, None], 1.0, gamma * q)
-    return v.reshape(layouts.base_walk.shape[:1] + (C, 4) + layouts.base_walk.shape[1:])
-
-
-def _emulate_key_vi(layouts, gamma: float, n_sweeps: int) -> torch.Tensor:
-    """``csrc/key_vi.cu``'s sweep over the wrapper's masks."""
-    cell_flags, cfg_flags, door_bit = cuda_vi.key_vi_masks(layouts)
-    b, C, _, hw = cfg_flags.shape
-    h, w = layouts.base_walk.shape[1:]
-    K, carried = hw + 1, hw
-    cell = torch.arange(hw)
-    x, y = cell % w, cell // w
-    fx = torch.stack([x + 1, x, x - 1, x])
-    fy = torch.stack([y, y + 1, y, y - 1])
-    front = torch.where((fx >= 0) & (fx < w) & (fy >= 0) & (fy < h), fy * w + fx, -1)  # (4, HW)
-    k = torch.arange(K)[:, None, None, None]  # (K, 1, 1, 1) against (C, 4, HW)
-    f = cell_flags[:, None, None]  # (B, 1, 1, 4, HW)
-    g = cfg_flags[:, None]  # (B, 1, C, 4, HW)
-    at_front = k == front  # (K, 1, 4, HW)
-    fwd_ok = ((g & 1) != 0) & ~at_front & ((f & 2) == 0)
-    drop_ok = (k == carried) & ((f & 8) != 0)
-    tog_ok = ((g & 2) != 0) | (((g & 4) != 0) & (k == carried))
-    terminal = ((f & 1) != 0) | (((f & 4) != 0) & (k != carried))
-    safe_front = front.clamp(min=0)
-    new_cfg = torch.arange(C)[None, :, None, None] | door_bit[:, None].long()  # (B, C, 4, HW)
-    v = torch.zeros(b, K, C, 4, hw)
-    for _ in range(n_sweeps):
-        q = torch.maximum(v, torch.maximum(v.roll(1, 3), v.roll(-1, 3)))
-        ahead = v.gather(4, safe_front.expand(b, K, C, 4, hw))
-        q = torch.where(fwd_ok, torch.maximum(q, ahead), q)
-        q = torch.where(at_front, torch.maximum(q, v[:, carried:]), q)
-        dropped = v.permute(0, 2, 3, 4, 1).gather(4, safe_front[None, None, :, :, None].expand(b, C, 4, hw, 1))
-        q = torch.where(drop_ok, torch.maximum(q, dropped.permute(0, 4, 1, 2, 3)), q)
-        toggled = v.gather(2, new_cfg[:, None].expand(b, K, C, 4, hw))
-        q = torch.where(tog_ok, torch.maximum(q, toggled), q)
-        v = torch.where(terminal, 1.0, gamma * q)
-    return v.reshape(b, K, C, 4, h, w)
-
-
-@pytest.mark.parametrize("max_doors", [1, 2])
-def test_vi_kernel_contract_reproduces_plain(max_doors):
-    _, tstates = _states("MiniGrid-DoorKey-8x8-v0", 4, seed=3)
-    layouts = ttab.extract_layout(tstates, max_doors)
-    want = ttab.value_iteration(layouts, GAMMA, 64)[0]
-    assert (want > 0).any()
-    torch.testing.assert_close(_emulate_vi(layouts, GAMMA, 64), want, rtol=0, atol=0)
-
-
-def test_key_vi_kernel_contract_reproduces_plain():
-    _, tstates = _states("MiniGrid-DoorKey-6x6-v0", 2, seed=4)
-    layouts = tkey.extract_key_layout(tstates, 1)
-    want = tkey.key_value_iteration(layouts, GAMMA, 40)[0]
-    assert (want > 0).any()
-    torch.testing.assert_close(_emulate_key_vi(layouts, GAMMA, 40), want, rtol=0, atol=1e-6)
-
-
 def test_wrappers_check_their_inputs():
     _, tstates = _states("MiniGrid-DoorKey-5x5-v0", 2, seed=5)
     layouts = ttab.extract_layout(tstates, 1)
@@ -184,3 +115,336 @@ def test_work_counts():
         nbytes, ops = work(layouts, 10)
         assert 10 * states * 3 < ops < 10 * states * (3 + n_opt)
         assert nbytes > states * 4
+
+
+# --- The kernels' index plans ------------------------------------------------
+
+_STEP = lambda w: (1, w, -1, -w)  # raster step to the front cell, per direction
+
+
+def _doors(C: int) -> int:
+    """D of C = 2 * 3**D configs."""
+    D = 0
+    while 2 * 3**D < C:
+        D += 1
+    assert 2 * 3**D == C
+    return D
+
+
+def _vi_plan(b: int, hw: int, C: int):
+    """``csrc/vi.cu``'s threads: (layout, config group, cell) of every active
+    thread over all blocks, as the kernel derives them from (blockIdx,
+    threadIdx) and the wrapper's (lpb, G); and G."""
+    lpb, G = cuda_vi.vi_plan(C, _doors(C), hw)
+    per = G * hw
+    blocks = -(-b // lpb)
+    t = torch.arange(lpb * per)
+    slot = t // per
+    g = (t - slot * per) // hw
+    cell = t - slot * per - g * hw
+    layout = (torch.arange(blocks)[:, None] * lpb + slot[None]).reshape(-1)
+    active = layout < b
+    return layout[active], g.repeat(blocks)[active], cell.repeat(blocks)[active], G
+
+
+def _run_vi_plan(layouts, gamma: float, n_sweeps: int) -> torch.Tensor:
+    """``vi_kernel``'s arithmetic, thread by thread (all threads at once):
+    each thread's registers, then its sweep over its carry pairs (c, c + 1),
+    each pair taking stay, turns, forward, pickup and, where the thread
+    faces a door, the toggle, read as the kernel reads it: the target
+    config at ``tog[c * D + slot]`` of the layout's flat table.  Reads and
+    writes of its layout's V are flat."""
+    walk, flags, slot, tog = cuda_vi.vi_masks(layouts)
+    B, C, _, hw = walk.shape
+    D = tog.shape[2]
+    tog = tog.reshape(B, C * D).long()
+    h, w = layouts.base_walk.shape[1:]
+    slab, S = 4 * hw, C * 4 * hw
+    tb, tg, cell, G = _vi_plan(B, hw, C)
+    T = len(tb)
+    d = torch.arange(4)
+    own = d * hw + cell[:, None]  # (T, 4)
+    fwd = own + torch.tensor(_STEP(w))
+    f = flags[tb[:, None], d, cell[:, None]]
+    goal, key = (f & 1) != 0, (f & 4) != 0
+    walk_bits = walk[tb].permute(0, 2, 3, 1)[torch.arange(T)[:, None], d, cell[:, None]]
+    walk_bits = walk_bits.bool() & ((f & 2) == 0)[..., None]  # (T, 4, C), lava folded in
+    sl = slot[tb[:, None], d, cell[:, None]].long()
+    cur = torch.zeros(B, S)
+    left, right = (d + 3) % 4, (d + 1) % 4
+    rounds = -(-(C // 2) // G)
+    row = tb[:, None]
+    for _ in range(n_sweeps):
+        nxt = torch.full((B, S), float("nan"))
+        for r in range(rounds):
+            c = 2 * (tg + r * G)  # (T,): each thread's config of this round
+            ok = (c < C)[:, None]
+            c = c.clamp(max=C - 2)[:, None]
+            a = cur[row, c * slab + own]
+            e = cur[row, (c + 1) * slab + own]
+            wb = walk_bits.gather(2, c[..., None].expand(T, 4, 1))[..., 0]
+            wb1 = walk_bits.gather(2, (c + 1)[..., None].expand(T, 4, 1))[..., 0]
+            q0 = torch.maximum(a, torch.maximum(a[:, left], a[:, right]))
+            ahead = cur[row, (c * slab + fwd).clamp(0, S - 1)]
+            q0 = torch.where(wb, torch.maximum(q0, ahead), q0)
+            q0 = torch.where(key, torch.maximum(q0, e), q0)
+            q1 = torch.maximum(e, torch.maximum(e[:, left], e[:, right]))
+            ahead = cur[row, ((c + 1) * slab + fwd).clamp(0, S - 1)]
+            q1 = torch.where(wb1, torch.maximum(q1, ahead), q1)
+            if D:
+                door = sl >= 0
+                t0 = tog[row, c * D + sl.clamp(min=0)]
+                t1 = tog[row, (c + 1) * D + sl.clamp(min=0)]
+                q0 = torch.where(door, torch.maximum(q0, cur[row, t0 * slab + own]), q0)
+                q1 = torch.where(door, torch.maximum(q1, cur[row, t1 * slab + own]), q1)
+            for ci, q in ((c, q0), (c + 1, q1)):
+                idx = torch.where(ok, ci * slab + own, -1)
+                keep = idx >= 0
+                nxt[row.expand_as(idx)[keep], idx[keep]] = torch.where(goal, 1.0, gamma * q)[keep]
+        cur = nxt
+    return cur.reshape(B, C, 4, h, w)
+
+
+def _check_vi_plan_writes_every_state_once(b, hw, C):
+    tb, g, cell, G = _vi_plan(b, hw, C)
+    assert len(tb) == b * G * hw and (C // 2) % G == 0
+    assert len(torch.unique((tb * G + g) * hw + cell)) == len(tb)
+    pairs = torch.arange(C // 2 // G)[:, None] * G + g[None]  # (rounds, T)
+    cfg = torch.stack([2 * pairs, 2 * pairs + 1])[:, :, :, None]  # (2, rounds, T, 1)
+    own = cfg * 4 * hw + torch.arange(4) * hw + cell[None, None, :, None]
+    writes = tb[None, None, :, None] * C * 4 * hw + own
+    assert torch.equal(torch.sort(writes.reshape(-1)).values, torch.arange(b * C * 4 * hw))
+    lpb = cuda_vi.vi_plan(C, _doors(C), hw)[0]
+    assert lpb * G * hw <= cuda_vi.VI_MAX_THREADS
+    assert cuda_vi.vi_shared_bytes(C, _doors(C), hw, lpb) <= cuda_vi.SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("b,hw", [(37, 25), (10, 36), (9, 64), (3, 256)])
+@pytest.mark.parametrize("C", [2, 6, 18])
+def test_vi_plan_writes_every_state_once(b, hw, C):
+    """Each (layout, group, cell) has one thread; a thread writes all four
+    directions of its cell in its group's configs, so every state is
+    written once per sweep."""
+    _check_vi_plan_writes_every_state_once(b, hw, C)
+
+
+@pytest.mark.parametrize("b,hw,C", [(37, 25, 54), (9, 64, 54), (5, 25, 162), (4, 36, 162)])
+def test_vi_plan_many_doors_writes_every_state_once(b, hw, C):
+    """Three door slots (a 64-bit walk mask) and four (walkability bytes in
+    shared memory, one layout a block where two would not fit)."""
+    _check_vi_plan_writes_every_state_once(b, hw, C)
+    assert cuda_vi.vi_walk_bits(C) == (64 if C == 54 else 0)
+
+
+@pytest.mark.parametrize("max_doors", [1, 2, 3, 4])
+def test_vi_kernel_contract_reproduces_plain(max_doors):
+    """DoorKey-8x8 up to three door slots (C = 54); four (C = 162) on
+    DoorKey-5x5, since at 8x8 that V does not fit a block."""
+    env_id = "MiniGrid-DoorKey-8x8-v0" if max_doors < 4 else "MiniGrid-DoorKey-5x5-v0"
+    _, tstates = _states(env_id, 5, seed=3)
+    layouts = ttab.extract_layout(tstates, max_doors)
+    want = ttab.value_iteration(layouts, GAMMA, 48)[0]
+    assert (want > 0).any()
+    torch.testing.assert_close(_run_vi_plan(layouts, GAMMA, 48), want, rtol=0, atol=0)
+
+
+def _key_vi_plan(h: int, w: int, C: int, n: int):
+    """``key_vi_cluster_kernel``'s items: one row of (rank, group g, local
+    row j, config c) per item, as the kernel's loops visit them.  The rows
+    other than CARRIED come first, walked by the ``j -= ngen`` loop; then
+    the CARRIED row (the last CTA's last), whose configs G - 1 - g,
+    2G - 1 - g, ... group g takes.  Every cell of a group takes the same
+    items."""
+    hw = h * w
+    G = cuda_vi.key_vi_groups(hw)
+    rows = cuda_vi.key_vi_rows(hw + 1, n)
+    items = []
+    for rank, (_, nrows) in enumerate(rows):
+        ngen = nrows - (rank == n - 1)
+        for g in range(G):
+            j = g
+            for c in range(C):
+                while j < ngen:
+                    items.append((rank, g, j, c))
+                    j += G
+                j -= ngen
+            if rank == n - 1:
+                items += [(rank, g, ngen, c) for c in range(G - 1 - g, C, G)]
+    return torch.tensor(items)
+
+
+def _key_vi_reads(h: int, w: int, C: int, n: int, items):
+    """Where each candidate's read lands, per (item, cell, direction), as
+    the kernel computes it: (rank, offset into that CTA's V buffer) for the
+    item's own state, forward, pickup (the CARRIED row) and drop (row
+    `front`)."""
+    hw, K = h * w, h * w + 1
+    slab, kslab = 4 * hw, C * 4 * hw
+    rows = cuda_vi.key_vi_rows(K, n)
+    starts = torch.tensor([r0 for r0, _ in rows] + [K])
+    cell = torch.arange(hw)
+    x, y = cell % w, cell // w
+    fx = torch.stack([x + 1, x, x - 1, x], 1)
+    fy = torch.stack([y, y + 1, y, y - 1], 1)
+    fr = torch.where((fx >= 0) & (fx < w) & (fy >= 0) & (fy < h), fy * w + fx, -1)  # (HW, 4)
+    d = torch.arange(4)
+    rank, j, c = items[:, 0, None, None], items[:, 2, None, None], items[:, 3, None, None]
+    own = j * kslab + c * slab + d * hw + cell[:, None]  # (I, HW, 4)
+    in_row = c * slab + d * hw + cell[:, None]
+    # Row fr's owner, as row_owner computes it, and its local row.
+    q, rem = divmod(K, n)
+    safe = fr.clamp(min=0)
+    owner = torch.where(safe < rem * (q + 1), safe // (q + 1), rem + (safe - rem * (q + 1)) // max(q, 1))
+    return {
+        "k": starts[rank] + j,
+        "fr": fr,
+        "own": (rank.expand_as(own), own),
+        "forward": (rank.expand_as(own), own + torch.tensor(_STEP(w))),
+        "pickup": (torch.full_like(own, n - 1), (hw - starts[n - 1]) * kslab + in_row.expand_as(own)),
+        "drop": (owner.expand_as(own), (safe - starts[owner]) * kslab + in_row.expand_as(own)),
+    }
+
+
+@pytest.mark.parametrize("h,w,C,n", [
+    (5, 5, 2, 1), (6, 6, 2, 1), (6, 6, 2, 2), (8, 8, 2, 2), (8, 8, 4, 4), (8, 8, 2, 8),
+])
+def test_key_vi_plan_writes_every_state_once(h, w, C, n):
+    hw = h * w
+    K = hw + 1
+    kslab = C * 4 * hw
+    rows = cuda_vi.key_vi_rows(K, n)
+    assert [r0 for r0, _ in rows] == sorted(r0 for r0, _ in rows) and sum(r for _, r in rows) == K
+    items = _key_vi_plan(h, w, C, n)
+    r = _key_vi_reads(h, w, C, n, items)
+    rank, own = r["own"]
+    # Global state index of each write: row k, then (c, d, cell) within it.
+    state = r["k"] * kslab + own - items[:, 2, None, None] * kslab
+    assert torch.equal(torch.sort(state.reshape(-1)).values, torch.arange(K * kslab))
+    nrows = torch.tensor([nr for _, nr in rows])
+    starts = torch.tensor([r0 for r0, _ in rows])
+    fr, k = r["fr"], r["k"]
+    carried = (k == hw).expand(-1, hw, 4)
+    # Stay, left, right and forward stay in the item's own CTA, within its
+    # rows; forward is taken only where the front cell is on the grid.
+    assert torch.equal(r["forward"][0], rank)
+    for name in ("own", "forward"):
+        rk, off = r[name]
+        valid = (fr >= 0).expand_as(off)
+        assert (off[valid] >= 0).all() and (off[valid] < nrows[rk[valid]] * kslab).all(), name
+    # Pickup reads the CARRIED row on the last CTA, for the rows k == front.
+    rk, off = r["pickup"]
+    assert (rk == n - 1).all() and (starts[n - 1] + off // kslab == hw).all()
+    # Drop, from the CARRIED row (on the last CTA), reads row `front` where
+    # that row lives.
+    assert (rank[carried] == n - 1).all()
+    rk, off = r["drop"]
+    valid = (fr >= 0).expand_as(rk)
+    assert (off[valid] < nrows[rk[valid]] * kslab).all()
+    assert torch.equal((starts[rk] + off // kslab)[valid], fr.expand_as(rk)[valid])
+    assert cuda_vi.key_vi_cluster_shared_bytes(C, hw, n) <= cuda_vi.SMEM_PER_BLOCK
+
+
+def _run_key_vi_plan(layouts, gamma: float, n_sweeps: int, n: int) -> torch.Tensor:
+    """``key_vi_cluster_kernel``'s arithmetic over the plan: V split over n
+    CTAs' buffers (B, n, rows * K slab), every item of every thread at
+    once, reads and writes at the plan's (rank, offset).  Rows other than
+    CARRIED take stay, turns, forward and pickup, then the closed-door
+    toggle pass; the CARRIED row takes its own loop."""
+    cell_flags, cfg_flags, door_bit = cuda_vi.key_vi_masks(layouts)
+    B, C, _, hw = cfg_flags.shape
+    h, w = layouts.base_walk.shape[1:]
+    K, CARRIED, slab, kslab = hw + 1, hw, 4 * hw, C * 4 * hw
+    items = _key_vi_plan(h, w, C, n)
+    r = _key_vi_reads(h, w, C, n, items)
+    size = -(-K // n) * kslab
+    c = items[:, 3, None, None]
+    d = torch.arange(4)
+    cell = torch.arange(hw)[:, None]
+    f = cell_flags[:, d, cell]  # (B, HW, 4)
+    g = cfg_flags[:, :, d, cell][:, items[:, 3]]  # (B, I, HW, 4)
+    bit = door_bit[:, d, cell].long()[:, None]  # (B, 1, HW, 4)
+    k, fr = r["k"], r["fr"]
+    carried = k == CARRIED
+    key_front = k == fr
+    walk = ((g & 1) != 0) & ((f & 2) == 0)[:, None]
+    closed, unlock = (g & 2) != 0, (g & 4) != 0
+    drop_ok = ((f & 8) != 0)[:, None] & (fr >= 0)
+    goal = ((f & 1) != 0)[:, None]
+    term = ((f & 5) != 0)[:, None]  # goal or target, in every row but CARRIED
+    rank, own = r["own"]
+    bi = torch.arange(B)[:, None, None, None]
+
+    def read(v, where):
+        rk, off = where
+        return v[bi, rk, off.clamp(0, size - 1)]
+
+    cur = torch.zeros(B, n, size)
+    for _ in range(n_sweeps):
+        vv = read(cur, r["own"])
+        q = torch.maximum(vv, torch.maximum(vv[..., (d + 3) % 4], vv[..., (d + 1) % 4]))
+        ahead = read(cur, r["forward"])
+        toggled = read(cur, (rank, own + ((c | bit) - c) * slab))
+        # Rows other than CARRIED.
+        qg = torch.where(walk & ~key_front, torch.maximum(q, ahead), q)
+        qg = torch.where(key_front, torch.maximum(qg, read(cur, r["pickup"])), qg)
+        out = torch.where(term, 1.0, gamma * qg)
+        out = torch.where(closed & ~term, torch.maximum(out, gamma * toggled), out)
+        # The CARRIED row.
+        qc = torch.where(walk, torch.maximum(q, ahead), q)
+        qc = torch.where(closed | unlock, torch.maximum(qc, toggled), qc)
+        qc = torch.where(drop_ok, torch.maximum(qc, read(cur, r["drop"])), qc)
+        out = torch.where(carried, torch.where(goal, 1.0, gamma * qc), out)
+        nxt = torch.full_like(cur, float("nan"))
+        nxt[bi, rank, own] = out
+        cur = nxt
+    rows = [cur[:, i, : nr * kslab] for i, (_, nr) in enumerate(cuda_vi.key_vi_rows(K, n))]
+    return torch.cat(rows, 1).reshape(B, K, C, 4, h, w)
+
+
+def _closed_doors(layouts):
+    """The same layouts with every door closed, not locked: the toggle then
+    opens it from every key row."""
+    return dataclasses.replace(layouts, door_init=torch.ones_like(layouts.door_init))
+
+
+@pytest.mark.parametrize("env_id,n,closed", [
+    ("MiniGrid-DoorKey-6x6-v0", 2, False),
+    ("MiniGrid-DoorKey-8x8-v0", 2, False),
+    ("MiniGrid-DoorKey-8x8-v0", 4, False),
+    ("MiniGrid-DoorKey-8x8-v0", 2, True),
+])
+def test_key_vi_kernel_contract_reproduces_plain(env_id, n, closed):
+    """K is odd (37, 65), so the split is uneven, and the CARRIED row and
+    most drop targets lie on different CTAs."""
+    _, tstates = _states(env_id, 2, seed=4)
+    layouts = tkey.extract_key_layout(tstates, 1)
+    if closed:
+        layouts = _closed_doors(layouts)
+    want = tkey.key_value_iteration(layouts, GAMMA, 40)[0]
+    assert (want > 0).any()
+    got = _run_key_vi_plan(layouts, GAMMA, 40, n)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("h,w,D,want", [
+    (5, 5, 1, ("cluster", 1)),
+    (6, 6, 1, ("cluster", 2)),
+    (8, 8, 1, ("cluster", 4)),
+    (8, 8, 2, ("cluster", 8)),
+    (16, 16, 1, ("global", 0)),
+    (16, 16, 2, ("global", 0)),
+])
+def test_key_vi_route(h, w, D, want):
+    """The smallest cluster whose CTAs fit three to an SM; 16x16 needs more
+    than a cluster of 8 can hold."""
+    hw = h * w
+    assert cuda_vi.key_vi_route(hw + 1, 1 << D, hw) == want
+    route, n = want
+    if route == "cluster":
+        smem = cuda_vi.key_vi_cluster_shared_bytes(1 << D, hw, n)
+        assert cuda_vi.SMEM_PER_SM // (smem + 1024) >= cuda_vi.KEY_CTAS_PER_SM
+        if n > 1:
+            smaller = cuda_vi.key_vi_cluster_shared_bytes(1 << D, hw, n // 2)
+            assert cuda_vi.SMEM_PER_SM // (smaller + 1024) < cuda_vi.KEY_CTAS_PER_SM
+    else:
+        assert cuda_vi.key_vi_cluster_shared_bytes(1 << D, hw, 8) > cuda_vi.SMEM_PER_BLOCK

@@ -7,7 +7,14 @@ PyTorch; from the repository root:
     python -m pytest -o addopts="" --noconftest -m cuda tests/test_torch_on_card.py -q
 
 ``chip_smoke.py`` holds the same kernels against the same plain versions at
-the main path's full sizes.
+the main path's full sizes.  The restricted-domain kernel is held here at
+each way it keeps walkability: a 32-bit mask (one and two door slots), a
+64-bit one (three) and bytes in shared memory (four).  The key-domain
+kernel has two routes, chosen from the shape (``cuda_vi.key_vi_route``):
+the cluster route is held here at DoorKey-6x6 (a cluster of 2) and
+DoorKey-8x8 (clusters of 4 and 8, and every cluster size the kernel
+takes), the global route at DoorKey-16x16; each case checks which route's
+launch count moved.
 """
 
 from __future__ import annotations
@@ -39,10 +46,23 @@ def _states(card, env_id: str, batch: int, seed: int):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("max_doors", [1, 2])
-@pytest.mark.parametrize("env_id", ["MiniGrid-DoorKey-5x5-v0", "MiniGrid-DoorKey-16x16-v0"])
+@pytest.mark.parametrize("env_id,max_doors", [
+    ("MiniGrid-DoorKey-5x5-v0", 1),
+    ("MiniGrid-DoorKey-5x5-v0", 2),
+    ("MiniGrid-DoorKey-16x16-v0", 1),
+    ("MiniGrid-DoorKey-16x16-v0", 2),
+    ("MiniGrid-DoorKey-5x5-v0", 3),
+    ("MiniGrid-DoorKey-8x8-v0", 3),
+    ("MiniGrid-DoorKey-5x5-v0", 4),
+    ("MiniGrid-DoorKey-6x6-v0", 4),
+])
 def test_vi_kernel_equals_plain(card, env_id, max_doors):
+    """Walkability as a 32-bit mask (one and two door slots), a 64-bit one
+    (three, C = 54) and bytes in shared memory (four, C = 162; at 6x6 one
+    layout a block, 212,544 bytes)."""
     layouts = ttab.extract_layout(_states(card, env_id, 37, seed=0), max_doors)
+    C = 2 * 3**max_doors
+    assert cuda_vi.vi_walk_bits(C) == {1: 32, 2: 32, 3: 64, 4: 0}[max_doors]
     before = cuda_vi.cuda_value_iteration.launches
     got = cuda_vi.cuda_value_iteration(layouts, GAMMA, 96)
     torch.cuda.synchronize()
@@ -52,16 +72,94 @@ def test_vi_kernel_equals_plain(card, env_id, max_doors):
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
+def _key_vi_on_route(layouts, n_sweeps: int, route):
+    """The wrapper's V, after checking that it took ``route`` (a
+    ``key_vi_route`` result) and counted one launch there."""
+    b, h, w = layouts.base_walk.shape
+    assert cuda_vi.key_vi_route(h * w + 1, 1 << layouts.n_doors, h * w) == route
+    before = dict(cuda_vi.cuda_key_value_iteration.route_launches)
+    total = cuda_vi.cuda_key_value_iteration.launches
+    got = cuda_vi.cuda_key_value_iteration(layouts, GAMMA, n_sweeps)
+    torch.cuda.synchronize()
+    assert cuda_vi.cuda_key_value_iteration.launches == total + 1
+    after = cuda_vi.cuda_key_value_iteration.route_launches
+    assert {r: after[r] - before[r] for r in after} == {
+        r: int(r == route[0]) for r in cuda_vi.ROUTES
+    }
+    return got
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_sweeps", [0, 1, 40])
 def test_key_vi_kernel_equals_plain(card, n_sweeps):
     layouts = tkey.extract_key_layout(_states(card, "MiniGrid-DoorKey-6x6-v0", 19, seed=1), 1)
-    before = cuda_vi.cuda_key_value_iteration.launches
-    got = cuda_vi.cuda_key_value_iteration(layouts, GAMMA, n_sweeps)
-    torch.cuda.synchronize()
-    assert cuda_vi.cuda_key_value_iteration.launches == before + 1
+    got = _key_vi_on_route(layouts, n_sweeps, ("cluster", 2))
     want = tkey.key_value_iteration(layouts, GAMMA, n_sweeps)[0]
     torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_doors,n,closed", [(1, 4, False), (2, 8, False), (1, 4, True)])
+def test_key_vi_cluster_route_8x8(card, max_doors, n, closed):
+    """Closed doors (in place of DoorKey's locked one) run the toggle pass
+    of every key row."""
+    layouts = tkey.extract_key_layout(
+        _states(card, "MiniGrid-DoorKey-8x8-v0", 23, seed=3), max_doors
+    )
+    if closed:
+        layouts = dataclasses.replace(layouts, door_init=torch.ones_like(layouts.door_init))
+    got = _key_vi_on_route(layouts, 48, ("cluster", n))
+    want = tkey.key_value_iteration(layouts, GAMMA, 48)[0]
+    assert (want > 0).any()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_key_vi_global_route_16x16(card):
+    layouts = tkey.extract_key_layout(_states(card, "MiniGrid-DoorKey-16x16-v0", 3, seed=4), 1)
+    got = _key_vi_on_route(layouts, 12, ("global", 0))
+    want = tkey.key_value_iteration(layouts, GAMMA, 12)[0]
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_key_vi_every_cluster_size_agrees(card):
+    """Clusters of 2, 4 and 8 CTAs, and the global route, each match the
+    plain version at DoorKey-8x8: the row split and the remote reads do
+    not change the result."""
+    layouts = tkey.extract_key_layout(_states(card, "MiniGrid-DoorKey-8x8-v0", 9, seed=5), 1)
+    masks = cuda_vi.key_vi_masks(layouts)
+    shape = (9, 65, 2, 4, 8, 8)
+    want = tkey.key_vi_values(layouts, GAMMA, 33)
+    got = cuda_vi._key_vi_kernel_global(masks, GAMMA, 33, shape)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+    for n in (2, 4, 8):
+        got = cuda_vi._key_vi_kernel_cluster(masks, GAMMA, 33, shape, n)
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+        assert cuda_vi.key_vi_active_clusters(2, 8, 8, n) > 0
+
+
+@pytest.mark.cuda
+def test_launch_plans_match_the_c_side(card):
+    """The Python mirrors of each kernel's plan, which the CPU tests check,
+    are the plans the .cu files compute."""
+    import ctypes
+
+    from minigrid_dynamicprogramming_tpu_torch import _kernels
+
+    vi, key = _kernels.library("vi"), _kernels.library("key_vi")
+    for f in (vi.vi_shared_bytes, key.key_vi_cluster_shared_bytes):
+        f.restype = ctypes.c_size_t
+    for hw in (25, 36, 64, 256, 1024):
+        for C, D in ((2, 0), (6, 1), (18, 2), (54, 3), (162, 4)):
+            lpb = cuda_vi.vi_plan(C, D, hw)[0]
+            assert vi.vi_shared_bytes(C, D, hw, lpb) == cuda_vi.vi_shared_bytes(C, D, hw, lpb)
+    for hw in (25, 36, 64, 256):
+        for C in (2, 4):
+            for n in (1, 2, 4, 8):
+                assert key.key_vi_cluster_shared_bytes(C, hw, n) == (
+                    cuda_vi.key_vi_cluster_shared_bytes(C, hw, n)
+                )
 
 
 @pytest.mark.cuda
