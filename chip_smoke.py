@@ -28,7 +28,27 @@ Phases (any failure raises, exits nonzero and prints no "ok" line):
 5. greedy solve: the max_doors=1 policy of phase 3, stepped by the port's
    ``step_lanes`` on the card, reaches the goal in every layout in exactly
    ``steps_to_go`` steps with the closed-form return.
-6. the kernels line: for each kernel, its launches on the main path (each
+6. families: ``lane_rollout`` with pool autoreset on every other
+   registered id, layouts generated on the card: LavaCrossingS9N2 and
+   Dynamic-Obstacles-8x8 at B=32768, T=400, two pool rounds (both step
+   limits are below T, so every lane resets); Fetch-8x8-N3 and
+   MemoryS17Random at B=16384, T=256; Empty-8x8 and FourRooms at B=4096,
+   T=256; every other id at B=4096, T=64.  Each prints its env-steps/s.
+   For every id whose hooks draw nothing, the first CPU_LANES lanes of the
+   same pool and the run's first CPU_STEPS actions step on the card and on
+   the CPU (the path the CPU tests hold against JAX): final state, resets
+   per lane, episodes and checksum must be equal.  DynamicObstacles keeps
+   exactly its ball count per lane, with aux naming each ball, and pays
+   only -1 or a reward in (0, 1].
+7. B1 on the families' layouts: ``tabular.solve`` (max_doors=1) on 1024
+   layouts of LavaGapS7 (7x7) and LavaCrossingS9N2 (9x9), 128 sweeps, and
+   FourRooms (19x19), 256 sweeps: the kernel's instance for sizes given at
+   run time, and its lava flag.  V must equal the plain version's exactly;
+   the greedy policy, stepped by ``step_lanes_env``, must reach the goal
+   in exactly ``steps_to_go`` steps with the closed-form return on every
+   layout whose start has V > 0 and ``steps_to_go <= max_steps``; the
+   other layouts are counted.
+8. the kernels line: for each kernel, its launches on the main path (each
    part of it driven with the counts set to 0 just before and read just
    after), its largest difference from the plain version, the times of
    kernel, plain version and bound, its design and route, and the
@@ -61,6 +81,26 @@ KEY16_ENV, KEY16_B, KEY16_SWEEPS = "MiniGrid-DoorKey-16x16-v0", 32, 24
 VI_MANY_DOORS = (("MiniGrid-DoorKey-8x8-v0", 3), ("MiniGrid-DoorKey-5x5-v0", 4))
 KEY_ATOL = 1e-6
 RETURN_ATOL = 1e-5
+# Family rollouts, (B, T, pool rounds): BASELINE.json config 4 (LavaCrossing
+# and DynamicObstacles), the JAX bench's per-family sweep (Fetch, Memory),
+# BASELINE.json config 2 (Empty, FourRooms); every other id at FAMILY_OTHER.
+FAMILY_RUNS = {
+    "MiniGrid-LavaCrossingS9N2-v0": (32768, 400, 2),
+    "MiniGrid-Dynamic-Obstacles-8x8-v0": (32768, 400, 2),
+    "MiniGrid-Fetch-8x8-N3-v0": (16384, 256, 2),
+    "MiniGrid-MemoryS17Random-v0": (16384, 256, 2),
+    "MiniGrid-Empty-8x8-v0": (4096, 256, 2),
+    "MiniGrid-FourRooms-v0": (4096, 256, 2),
+}
+FAMILY_OTHER = (4096, 64, 2)
+CPU_LANES, CPU_STEPS = 256, 64  # the card-against-CPU check of each family
+DYN_OBS_STEPS = 64  # steps of the DynamicObstacles reward and ball checks
+# B1 on the families' layouts: (env, sweeps), 1024 layouts each.
+VI_FAMILIES = (
+    ("MiniGrid-LavaGapS7-v0", 128),
+    ("MiniGrid-LavaCrossingS9N2-v0", 128),
+    ("MiniGrid-FourRooms-v0", 256),
+)
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): HBM bandwidth, and
 # float32 operations outside the tensor cores.  The data sheet's 67 TFLOP/s
@@ -175,11 +215,153 @@ def check_doorkey_pool(pool, h: int, w: int) -> int:
     return n
 
 
+def check_dynamic_obstacles(ls, params, n_obs: int) -> torch.Tensor:
+    """A (B,) bool per lane of a lane-major DynamicObstacles state: exactly
+    ``n_obs`` blue balls, each named by its aux slots (2i, 2i+1), on n_obs
+    distinct cells.  Stays on the card."""
+    from minigrid_dynamicprogramming_tpu_torch.core.constants import COLOR_BLUE, OBJ_BALL
+
+    w = params.width
+    balls = ls.grid_obj == OBJ_BALL
+    ok = (balls.sum(dim=0) == n_obs) & ((ls.grid_color == COLOR_BLUE) | ~balls).all(dim=0)
+    cells = ls.aux[1:2 * n_obs:2] * w + ls.aux[0:2 * n_obs:2]  # (n_obs, B)
+    ok &= balls.gather(0, cells.long()).all(dim=0)
+    for i in range(n_obs):
+        for j in range(i):
+            ok &= cells[i] != cells[j]
+    return ok
+
+
+def family_rollouts(make, L, card: str) -> dict:
+    """Phase 6: every registered id but DoorKey's, at its FAMILY_RUNS size;
+    the card-against-CPU check of each id whose hooks draw nothing; the
+    DynamicObstacles invariants."""
+    from minigrid_dynamicprogramming_tpu_torch import registered_ids
+    from minigrid_dynamicprogramming_tpu_torch.core.constants import OBJ_BALL
+
+    dev = torch.device(DEVICE)
+    out = {}
+    for k, env_id in enumerate(i for i in registered_ids() if "DoorKey" not in i):
+        env = make(env_id)
+        B, T, R = FAMILY_RUNS.get(env_id, FAMILY_OTHER)
+        g = gen(100 + k)
+        g_again = torch.Generator(device=DEVICE).set_state(g.get_state())
+        t0 = time.perf_counter()
+        res = L.lane_rollout(env, g, B, T, pool_rounds=R, device=DEVICE)
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        require(bool(torch.isfinite(res.total_reward)), f"{env_id}: finite total reward")
+        if T > env.params.max_steps:
+            require(int(res.resets_per_env.min()) >= 1, f"{env_id}: every lane reset")
+        entry = {
+            "B": B, "T": T, "pool_rounds": R, "s": s, "env_steps_per_s": B * T / s,
+            "episodes": int(res.episodes), "total_reward": float(res.total_reward),
+            "card": card,
+        }
+        # The same pool and the run's first actions, replayed from the
+        # generator's state (hooks that draw nothing leave it alone).
+        hooked = env.pre_step_lanes is not None or env.post_step_lanes is not None
+        pool = L._lane_pool(env, g_again, B, "pool", R, dev)
+        if hooked and env.hook_rng:
+            n_obs = int((pool.grid_obj[0, :, 0] == OBJ_BALL).sum())
+            require(bool(check_dynamic_obstacles(res.final_state, env.params, n_obs).all()),
+                    f"{env_id}: the final state holds {n_obs} balls named by aux")
+            entry["dyn_obs"] = dynamic_obstacles_steps(env, L, pool, n_obs, g_again)
+        else:
+            acts = torch.stack([
+                torch.randint(0, env.action_dim, (B,), generator=g_again, device=dev,
+                              dtype=torch.int32)
+                for _ in range(CPU_STEPS)
+            ])[:, :CPU_LANES]
+            sub = L.LaneState(**{n: getattr(pool, n)[..., :CPU_LANES] for n in L._FIELDS})
+            on_card = L._lane_scan(env, None, sub, CPU_LANES, CPU_STEPS, "pool", R, acts)
+            cpu_pool = L.LaneState(**{n: getattr(sub, n).cpu() for n in L._FIELDS})
+            on_cpu = L._lane_scan(env, None, cpu_pool, CPU_LANES, CPU_STEPS, "pool", R, acts.cpu())
+            for n in L._FIELDS:
+                require(torch.equal(getattr(on_card.final_state, n).cpu(),
+                                    getattr(on_cpu.final_state, n)),
+                        f"{env_id}: card and CPU agree on {n}")
+            require(torch.equal(on_card.resets_per_env.cpu(), on_cpu.resets_per_env),
+                    f"{env_id}: card and CPU agree on resets")
+            require(int(on_card.episodes) == int(on_cpu.episodes), f"{env_id}: episodes")
+            require(int(on_card.obs_checksum) == int(on_cpu.obs_checksum), f"{env_id}: checksum")
+            entry["card_equals_cpu"] = {"lanes": CPU_LANES, "steps": CPU_STEPS}
+        print(
+            f"[family] {env_id} B={B} T={T} pool={R}: {s:.3f} s, {B * T / s:.4g} env-steps/s "
+            f"({card}); episodes {entry['episodes']}; "
+            + ("card == CPU" if "card_equals_cpu" in entry else f"dyn_obs {entry['dyn_obs']}"),
+            flush=True,
+        )
+        out[env_id] = entry
+        del res, pool
+    return out
+
+
+def dynamic_obstacles_steps(env, L, pool, n_obs: int, g) -> dict:
+    """DYN_OBS_STEPS steps of ``step_lanes_env`` from pool round 0: after
+    every step each lane keeps its balls (``check_dynamic_obstacles``) and
+    every reward is 0, -1 or in (0, 1]."""
+    ls = L.LaneState(**{n: getattr(pool, n)[0] for n in L._FIELDS})
+    ok = torch.ones_like(ls.terminated)
+    rewards_ok = torch.ones_like(ls.terminated)
+    collisions = torch.zeros((), dtype=torch.int64, device=DEVICE)
+    for _ in range(DYN_OBS_STEPS):
+        act = torch.randint(0, env.action_dim, ls.terminated.shape, generator=g,
+                            device=DEVICE, dtype=torch.int32)
+        ls, r, _ = L.step_lanes_env(env, ls, act, g)
+        ok &= check_dynamic_obstacles(ls, env.params, n_obs)
+        rewards_ok &= (r == 0) | (r == -1) | ((r > 0) & (r <= 1))
+        collisions += (r == -1).sum()
+    require(bool(ok.all()), f"{env.env_id}: {n_obs} balls named by aux after every step")
+    require(bool(rewards_ok.all()), f"{env.env_id}: rewards are 0, -1 or in (0, 1]")
+    require(int(collisions) > 0, f"{env.env_id}: some lane collided")
+    return {"n_obs": n_obs, "steps": DYN_OBS_STEPS, "collisions": int(collisions)}
+
+
+def greedy_optimal(env, states, layouts, v, policy, T, L) -> dict:
+    """Step the greedy policy of a solve with ``step_lanes_env``: on every
+    layout whose start has V > 0 and ``steps_to_go <= max_steps`` it must
+    reach the goal in exactly ``steps_to_go`` steps with the closed-form
+    return; the other layouts are counted."""
+    p = env.params
+    b = v.shape[0]
+    dev = v.device
+    vals = T.state_value(v, layouts, states)
+    dists = T.steps_to_go(vals, GAMMA)
+    solvable = (vals > 0) & (dists <= p.max_steps)
+    require(bool(solvable.any()), f"{env.env_id}: some start reaches the goal in time")
+    ls = L.to_lanes(states)
+    done = torch.zeros(b, dtype=torch.bool, device=dev)
+    steps = torch.zeros(b, dtype=torch.float32, device=dev)
+    rew = torch.zeros(b, dtype=torch.float32, device=dev)
+    for t in range(int(dists[solvable].max()) + 1):
+        act = T.greedy_action(policy, layouts, L.from_lanes(p, ls))
+        ls, r, term = L.step_lanes_env(env, ls, act)
+        newly = term & ~done
+        rew = torch.where(newly, r, rew)
+        steps = torch.where(newly, float(t + 1), steps)
+        done |= term
+    want_r = T.env_return(vals, GAMMA, 0, p.max_steps)
+    require(bool(done[solvable].all()), f"{env.env_id}: every solvable env terminated")
+    require(bool((rew[solvable] > 0).all()), f"{env.env_id}: every solvable env reached the goal")
+    require(torch.equal(steps[solvable], dists[solvable].to(steps.dtype)),
+            f"{env.env_id}: each in exactly steps_to_go steps")
+    r_err = float((rew - want_r)[solvable].abs().max())
+    require(r_err <= RETURN_ATOL, f"{env.env_id}: returns within {RETURN_ATOL} of env_return")
+    return {
+        "layouts": b, "solved": int(solvable.sum()),
+        "steps": [int(dists[solvable].min()), int(dists[solvable].max())],
+        "return_err": r_err, "others": int((~solvable).sum()),
+        "others_are": f"V = 0 or steps_to_go > max_steps = {p.max_steps}",
+    }
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write the results as JSON to this file")
     args = parser.parse_args(argv)
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
         return 1
@@ -471,8 +653,49 @@ def main(argv=None) -> int:
     )
     results["greedy"] = {"layouts": VI_B, "max_steps_to_go": int(dists.max()), "return_err": r_err}
 
-    # 6. Kernels line, card, ok.
+    # 6. The other families' rollouts; no kernel is on this path.
+    results["families"], counts = drive("family rollouts", lambda: family_rollouts(make, L, card))
+    require(not any(counts.values()), "the family rollouts launch no VI kernel")
+
+    # 7. B1 on the families' layouts: sizes given at run time, and lava.
+    results["vi_families"] = []
+    for env_id, sweeps in VI_FAMILIES:
+        fam = make(env_id)
+        (states, layouts, v, policy), counts = drive(
+            f"solve {env_id}",
+            lambda: T.solve(fam, gen(6), VI_B, GAMMA, sweeps, max_doors=1, device=DEVICE),
+        )
+        require(counts["vi"] == 1, f"solve launched the B1 kernel once on {env_id}")
+        err = float((v - T.vi_values(layouts, GAMMA, sweeps)).abs().max())
+        require(err == 0.0, f"B1 equals its plain version on {env_id}")
+        greedy = greedy_optimal(fam, states, layouts, v, policy, T, L)
+        print(f"[greedy] {env_id}, {sweeps} sweeps: {greedy}", flush=True)
+        results["vi_families"].append({"env": env_id, "sweeps": sweeps, **greedy})
+        h_f, w_f = fam.params.height, fam.params.width
+        masks = cuda_vi.vi_masks(layouts)
+        C, D = v.shape[1], layouts.n_doors
+        lpb, G = cuda_vi.vi_plan(C, D, h_f * w_f)
+        kernel_row(
+            f"vi_{env_id.split('-')[1]}", f"{CSRC}/vi.cu", f"{PALLAS_VI}:201", counts["vi"], err,
+            lambda: cuda_vi.cuda_value_iteration(layouts, GAMMA, sweeps),
+            lambda: cuda_vi._vi_kernel(masks, GAMMA, sweeps, v.shape),
+            lambda: T.vi_values(layouts, GAMMA, sweeps),
+            cuda_vi.vi_work(layouts, sweeps), reps=10,
+            design="a thread per (cell, config group) with its 4 directions and per-cell data "
+            "in registers; V in shared memory; grid size given at run time; lava in the mask",
+            kernel_route="shared", route_launches={"shared": counts["vi"]},
+            shape=f"{VI_B} layouts {h_f}x{w_f}, {sweeps} sweeps, max_doors 1",
+            layouts_per_block=lpb, config_groups=G, threads_per_block=lpb * G * h_f * w_f,
+            walk_bits=cuda_vi.vi_walk_bits(C),
+            shared_bytes=cuda_vi.vi_shared_bytes(C, D, h_f * w_f, lpb),
+            compiled=compiled(ptxas, f"vi_kernelILi{cuda_vi.vi_walk_bits(C)}ELi0ELi0E"),
+        )
+        del states, layouts, v, policy, masks
+
+    # 8. Kernels line, card, ok.
     results["kernels"] = kernels
+    results["total_s"] = time.perf_counter() - t_start
+    print(f"[chip_smoke] {results['total_s']:.1f} s in all, the build included", flush=True)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}
     if args.out:
         with open(args.out, "w") as f:

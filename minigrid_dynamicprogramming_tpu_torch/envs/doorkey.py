@@ -86,4 +86,4 @@ def make_doorkey(
         )
         return state
 
-    return Environment(env_id, params, generate)
+    return Environment(env_id, params, generate, mission_text=lambda codes: MISSION)

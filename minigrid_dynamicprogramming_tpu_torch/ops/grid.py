@@ -6,11 +6,13 @@ tensors (one value per env).  Random draws take an explicit
 ``torch.Generator`` that lives on the state's device.
 
 ``place_obj``/``place_agent`` keep the reference's semantics — rejection
-sampling of a uniform proposal, which is a uniform draw over the valid
-cells — as one uniform rank pick over a validity mask, exactly like the JAX
-version's categorical draw (the two draw different numbers; the layouts
-agree in distribution).  The proposal-rectangle arguments (``top``/``size``)
-of the JAX builders wait for the env families that use them.
+sampling of a uniform proposal (the ``top``/``size`` rectangle), which is a
+uniform draw over the valid cells — as one uniform rank pick over a
+validity mask, exactly like the JAX version's categorical draw (the two
+draw different numbers; the layouts agree in distribution).  Object codes
+and colors may also be ``(B,)`` tensors.  ``randint`` and ``permutation``
+stand for ``jax.random.randint`` with per-env bounds and
+``jax.random.permutation``, drawn for the whole batch from the generator.
 """
 
 from __future__ import annotations
@@ -44,23 +46,31 @@ def coord_grids(height: int, width: int, device) -> Tuple[torch.Tensor, torch.Te
     return ys.expand(height, width), xs.expand(height, width)
 
 
+def _cell_value(v, plane: torch.Tensor):
+    """An int stays an int; a (B,) tensor becomes (B, 1, 1) of the plane's
+    dtype."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=plane.device, dtype=plane.dtype).reshape(-1, 1, 1)
+    return v
+
+
 def paint(
     state: EnvState,
     mask: torch.Tensor,
-    obj: int,
-    color: int,
-    obj_state: int = 0,
+    obj,
+    color,
+    obj_state=0,
     contains_obj: int = OBJ_EMPTY,
     contains_color: int = 0,
 ) -> EnvState:
-    """Set every cell where ``mask`` ((H, W) or (B, H, W)) is True."""
+    """Set every cell where ``mask`` ((H, W) or (B, H, W)) is True; each
+    value is an int or a (B,) tensor."""
     values = (obj, color, obj_state, contains_obj, contains_color)
-    return state.replace(
-        **{
-            name: torch.where(mask, val, getattr(state, name))
-            for name, val in zip(_PLANES, values)
-        }
-    )
+    out = {}
+    for name, val in zip(_PLANES, values):
+        plane = getattr(state, name)
+        out[name] = torch.where(mask, _cell_value(val, plane), plane)
+    return state.replace(**out)
 
 
 def cell_mask(height: int, width: int, x, y, device) -> torch.Tensor:
@@ -73,9 +83,9 @@ def put_obj(
     state: EnvState,
     x,
     y,
-    obj: int,
-    color: int,
-    obj_state: int = 0,
+    obj,
+    color,
+    obj_state=0,
     contains_obj: int = OBJ_EMPTY,
     contains_color: int = 0,
 ) -> EnvState:
@@ -85,10 +95,52 @@ def put_obj(
     return paint(state, mask, obj, color, obj_state, contains_obj, contains_color)
 
 
+def set_agent(state: EnvState, x, y, agent_dir) -> EnvState:
+    """Put every env's agent at (x, y) facing ``agent_dir``; each is an int
+    or a (B,) tensor."""
+    b, dev = state.agent_pos.shape[0], state.agent_pos.device
+
+    def per_env(v):
+        return torch.as_tensor(v, dtype=torch.int32, device=dev).expand(b)
+
+    return state.replace(
+        agent_pos=torch.stack([per_env(x), per_env(y)], dim=1),
+        agent_dir=per_env(agent_dir).clone(),
+    )
+
+
+def clear_cell(state: EnvState, x, y) -> EnvState:
+    return put_obj(state, x, y, OBJ_EMPTY, 0, 0)
+
+
+def horz_wall_mask(height: int, width: int, x, y, length, device) -> torch.Tensor:
+    ys, xs = coord_grids(height, width, device)
+    x, y, length = (_per_env(v, device) for v in (x, y, length))
+    return (ys == y) & (xs >= x) & (xs < x + length)
+
+
 def vert_wall_mask(height: int, width: int, x, y, length, device) -> torch.Tensor:
     ys, xs = coord_grids(height, width, device)
     x, y, length = (_per_env(v, device) for v in (x, y, length))
     return (xs == x) & (ys >= y) & (ys < y + length)
+
+
+def horz_wall(
+    state: EnvState, x: int, y: int, length: Optional[int] = None,
+    obj: int = OBJ_WALL, color: int = COLOR_GREY,
+) -> EnvState:
+    _, h, w = state.grid_obj.shape
+    length = w - x if length is None else length
+    return paint(state, horz_wall_mask(h, w, x, y, length, state.grid_obj.device), obj, color)
+
+
+def vert_wall(
+    state: EnvState, x: int, y: int, length: Optional[int] = None,
+    obj: int = OBJ_WALL, color: int = COLOR_GREY,
+) -> EnvState:
+    _, h, w = state.grid_obj.shape
+    length = h - y if length is None else length
+    return paint(state, vert_wall_mask(h, w, x, y, length, state.grid_obj.device), obj, color)
 
 
 def wall_rect(state: EnvState, x: int, y: int, w: int, h: int) -> EnvState:
@@ -100,6 +152,37 @@ def wall_rect(state: EnvState, x: int, y: int, w: int, h: int) -> EnvState:
         (xs == x) | (xs == x + w - 1) | (ys == y) | (ys == y + h - 1)
     )
     return paint(state, border, OBJ_WALL, COLOR_GREY)
+
+
+def rect_mask(height: int, width: int, top, size, device) -> torch.Tensor:
+    """Cells in the half-open rectangle [top, top + size), clipped to the
+    grid: the proposal region of ``place_obj``.  ``top`` entries may be
+    (B,) tensors."""
+    ys, xs = coord_grids(height, width, device)
+    tx, ty = (_per_env(t, device) for t in top)
+    tx = tx.clamp(min=0) if isinstance(tx, torch.Tensor) else max(tx, 0)
+    ty = ty.clamp(min=0) if isinstance(ty, torch.Tensor) else max(ty, 0)
+    return (xs >= tx) & (xs < tx + size[0]) & (ys >= ty) & (ys < ty + size[1])
+
+
+def randint(generator: torch.Generator, low, high, batch: int, device) -> torch.Tensor:
+    """(B,) int32 uniform draws from [low, high); each bound is an int or a
+    (B,) tensor.  Per-env bounds draw a uniform rank, as
+    :func:`sample_mask_pos` does."""
+    if not isinstance(low, torch.Tensor) and not isinstance(high, torch.Tensor):
+        return torch.randint(
+            low, high, (batch,), generator=generator, device=device, dtype=torch.int32
+        )
+    n = torch.as_tensor(high - low, device=device).to(torch.int64)
+    u = torch.rand(batch, generator=generator, device=device)
+    rank = torch.minimum((u * n.to(torch.float32)).to(torch.int64), n - 1)
+    return (low + rank).to(torch.int32)
+
+
+def permutation(generator: torch.Generator, batch: int, n: int, device) -> torch.Tensor:
+    """(B, n) int64: a uniform permutation of range(n) per env."""
+    u = torch.rand((batch, n), generator=generator, device=device)
+    return u.argsort(dim=1)
 
 
 def sample_mask_pos(
@@ -134,23 +217,38 @@ def free_cell_mask(state: EnvState) -> torch.Tensor:
     return (state.grid_obj == OBJ_EMPTY) & not_agent
 
 
+def _valid_cells(state: EnvState, top, size, reject_mask) -> torch.Tensor:
+    """Free cells inside the proposal rectangle (the whole grid unless
+    ``top`` or ``size`` is given) that ``reject_mask`` does not mark."""
+    valid = free_cell_mask(state)
+    if top is not None or size is not None:
+        _, h, w = state.grid_obj.shape
+        top = (0, 0) if top is None else top
+        size = (w, h) if size is None else size
+        valid = valid & rect_mask(h, w, top, size, valid.device)
+    if reject_mask is not None:
+        valid = valid & ~reject_mask
+    return valid
+
+
 def place_obj(
     generator: torch.Generator,
     state: EnvState,
-    obj: int,
-    color: int,
-    obj_state: int = 0,
+    obj,
+    color,
+    obj_state=0,
+    top=None,
+    size=None,
     reject_mask: Optional[torch.Tensor] = None,
     contains_obj: int = OBJ_EMPTY,
     contains_color: int = 0,
 ):
     """Place ``obj`` uniformly over valid cells.  Returns (state, (x, y), ok).
 
-    ``reject_mask`` marks disallowed cells.  Envs with no valid cell keep
-    their grid unchanged (ok False)."""
-    valid = free_cell_mask(state)
-    if reject_mask is not None:
-        valid = valid & ~reject_mask
+    ``top``/``size`` bound the proposal rectangle; ``reject_mask`` marks
+    disallowed cells.  Envs with no valid cell keep their grid unchanged
+    (ok False)."""
+    valid = _valid_cells(state, top, size, reject_mask)
     x, y, ok = sample_mask_pos(generator, valid)
     _, h, w = state.grid_obj.shape
     mask = cell_mask(h, w, x, y, valid.device) & ok.reshape(-1, 1, 1)
@@ -161,14 +259,14 @@ def place_obj(
 def place_agent(
     generator: torch.Generator,
     state: EnvState,
+    top=None,
+    size=None,
     rand_dir: bool = True,
     reject_mask: Optional[torch.Tensor] = None,
 ):
-    """Sample an empty cell (and a direction) for the agent.
-    Returns (state, ok)."""
-    valid = free_cell_mask(state)
-    if reject_mask is not None:
-        valid = valid & ~reject_mask
+    """Sample an empty cell (and a direction) for the agent, inside the
+    ``top``/``size`` rectangle.  Returns (state, ok)."""
+    valid = _valid_cells(state, top, size, reject_mask)
     x, y, ok = sample_mask_pos(generator, valid)
     b = valid.shape[0]
     if rand_dir:

@@ -428,13 +428,39 @@ def obs_image_lanes(params: EnvParams, ls: LaneState) -> torch.Tensor:
     return img.permute(3, 1, 0, 2).contiguous()  # [B, vx, vy, 3]
 
 
+def supports_lanes(env: Environment) -> bool:
+    """True when the lane engine covers the env's semantics: the core MDP
+    plus hooks in the lane-major slots.  The port's record has no other
+    slots, so this holds for every record whose hooks are callables."""
+    hooks = (env.action_map, env.pre_step_lanes, env.post_step_lanes)
+    return all(h is None or callable(h) for h in hooks)
+
+
 def step_lanes_env(
-    env: Environment, ls: LaneState, action: torch.Tensor
+    env: Environment,
+    ls: LaneState,
+    action: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
 ) -> Tuple[LaneState, torch.Tensor, torch.Tensor]:
-    """:func:`step_lanes` under the env's params.  Hooked families are not
-    ported yet (their ``Environment`` refuses to build), so there are no
-    per-family hooks to run here."""
-    return step_lanes(env.params, ls, action)
+    """:func:`step_lanes` with the env's per-family hooks, in the JAX
+    order: ``action_map``; ``prev`` taken after the map and before
+    ``pre_step_lanes``; the core step; ``post_step_lanes``, whose
+    termination goes onto the state.  ``generator`` feeds hooks that draw
+    (``env.hook_rng``).  Returns ``(new_state, reward, terminated)``;
+    ``truncated`` lives on the state."""
+    params = env.params
+    if env.action_map is not None:
+        action = env.action_map(params, action)
+    prev = ls
+    if env.pre_step_lanes is not None:
+        ls = env.pre_step_lanes(params, generator, ls, action)
+    ls, reward, term = step_lanes(params, ls, action)
+    if env.post_step_lanes is not None:
+        ls, reward, term = env.post_step_lanes(
+            params, generator, prev, ls, action, reward, term
+        )
+        ls = ls.replace(terminated=term)
+    return ls, reward, term
 
 
 class LaneRolloutResult(NamedTuple):
@@ -450,11 +476,12 @@ def _select_lanes(
     done: torch.Tensor, fresh: LaneState, cur: LaneState, skip: tuple = ()
 ) -> LaneState:
     """Per-lane ``where(done, fresh, cur)``; fields in ``skip`` keep the
-    current value (planes that are constant for the env family)."""
+    current value (planes that are constant for the env family), as do
+    fields that are one tensor in both."""
     out = {}
     for name in _FIELDS:
         a, b = getattr(fresh, name), getattr(cur, name)
-        out[name] = b if name in skip else torch.where(done, a, b)
+        out[name] = b if name in skip or a is b else torch.where(done, a, b)
     return LaneState(**out)
 
 
@@ -531,6 +558,8 @@ def _lane_pool(
 ) -> LaneState:
     """``rounds`` generated layout batches, lane-major, stacked on a leading
     rounds axis."""
+    if not supports_lanes(env):
+        raise ValueError(f"{env.env_id}: the lane engine does not cover its hooks")
     rounds = _rounds(autoreset, pool_rounds)
     flat = env.generate(generator, env.params, rounds * batch_size, device)
     per_round = [
@@ -562,7 +591,9 @@ def _lane_scan(
     pool_rounds: int,
     actions: Optional[torch.Tensor] = None,
 ) -> LaneRolloutResult:
-    """Step ``horizon`` times from round 0 of ``pool`` with autoreset."""
+    """Step ``horizon`` times from round 0 of ``pool`` with autoreset.
+    The hooks draw from ``generator`` after each step's actions, and only
+    where ``env.hook_rng``."""
     rounds = _rounds(autoreset, pool_rounds)
     dev = pool.grid_obj.device
     if actions is None:
@@ -573,6 +604,10 @@ def _lane_scan(
             f"actions must be ({horizon}, {batch_size}), got {tuple(actions.shape)}"
         )
     params = env.params
+    hooked = env.pre_step_lanes is not None or env.post_step_lanes is not None
+    hook_gen = generator if hooked and env.hook_rng else None
+    if hooked and env.hook_rng and generator is None:
+        raise ValueError(f"{env.env_id}: its hooks draw; pass a generator")
     skip = _skip_fields(params)
     init_ls = LaneState(**{name: getattr(pool, name)[0] for name in _FIELDS})
 
@@ -589,7 +624,7 @@ def _lane_scan(
             )
         else:
             act = actions[t].to(dev)
-        ls, reward, term = step_lanes_env(env, ls, act)
+        ls, reward, term = step_lanes_env(env, ls, act, hook_gen)
         done = term | ls.truncated
         reset_count = reset_count + done.to(torch.int32)
         if autoreset == "pool":

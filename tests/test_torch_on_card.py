@@ -14,7 +14,11 @@ kernel has two routes, chosen from the shape (``cuda_vi.key_vi_route``):
 the cluster route is held here at DoorKey-6x6 (a cluster of 2) and
 DoorKey-8x8 (clusters of 4 and 8, and every cluster size the kernel
 takes), the global route at DoorKey-16x16; each case checks which route's
-launch count moved.
+launch count moved.  The restricted-domain kernel's instance for grid
+sizes given at run time (and its lava flag) is held on LavaGapS7 (7x7),
+LavaCrossingS9N2 (9x9) and FourRooms (19x19, 361 threads a block; at two
+door slots 208,080 bytes of shared memory), and a hook-free and a
+post-step family roll out equal on the card and on the CPU.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import minigrid_dynamicprogramming_tpu_torch as port
 from minigrid_dynamicprogramming_tpu_torch.dp import cuda_vi
 from minigrid_dynamicprogramming_tpu_torch.dp import tabular as ttab
 from minigrid_dynamicprogramming_tpu_torch.dp import tabular_key as tkey
+from minigrid_dynamicprogramming_tpu_torch.parallel import lanes as tlanes
 
 GAMMA = 0.995
 
@@ -70,6 +75,46 @@ def test_vi_kernel_equals_plain(card, env_id, max_doors):
     want = ttab.value_iteration(layouts, GAMMA, 96)[0]
     assert (want > 0).any()
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_doors", [1, 2])
+@pytest.mark.parametrize("env_id", [
+    "MiniGrid-LavaGapS7-v0", "MiniGrid-LavaCrossingS9N2-v0", "MiniGrid-FourRooms-v0",
+])
+def test_vi_kernel_run_time_size_equals_plain(card, env_id, max_doors):
+    """Grid sizes with no compile-time instance, lava in the layouts."""
+    layouts = ttab.extract_layout(_states(card, env_id, 13, seed=6), max_doors)
+    assert layouts.lava.any() or env_id == "MiniGrid-FourRooms-v0"
+    before = cuda_vi.cuda_value_iteration.launches
+    got = cuda_vi.cuda_value_iteration(layouts, GAMMA, 64)
+    torch.cuda.synchronize()
+    assert cuda_vi.cuda_value_iteration.launches == before + 1
+    want = ttab.value_iteration(layouts, GAMMA, 64)[0]
+    assert (want > 0).any()
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env_id", ["MiniGrid-LavaGapS7-v0", "MiniGrid-PutNear-8x8-N3-v0"])
+def test_family_rollout_card_equals_cpu(card, env_id):
+    """The same pool and actions step alike on the card and on the CPU,
+    the path the CPU tests hold against JAX."""
+    env = port.make(env_id)
+    b, horizon, rounds = 128, 96, 3
+    g = torch.Generator(device=card).manual_seed(8)
+    pool = tlanes._lane_pool(env, g, b, "pool", rounds, card)
+    acts = torch.randint(0, env.action_dim, (horizon, b), generator=g, device=card,
+                         dtype=torch.int32)
+    on_card = tlanes._lane_scan(env, None, pool, b, horizon, "pool", rounds, acts)
+    cpu_pool = tlanes.LaneState(**{n: getattr(pool, n).cpu() for n in tlanes._FIELDS})
+    on_cpu = tlanes._lane_scan(env, None, cpu_pool, b, horizon, "pool", rounds, acts.cpu())
+    assert int(on_cpu.episodes) > 0
+    for n in tlanes._FIELDS:
+        assert torch.equal(getattr(on_card.final_state, n).cpu(), getattr(on_cpu.final_state, n)), n
+    assert torch.equal(on_card.resets_per_env.cpu(), on_cpu.resets_per_env)
+    assert int(on_card.episodes) == int(on_cpu.episodes)
+    assert int(on_card.obs_checksum) == int(on_cpu.obs_checksum)
 
 
 def _key_vi_on_route(layouts, n_sweeps: int, route):

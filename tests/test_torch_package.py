@@ -23,6 +23,7 @@ from minigrid_dynamicprogramming_tpu.parallel import lanes as jlanes
 import minigrid_dynamicprogramming_tpu_torch as port
 from minigrid_dynamicprogramming_tpu_torch.bridge import from_numpy, to_numpy
 from minigrid_dynamicprogramming_tpu_torch.core import constants as tconst
+from minigrid_dynamicprogramming_tpu_torch.core.env import Environment
 from minigrid_dynamicprogramming_tpu_torch.core.state import EnvState
 from minigrid_dynamicprogramming_tpu_torch.dp import tabular, tabular_key
 from minigrid_dynamicprogramming_tpu_torch.parallel import lanes as tlanes
@@ -79,7 +80,7 @@ def test_constants_equal_jax():
 
 def test_registry_ids_and_flags_equal_jax():
     ids = port.registered_ids()
-    assert ids == sorted(f"MiniGrid-DoorKey-{s}x{s}-v0" for s in (5, 6, 8, 16))
+    assert len(ids) == 49 and set(ids) <= set(mgtpu.registered_ids())
     for env_id in ids:
         jenv, tenv = mgtpu.make(env_id), port.make(env_id)
         fields = ("width", "height", "max_steps", "see_through_walls",
@@ -87,8 +88,30 @@ def test_registry_ids_and_flags_equal_jax():
         for f in fields:
             assert getattr(tenv.params, f) == getattr(jenv.params, f), (env_id, f)
         assert tenv.action_dim == jenv.action_dim
+        assert tenv.hook_rng == jenv.hook_rng, env_id
+        assert tenv.reward_range == tuple(jenv.reward_range), env_id
+        for hook in ("action_map", "post_step_lanes"):
+            assert (getattr(tenv, hook) is None) == (getattr(jenv, hook) is None), (env_id, hook)
+        # JAX's DynamicObstacles draws in its batch-first pre_step; the
+        # port registers that hook lane-major only.
+        assert (tenv.pre_step_lanes is None) == (
+            jenv.pre_step_lanes is None and jenv.pre_step is None
+        ), env_id
     with pytest.raises(KeyError, match="not ported"):
-        port.make("MiniGrid-Empty-8x8-v0")
+        port.make("MiniGrid-KeyCorridorS3R1-v0")
+
+
+@pytest.mark.parametrize("env_id", ["MiniGrid-MultiRoom-N2-S4-v0", "MiniGrid-MultiRoom-N6-v0"])
+def test_multiroom_is_refused(env_id):
+    """MultiRoom needs the pooled generator, which is not ported: ``make``
+    raises, and a record given ``generate_batch`` refuses to build."""
+    assert env_id in mgtpu.registered_ids()
+    assert mgtpu.make(env_id).generate_batch is not None
+    with pytest.raises(KeyError, match="not ported"):
+        port.make(env_id)
+    env = port.make(ENV_ID)
+    with pytest.raises(NotImplementedError, match="generate_batch"):
+        Environment(env_id, env.params, env.generate, generate_batch=env.generate)
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
