@@ -29,7 +29,8 @@ Phases (any failure raises, exits nonzero and prints no "ok" line):
    ``step_lanes`` on the card, reaches the goal in every layout in exactly
    ``steps_to_go`` steps with the closed-form return.
 6. families: ``lane_rollout`` with pool autoreset on every other
-   registered id, layouts generated on the card: LavaCrossingS9N2 and
+   registered id but the RoomGrid families of phase 8, layouts generated
+   on the card: LavaCrossingS9N2 and
    Dynamic-Obstacles-8x8 at B=32768, T=400, two pool rounds (both step
    limits are below T, so every lane resets); Fetch-8x8-N3 and
    MemoryS17Random at B=16384, T=256; Empty-8x8 and FourRooms at B=4096,
@@ -48,7 +49,29 @@ Phases (any failure raises, exits nonzero and prints no "ok" line):
    in exactly ``steps_to_go`` steps with the closed-form return on every
    layout whose start has V > 0 and ``steps_to_go <= max_steps``; the
    other layouts are counted.
-8. the kernels line: for each kernel, its launches on the main path (each
+8. RoomGrid families: the same on the 26 ids of KeyCorridor, MultiRoom,
+   ObstructedMaze, Unlock, UnlockPickup, BlockedUnlockPickup and
+   Playground: KeyCorridorS6R3, MultiRoom-N6 and ObstructedMaze-Full-v1 at
+   B=16384, T=256, two pool rounds (the JAX bench's per-family sweep), the
+   others at B=4096, T=64.  No hook of theirs draws, so each replays on the
+   CPU as in phase 6.  MultiRoom's pooled generator must chain every room
+   in at least as many attempts as it has layouts to give.
+9. B2 on the families' layouts: ``cuda_key_value_iteration`` (128 sweeps)
+   on 512 KeyCorridorS3R2 layouts at six door slots (C = 64, the global
+   route) and 512 ObstructedMaze-1Dl layouts at one (11 wide and 6 high,
+   the cluster route), the target named by aux slots 0-1; every layout has
+   at most that many doors.  V within 1e-6 of the plain version; the
+   greedy policy, stepped by ``step_lanes_env`` with the family's hook,
+   picks up the target in exactly ``key_steps_to_go`` steps with the
+   closed-form return on every layout whose start has V > 0 and
+   ``steps_to_go <= max_steps``; the other layouts are counted.
+10. the obstructed domain, plain PyTorch on the card (it has no kernel):
+   ``obstructed_value_iteration`` (128 sweeps) on 64 BlockedUnlockPickup
+   layouts (the target the box, as the JAX bench picks it) and 64
+   ObstructedMaze-1Dlhb layouts (the target from aux), with the same
+   greedy check; layout-sweeps/s and peak memory; V on the card equal to
+   V on the CPU within 1e-6 on the first two layouts at 16 sweeps.
+11. the kernels line: for each kernel, its launches on the main path (each
    part of it driven with the counts set to 0 just before and read just
    after), its largest difference from the plain version, the times of
    kernel, plain version and bound, its design and route, and the
@@ -95,6 +118,26 @@ FAMILY_RUNS = {
 FAMILY_OTHER = (4096, 64, 2)
 CPU_LANES, CPU_STEPS = 256, 64  # the card-against-CPU check of each family
 DYN_OBS_STEPS = 64  # steps of the DynamicObstacles reward and ball checks
+# The RoomGrid families (phase 8), by id prefix; (B, T, pool rounds) of the
+# JAX bench's per-family sweep (bench.py:442-459) for three of them, every
+# other id at FAMILY_OTHER.
+ROOMGRID_PREFIXES = tuple(f"MiniGrid-{f}" for f in (
+    "KeyCorridor", "MultiRoom", "ObstructedMaze", "Unlock", "BlockedUnlockPickup", "Playground",
+))
+ROOMGRID_RUNS = {
+    "MiniGrid-KeyCorridorS6R3-v0": (16384, 256, 2),
+    "MiniGrid-MultiRoom-N6-v0": (16384, 256, 2),
+    "MiniGrid-ObstructedMaze-Full-v1": (16384, 256, 2),
+}
+# B2 on the families' layouts (phase 9): (env, max_doors), at the JAX key
+# bench's batch (bench.py:141).
+KEY_FAMILIES = (("MiniGrid-KeyCorridorS3R2-v0", 6), ("MiniGrid-ObstructedMaze-1Dl-v0", 1))
+KEY_FAMILY_B, KEY_FAMILY_SWEEPS = 512, 128
+# The obstructed domain (phase 10), one door slot; V is 9.77 MB a layout at
+# 11x6, so 64 layouts hold 625 MB.  Card against CPU on the first layouts.
+OBSTRUCTED = ("MiniGrid-BlockedUnlockPickup-v0", "MiniGrid-ObstructedMaze-1Dlhb-v0")
+OBS_B, OBS_SWEEPS = 64, 128
+OBS_CPU_LAYOUTS, OBS_CPU_SWEEPS = 2, 16
 # B1 on the families' layouts: (env, sweeps), 1024 layouts each.
 VI_FAMILIES = (
     ("MiniGrid-LavaGapS7-v0", 128),
@@ -232,20 +275,28 @@ def check_dynamic_obstacles(ls, params, n_obs: int) -> torch.Tensor:
     return ok
 
 
-def family_rollouts(make, L, card: str) -> dict:
-    """Phase 6: every registered id but DoorKey's, at its FAMILY_RUNS size;
-    the card-against-CPU check of each id whose hooks draw nothing; the
-    DynamicObstacles invariants."""
-    from minigrid_dynamicprogramming_tpu_torch import registered_ids
+def family_rollouts(make, L, card: str, ids, runs: dict, seed: int) -> dict:
+    """Phases 6 and 8: each id at its ``runs`` size (else FAMILY_OTHER); the
+    card-against-CPU check of each id whose hooks draw nothing; the
+    DynamicObstacles invariants; MultiRoom's accepted chain attempts."""
     from minigrid_dynamicprogramming_tpu_torch.core.constants import OBJ_BALL
 
     dev = torch.device(DEVICE)
     out = {}
-    for k, env_id in enumerate(i for i in registered_ids() if "DoorKey" not in i):
+    for k, env_id in enumerate(ids):
         env = make(env_id)
-        B, T, R = FAMILY_RUNS.get(env_id, FAMILY_OTHER)
-        g = gen(100 + k)
+        B, T, R = runs.get(env_id, FAMILY_OTHER)
+        g = gen(seed + k)
         g_again = torch.Generator(device=DEVICE).set_state(g.get_state())
+        if "MultiRoom" in env_id:
+            # The rollout's own pool, from the same generator state, with the
+            # count of attempts that chained every room.
+            _, accepted = env.generate(
+                torch.Generator(device=DEVICE).set_state(g.get_state()), env.params, R * B,
+                DEVICE, return_accepted=True,
+            )
+            require(int(accepted) >= R * B, f"{env_id}: {int(accepted)} attempts chained "
+                    f"every room, at least the {R * B} layouts of the pool")
         t0 = time.perf_counter()
         res = L.lane_rollout(env, g, B, T, pool_rounds=R, device=DEVICE)
         torch.cuda.synchronize()
@@ -258,6 +309,8 @@ def family_rollouts(make, L, card: str) -> dict:
             "episodes": int(res.episodes), "total_reward": float(res.total_reward),
             "card": card,
         }
+        if "MultiRoom" in env_id:
+            entry["accepted_attempts"] = int(accepted)
         # The same pool and the run's first actions, replayed from the
         # generator's state (hooks that draw nothing leave it alone).
         hooked = env.pre_step_lanes is not None or env.post_step_lanes is not None
@@ -289,7 +342,9 @@ def family_rollouts(make, L, card: str) -> dict:
         print(
             f"[family] {env_id} B={B} T={T} pool={R}: {s:.3f} s, {B * T / s:.4g} env-steps/s "
             f"({card}); episodes {entry['episodes']}; "
-            + ("card == CPU" if "card_equals_cpu" in entry else f"dyn_obs {entry['dyn_obs']}"),
+            + ("card == CPU" if "card_equals_cpu" in entry else f"dyn_obs {entry['dyn_obs']}")
+            + (f"; {entry['accepted_attempts']} attempts chained every room"
+               if "accepted_attempts" in entry else ""),
             flush=True,
         )
         out[env_id] = entry
@@ -318,16 +373,16 @@ def dynamic_obstacles_steps(env, L, pool, n_obs: int, g) -> dict:
     return {"n_obs": n_obs, "steps": DYN_OBS_STEPS, "collisions": int(collisions)}
 
 
-def greedy_optimal(env, states, layouts, v, policy, T, L) -> dict:
-    """Step the greedy policy of a solve with ``step_lanes_env``: on every
-    layout whose start has V > 0 and ``steps_to_go <= max_steps`` it must
-    reach the goal in exactly ``steps_to_go`` steps with the closed-form
-    return; the other layouts are counted."""
+def greedy_optimal(env, states, vals, dists, act, T, L) -> dict:
+    """Step a greedy policy with ``step_lanes_env``: ``vals`` and ``dists``
+    are each start's value and steps to go, ``act(state)`` the policy's
+    actions for a batch-first state.  On every layout whose start has V > 0
+    and ``steps_to_go <= max_steps`` it must reach the goal (or pick up the
+    target) in exactly ``steps_to_go`` steps with the closed-form return;
+    the other layouts are counted."""
     p = env.params
-    b = v.shape[0]
-    dev = v.device
-    vals = T.state_value(v, layouts, states)
-    dists = T.steps_to_go(vals, GAMMA)
+    b = vals.shape[0]
+    dev = vals.device
     solvable = (vals > 0) & (dists <= p.max_steps)
     require(bool(solvable.any()), f"{env.env_id}: some start reaches the goal in time")
     ls = L.to_lanes(states)
@@ -335,8 +390,7 @@ def greedy_optimal(env, states, layouts, v, policy, T, L) -> dict:
     steps = torch.zeros(b, dtype=torch.float32, device=dev)
     rew = torch.zeros(b, dtype=torch.float32, device=dev)
     for t in range(int(dists[solvable].max()) + 1):
-        act = T.greedy_action(policy, layouts, L.from_lanes(p, ls))
-        ls, r, term = L.step_lanes_env(env, ls, act)
+        ls, r, term = L.step_lanes_env(env, ls, act(L.from_lanes(p, ls)))
         newly = term & ~done
         rew = torch.where(newly, r, rew)
         steps = torch.where(newly, float(t + 1), steps)
@@ -356,6 +410,149 @@ def greedy_optimal(env, states, layouts, v, policy, T, L) -> dict:
     }
 
 
+def key_families(make, drive, kernel_row, ptxas) -> list:
+    """Phase 9: B2 on the layouts of the families the key domain was
+    written for, one part of the main path each."""
+    from minigrid_dynamicprogramming_tpu_torch.core.constants import OBJ_DOOR
+    from minigrid_dynamicprogramming_tpu_torch.dp import cuda_vi
+    from minigrid_dynamicprogramming_tpu_torch.dp import tabular as T
+    from minigrid_dynamicprogramming_tpu_torch.dp import tabular_key as TK
+    from minigrid_dynamicprogramming_tpu_torch.parallel import lanes as L
+
+    out = []
+    for seed, (env_id, doors) in enumerate(KEY_FAMILIES):
+        fam = make(env_id)
+
+        def path():
+            states = fam.generate(gen(7 + seed), fam.params, KEY_FAMILY_B, device=DEVICE)
+            most = int((states.grid_obj == OBJ_DOOR).sum(dim=(1, 2)).max())
+            require(most <= doors, f"{env_id}: every layout has at most {doors} doors ({most})")
+            layouts = TK.extract_key_layout(states, doors, states.aux[:, 0], states.aux[:, 1])
+            return states, layouts, cuda_vi.cuda_key_value_iteration(
+                layouts, GAMMA, KEY_FAMILY_SWEEPS
+            )
+
+        (states, layouts, v), counts = drive(f"key-domain VI, {env_id}, max_doors={doors}", path)
+        _, K, C, _, h, w = v.shape
+        route, n = cuda_vi.key_vi_route(K, C, h * w)
+        require(counts["key_vi"] == 1 and counts[f"key_vi_{route}"] == 1,
+                f"{env_id}: B2 launched once, on the {route} route")
+        err = float((v - TK.key_vi_values(layouts, GAMMA, KEY_FAMILY_SWEEPS)).abs().max())
+        require(err <= KEY_ATOL, f"B2 within {KEY_ATOL} of its plain version on {env_id}")
+        policy = TK.key_greedy_policy(v, layouts, GAMMA)
+        vals = TK.key_state_value(v, layouts, states)
+        greedy = greedy_optimal(
+            fam, states, vals, TK.key_steps_to_go(vals, GAMMA),
+            lambda s: TK.key_greedy_action(policy, layouts, s), T, L,
+        )
+        entry = {"env": env_id, "max_doors": doors, "K": K, "C": C, "grid": f"{w}x{h}",
+                 "route": route, "cluster": n, "max_abs_err": err, **greedy}
+        print(f"[key_families] {entry}", flush=True)
+        out.append(entry)
+        del policy
+        masks = cuda_vi.key_vi_masks(layouts)
+        if route == "cluster":
+            G = cuda_vi.key_vi_groups(h * w)
+            design = dict(
+                design="V split by key row over a thread-block cluster's shared memory; "
+                "grid size given at run time",
+                cluster=n, groups=G, threads_per_cta=G * h * w,
+                active_clusters=cuda_vi.key_vi_active_clusters(C, h, w, n),
+                shared_bytes=cuda_vi.key_vi_cluster_shared_bytes(C, h * w, n),
+                compiled=compiled(ptxas, "key_vi_cluster_kernelILi0ELi0E"),
+            )
+        else:
+            design = dict(
+                design="V double-buffered in device memory, one block per layout",
+                cluster=None, active_clusters=None, shared_bytes=(C + 2) * 4 * h * w,
+                compiled=compiled(ptxas, "key_vi_global_kernel"),
+            )
+        kernel_row(
+            f"key_vi_{env_id.removeprefix('MiniGrid-').removesuffix('-v0')}",
+            f"{CSRC}/key_vi.cu", f"{PALLAS_VI}:452", counts["key_vi"], err,
+            lambda: cuda_vi.cuda_key_value_iteration(layouts, GAMMA, KEY_FAMILY_SWEEPS),
+            lambda: cuda_vi._key_vi_kernel(masks, GAMMA, KEY_FAMILY_SWEEPS, v.shape),
+            lambda: TK.key_vi_values(layouts, GAMMA, KEY_FAMILY_SWEEPS),
+            cuda_vi.key_vi_work(layouts, KEY_FAMILY_SWEEPS), reps=5,
+            kernel_route=route, route_launches={r: counts[f"key_vi_{r}"] for r in cuda_vi.ROUTES},
+            shape=f"{KEY_FAMILY_B} layouts {w}x{h}, {KEY_FAMILY_SWEEPS} sweeps, "
+            f"max_doors {doors} (K={K}, C={C})",
+            **design,
+        )
+        del states, layouts, v, masks
+    return out
+
+
+def box_target(states):
+    """(type, color) of each layout's first box in raster order, as the JAX
+    bench picks BlockedUnlockPickup's target (bench.py:197-203)."""
+    from minigrid_dynamicprogramming_tpu_torch.core.constants import OBJ_BOX
+
+    b = states.grid_obj.shape[0]
+    flat = (states.grid_obj == OBJ_BOX).reshape(b, -1).to(torch.int8).argmax(dim=1)
+    color = states.grid_color.reshape(b, -1).gather(1, flat[:, None])[:, 0]
+    return torch.full_like(color, OBJ_BOX, dtype=torch.int32), color.to(torch.int32)
+
+
+def obstructed_families(make) -> list:
+    """Phase 10: the obstructed domain on the card, its greedy policy
+    stepped, its V held against the CPU's on the first layouts."""
+    import dataclasses
+
+    from minigrid_dynamicprogramming_tpu_torch.dp import tabular as T
+    from minigrid_dynamicprogramming_tpu_torch.dp import tabular_obstructed as TO
+    from minigrid_dynamicprogramming_tpu_torch.parallel import lanes as L
+
+    out = []
+    for seed, env_id in enumerate(OBSTRUCTED):
+        fam = make(env_id)
+        states = fam.generate(gen(9 + seed), fam.params, OBS_B, device=DEVICE)
+        if "BlockedUnlockPickup" in env_id:
+            t_type, t_color = box_target(states)
+        else:
+            t_type, t_color = states.aux[:, 0], states.aux[:, 1]
+        layouts = TO.extract_obstructed_layout(states, 1, t_type, t_color)
+        hw = layouts.base_walk[0].numel()
+        require(bool((layouts.target_pos >= 0).all() & (layouts.ball0 < hw).all()),
+                f"{env_id}: every layout has its target and a movable ball")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        v, policy = TO.obstructed_value_iteration(layouts, GAMMA, OBS_SWEEPS)
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        vals = TO.obstructed_state_value(v, layouts, states)
+        greedy = greedy_optimal(
+            fam, states, vals, TO.obstructed_steps_to_go(vals, GAMMA),
+            lambda st: TO.obstructed_greedy_action(policy, layouts, st), T, L,
+        )
+        del v, policy
+        # The card against the CPU, on the first layouts at a few sweeps.
+        head = {f.name: getattr(layouts, f.name)[:OBS_CPU_LAYOUTS]
+                for f in dataclasses.fields(layouts)}
+        v_card = TO.obstructed_vi_values(TO.ObstructedLayout(**head), GAMMA, OBS_CPU_SWEEPS)
+        v_cpu = TO.obstructed_vi_values(
+            TO.ObstructedLayout(**{k: t.cpu() for k, t in head.items()}), GAMMA, OBS_CPU_SWEEPS
+        )
+        cpu_err = float((v_card.cpu() - v_cpu).abs().max())
+        require(cpu_err <= KEY_ATOL,
+                f"{env_id}: the obstructed V on the card within {KEY_ATOL} of the CPU's")
+        require(bool((v_cpu > 0).any()),
+                f"{env_id}: some obstructed state pays within {OBS_CPU_SWEEPS} sweeps")
+        entry = {
+            "env": env_id, "layouts": OBS_B, "sweeps": OBS_SWEEPS, "s": s,
+            "layout_sweeps_per_s": OBS_B * OBS_SWEEPS / s,
+            "v_bytes_per_layout": v_cpu[0].numel() * 4, "peak_bytes": peak,
+            "bytes_before": base, "card_vs_cpu_err": cpu_err, **greedy,
+        }
+        print(f"[obstructed] {entry}", flush=True)
+        out.append(entry)
+        del states, layouts, v_card, v_cpu
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write the results as JSON to this file")
@@ -366,7 +563,7 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
         return 1
     try:
-        from minigrid_dynamicprogramming_tpu_torch import _kernels, make
+        from minigrid_dynamicprogramming_tpu_torch import _kernels, make, registered_ids
         from minigrid_dynamicprogramming_tpu_torch.dp import cuda_vi
         from minigrid_dynamicprogramming_tpu_torch.dp import tabular as T
         from minigrid_dynamicprogramming_tpu_torch.dp import tabular_key as TK
@@ -654,7 +851,10 @@ def main(argv=None) -> int:
     results["greedy"] = {"layouts": VI_B, "max_steps_to_go": int(dists.max()), "return_err": r_err}
 
     # 6. The other families' rollouts; no kernel is on this path.
-    results["families"], counts = drive("family rollouts", lambda: family_rollouts(make, L, card))
+    ids = [i for i in registered_ids() if "DoorKey" not in i and not i.startswith(ROOMGRID_PREFIXES)]
+    results["families"], counts = drive(
+        "family rollouts", lambda: family_rollouts(make, L, card, ids, FAMILY_RUNS, 100)
+    )
     require(not any(counts.values()), "the family rollouts launch no VI kernel")
 
     # 7. B1 on the families' layouts: sizes given at run time, and lava.
@@ -668,7 +868,11 @@ def main(argv=None) -> int:
         require(counts["vi"] == 1, f"solve launched the B1 kernel once on {env_id}")
         err = float((v - T.vi_values(layouts, GAMMA, sweeps)).abs().max())
         require(err == 0.0, f"B1 equals its plain version on {env_id}")
-        greedy = greedy_optimal(fam, states, layouts, v, policy, T, L)
+        vals = T.state_value(v, layouts, states)
+        greedy = greedy_optimal(
+            fam, states, vals, T.steps_to_go(vals, GAMMA),
+            lambda s: T.greedy_action(policy, layouts, s), T, L,
+        )
         print(f"[greedy] {env_id}, {sweeps} sweeps: {greedy}", flush=True)
         results["vi_families"].append({"env": env_id, "sweeps": sweeps, **greedy})
         h_f, w_f = fam.params.height, fam.params.width
@@ -692,7 +896,31 @@ def main(argv=None) -> int:
         )
         del states, layouts, v, policy, masks
 
-    # 8. Kernels line, card, ok.
+    # 8. The RoomGrid families' rollouts; no kernel is on this path.
+    t0 = time.perf_counter()
+    ids = [i for i in registered_ids() if i.startswith(ROOMGRID_PREFIXES)]
+    require(len(ids) == 26, f"26 RoomGrid, MultiRoom and Playground ids ({len(ids)})")
+    results["roomgrid_families"], counts = drive(
+        "RoomGrid family rollouts",
+        lambda: family_rollouts(make, L, card, ids, ROOMGRID_RUNS, 200),
+    )
+    require(not any(counts.values()), "the RoomGrid family rollouts launch no VI kernel")
+    phase_s = {"roomgrid_rollouts": time.perf_counter() - t0}
+
+    # 9. B2 on KeyCorridor and ObstructedMaze-1Dl layouts.
+    t0 = time.perf_counter()
+    results["key_families"] = key_families(make, drive, kernel_row, ptxas)
+    phase_s["key_families"] = time.perf_counter() - t0
+
+    # 10. The obstructed domain, plain PyTorch on the card.
+    t0 = time.perf_counter()
+    results["obstructed"], counts = drive("obstructed domain", lambda: obstructed_families(make))
+    require(not any(counts.values()), "the obstructed domain launches no VI kernel")
+    phase_s["obstructed"] = time.perf_counter() - t0
+    print(f"[phases 8-10] seconds {phase_s}", flush=True)
+    results["phase_s"] = phase_s
+
+    # 11. Kernels line, card, ok.
     results["kernels"] = kernels
     results["total_s"] = time.perf_counter() - t_start
     print(f"[chip_smoke] {results['total_s']:.1f} s in all, the build included", flush=True)

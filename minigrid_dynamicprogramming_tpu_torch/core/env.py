@@ -21,8 +21,9 @@ is registered once, lane-major, with these signatures::
 ``generator`` is the rollout's ``torch.Generator`` when ``hook_rng`` is
 True and None otherwise (the hooks of such families draw nothing).  The
 JAX record's batch-first ``pre_step``/``post_step`` slots have no
-counterpart.  ``generate_batch`` (the pooled generator of MultiRoom) is not
-ported yet: setting it raises ``NotImplementedError``.
+counterpart, and neither has its ``generate_batch``: the port's
+``generate`` is already batched, so a family with a pooled generator
+(MultiRoom) registers it as its ``generate``.
 """
 
 from __future__ import annotations
@@ -47,12 +48,7 @@ class Environment:
         pre_step_lanes: Optional[Callable] = None,
         post_step_lanes: Optional[Callable] = None,
         hook_rng: bool = True,
-        generate_batch: Optional[Callable] = None,
     ):
-        if generate_batch is not None:
-            raise NotImplementedError(
-                f"{env_id}: the pooled generator (generate_batch) is not ported yet"
-            )
         self.env_id = env_id
         self.params = params
         self.generate = generate

@@ -48,6 +48,7 @@ __all__ = [
     "KeyTabularLayout",
     "extract_key_layout",
     "key_value_iteration",
+    "key_greedy_policy",
     "key_state_index",
     "key_greedy_action",
     "key_state_value",
@@ -337,8 +338,15 @@ def key_value_iteration(
     """Exact VI over the key-tracking domain: (V: (B, K, Cd, 4, H, W) f32,
     policy: same shape int8)."""
     v = key_vi_values(layout, gamma, n_sweeps)
-    policy = _backup(v, layout, gamma).argmax(dim=1).to(torch.int8)
-    return v, policy
+    return v, key_greedy_policy(v, layout, gamma)
+
+
+def key_greedy_policy(
+    v: torch.Tensor, layout: KeyTabularLayout, gamma: float
+) -> torch.Tensor:
+    """The first best action of one backup over V (from either the plain
+    version or the kernel): int8 of V's shape."""
+    return _backup(v, layout, gamma).argmax(dim=1).to(torch.int8)
 
 
 def key_state_index(layout: KeyTabularLayout, state: EnvState):

@@ -113,6 +113,40 @@ def clear_cell(state: EnvState, x, y) -> EnvState:
     return put_obj(state, x, y, OBJ_EMPTY, 0, 0)
 
 
+def index_hit(n: int, i, device) -> torch.Tensor:
+    """(1, n) or (B, n) bool: position i of a length-n axis, per env.  An
+    index outside [0, n) hits nothing (never a wrapped negative index)."""
+    pos = torch.arange(n, dtype=torch.int32, device=device)[None, :]
+    if isinstance(i, torch.Tensor):
+        return pos == i.to(device=device, dtype=torch.int32).reshape(-1, 1)
+    return pos == int(i)
+
+
+def cell_set(plane: torch.Tensor, y, x, val) -> torch.Tensor:
+    """``plane[b, y, x] = val`` per env as a masked write (B, H, W); y, x
+    and val are ints or (B,) tensors.  A cell outside the grid writes
+    nothing, as JAX's one-hot ``cell_set`` does."""
+    _, h, w = plane.shape
+    mask = cell_mask(h, w, x, y, plane.device)
+    return torch.where(mask, _cell_value(val, plane), plane)
+
+
+def elem_set(arr: torch.Tensor, i, val) -> torch.Tensor:
+    """``arr[b, i] = val`` per env on a (B, N) tensor; an index outside
+    [0, N) writes nothing."""
+    if isinstance(val, torch.Tensor):
+        val = val.to(device=arr.device, dtype=arr.dtype).reshape(-1, 1)
+    return torch.where(index_hit(arr.shape[1], i, arr.device), val, arr)
+
+
+def row_set(arr: torch.Tensor, i, row) -> torch.Tensor:
+    """``arr[b, i, :] = row[b]`` per env on a (B, N, M) tensor; ``row`` is
+    (M,) or (B, M).  An index outside [0, N) writes nothing."""
+    hit = index_hit(arr.shape[1], i, arr.device)[:, :, None]
+    row = torch.as_tensor(row, device=arr.device).to(arr.dtype)
+    return torch.where(hit, row.reshape(-1, 1, arr.shape[2]), arr)
+
+
 def horz_wall_mask(height: int, width: int, x, y, length, device) -> torch.Tensor:
     ys, xs = coord_grids(height, width, device)
     x, y, length = (_per_env(v, device) for v in (x, y, length))

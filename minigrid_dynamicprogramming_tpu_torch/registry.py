@@ -1,9 +1,9 @@
 """Environment registry: the ported ids, under the reference's names.
 
 Counterpart of ``minigrid_dynamicprogramming_tpu/registry.py`` for the ids
-ported so far: 49 of the JAX package's MiniGrid ids (the families without
-the RoomGrid scaffold), with the same kwargs and the same static
-plane-gate flags that ``_reg`` attaches to each MiniGrid family.
+ported so far: all 75 of the JAX package's MiniGrid ids, with the same
+kwargs and the same static plane-gate flags that ``_reg`` attaches to
+each MiniGrid family.
 """
 
 from __future__ import annotations
@@ -22,11 +22,23 @@ from minigrid_dynamicprogramming_tpu_torch.envs.fetch import make_fetch
 from minigrid_dynamicprogramming_tpu_torch.envs.fourrooms import make_fourrooms
 from minigrid_dynamicprogramming_tpu_torch.envs.gotodoor import make_gotodoor
 from minigrid_dynamicprogramming_tpu_torch.envs.gotoobject import make_gotoobject
+from minigrid_dynamicprogramming_tpu_torch.envs.keycorridor import make_keycorridor
 from minigrid_dynamicprogramming_tpu_torch.envs.lavagap import make_lavagap
 from minigrid_dynamicprogramming_tpu_torch.envs.lockedroom import make_lockedroom
 from minigrid_dynamicprogramming_tpu_torch.envs.memory import make_memory
+from minigrid_dynamicprogramming_tpu_torch.envs.multiroom import make_multiroom
+from minigrid_dynamicprogramming_tpu_torch.envs.obstructedmaze import (
+    make_obstructedmaze_1d,
+    make_obstructedmaze_full,
+)
+from minigrid_dynamicprogramming_tpu_torch.envs.playground import make_playground
 from minigrid_dynamicprogramming_tpu_torch.envs.putnear import make_putnear
 from minigrid_dynamicprogramming_tpu_torch.envs.redbluedoors import make_redbluedoors
+from minigrid_dynamicprogramming_tpu_torch.envs.unlock import (
+    make_blockedunlockpickup,
+    make_unlock,
+    make_unlockpickup,
+)
 
 _REGISTRY: Dict[str, Callable[[], Environment]] = {}
 
@@ -118,11 +130,51 @@ _reg("MiniGrid-MemoryS13Random-v0", make_memory, size=13, random_length=True)
 for _size in (13, 11, 9, 7):
     _reg(f"MiniGrid-MemoryS{_size}-v0", make_memory, size=_size)
 
+_reg("MiniGrid-Playground-v0", make_playground)
+
 _reg("MiniGrid-PutNear-6x6-N2-v0", make_putnear)
 _reg("MiniGrid-PutNear-8x8-N3-v0", make_putnear, size=8, num_objs=3)
 
 _reg("MiniGrid-RedBlueDoors-6x6-v0", make_redbluedoors, size=6)
 _reg("MiniGrid-RedBlueDoors-8x8-v0", make_redbluedoors)
+
+for _rs, _nr in [(3, 1), (3, 2), (3, 3), (4, 3), (5, 3), (6, 3)]:
+    _reg(f"MiniGrid-KeyCorridorS{_rs}R{_nr}-v0", make_keycorridor,
+         room_size=_rs, num_rows=_nr)
+
+# MultiRoom-N4-S5 registers six rooms, as the reference does.
+_reg("MiniGrid-MultiRoom-N2-S4-v0", make_multiroom,
+     min_num_rooms=2, max_num_rooms=2, max_room_size=4)
+_reg("MiniGrid-MultiRoom-N4-S5-v0", make_multiroom,
+     min_num_rooms=6, max_num_rooms=6, max_room_size=5)
+_reg("MiniGrid-MultiRoom-N6-v0", make_multiroom, min_num_rooms=6, max_num_rooms=6)
+
+_reg("MiniGrid-ObstructedMaze-1Dl-v0", make_obstructedmaze_1d,
+     key_in_box=False, blocked=False)
+_reg("MiniGrid-ObstructedMaze-1Dlh-v0", make_obstructedmaze_1d,
+     key_in_box=True, blocked=False)
+_reg("MiniGrid-ObstructedMaze-1Dlhb-v0", make_obstructedmaze_1d,
+     key_in_box=True, blocked=True)
+_reg("MiniGrid-ObstructedMaze-2Dl-v0", make_obstructedmaze_full, agent_room=(2, 1),
+     key_in_box=False, blocked=False, num_quarters=1, num_rooms_visited=4)
+_reg("MiniGrid-ObstructedMaze-2Dlh-v0", make_obstructedmaze_full, agent_room=(2, 1),
+     key_in_box=True, blocked=False, num_quarters=1, num_rooms_visited=4)
+for _ver in ("v0", "v1"):
+    _v1 = _ver == "v1"
+    _reg(f"MiniGrid-ObstructedMaze-2Dlhb-{_ver}", make_obstructedmaze_full,
+         agent_room=(2, 1), key_in_box=True, blocked=True, num_quarters=1,
+         num_rooms_visited=4, v1=_v1)
+    _reg(f"MiniGrid-ObstructedMaze-1Q-{_ver}", make_obstructedmaze_full,
+         agent_room=(1, 1), key_in_box=True, blocked=True, num_quarters=1,
+         num_rooms_visited=5, v1=_v1)
+    _reg(f"MiniGrid-ObstructedMaze-2Q-{_ver}", make_obstructedmaze_full,
+         agent_room=(2, 1), key_in_box=True, blocked=True, num_quarters=2,
+         num_rooms_visited=11, v1=_v1)
+    _reg(f"MiniGrid-ObstructedMaze-Full-{_ver}", make_obstructedmaze_full, v1=_v1)
+
+_reg("MiniGrid-Unlock-v0", make_unlock)
+_reg("MiniGrid-UnlockPickup-v0", make_unlockpickup)
+_reg("MiniGrid-BlockedUnlockPickup-v0", make_blockedunlockpickup)
 
 
 def make(env_id: str) -> Environment:

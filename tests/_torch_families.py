@@ -36,6 +36,15 @@ MAX_STEPS = 60  # below STEPS, so every lane truncates
 ACTION_P = np.array([0.15, 0.15, 0.3, 0.1, 0.1, 0.1, 0.1])
 
 
+# The observation reads only the grid's size, the view and
+# see_through_walls: one compile per such params, shared by the ids.
+_jax_obs_jit = jax.jit(jlanes.obs_image_lanes, static_argnums=0)
+
+
+def _jax_obs(params, ls):
+    return _jax_obs_jit(params.replace(max_steps=0, extra=()), ls)
+
+
 def _np(tree) -> dict:
     return {n: np.asarray(getattr(tree, n)) for n in tree.__dataclass_fields__}
 
@@ -57,7 +66,9 @@ def _events(kind: str, want: dict, rew: np.ndarray, term: np.ndarray, hw_width: 
     return int(want["truncated"].sum())
 
 
-def step_obs_parity(env_id: str, events) -> None:
+def step_obs_parity(env_id: str, events, prep=None) -> None:
+    """``prep``, if given, maps the JAX layouts (a dict of batch-first
+    numpy arrays) to the states both packages step from."""
     jenv, tenv = mgtpu.make(env_id), port.make(env_id)
     # No hook of these families draws.
     assert jenv.pre_step_lanes is None and (jenv.post_step_lanes is None or not jenv.hook_rng)
@@ -65,11 +76,15 @@ def step_obs_parity(env_id: str, events) -> None:
     tenv.params = tenv.params.replace(max_steps=MAX_STEPS)
 
     keys = jax.random.split(jax.random.PRNGKey(5), BATCH)
-    states = jax.vmap(jenv.generate, in_axes=(0, None))(keys, jenv.params)
+    states = jax.jit(jax.vmap(jenv.generate, in_axes=(0, None)), static_argnums=1)(
+        keys, jenv.params
+    )
+    if prep is not None:
+        changed = prep({k: v for k, v in _np(states).items() if k != "rng"})
+        states = states.replace(**{k: jax.numpy.asarray(v) for k, v in changed.items()})
     jls = jlanes.to_lanes(states)
     tls = from_numpy(tlanes.LaneState, _np(jls), "cpu")
     jstep = jax.jit(lambda s, a: jlanes.step_lanes_env(jenv, None, s, a))
-    jobs = jax.jit(lambda s: jlanes.obs_image_lanes(jenv.params, s))
 
     rng = np.random.default_rng(0)
     seen = dict.fromkeys(events, 0)
@@ -84,7 +99,8 @@ def step_obs_parity(env_id: str, events) -> None:
         np.testing.assert_array_equal(t_term.numpy(), np.asarray(j_term))
         np.testing.assert_allclose(t_rew.numpy(), np.asarray(j_rew), rtol=0, atol=1e-6)
         np.testing.assert_array_equal(
-            tlanes.obs_image_lanes(tenv.params, tls).numpy(), np.asarray(jobs(jls))
+            tlanes.obs_image_lanes(tenv.params, tls).numpy(),
+            np.asarray(_jax_obs(jenv.params, jls)),
         )
         for kind in events:
             seen[kind] += _events(

@@ -14,6 +14,9 @@ import minigrid_dynamicprogramming_tpu_torch as port
 
 torch.set_num_threads(1)
 
+# The reference's Playground has no mission: its string is empty in both.
+EMPTY_MISSION = {"MiniGrid-Playground-v0"}
+
 
 @pytest.mark.parametrize("env_id", port.registered_ids())
 def test_mission_text_equals_jax(env_id):
@@ -24,4 +27,4 @@ def test_mission_text_equals_jax(env_id):
         got = tenv.mission_text(codes)
         assert got == jenv.mission_text(np.asarray(codes)), env_id
         texts.add(got)
-    assert all(texts), env_id
+    assert all(texts) != (env_id in EMPTY_MISSION), env_id

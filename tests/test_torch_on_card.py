@@ -18,7 +18,11 @@ launch count moved.  The restricted-domain kernel's instance for grid
 sizes given at run time (and its lava flag) is held on LavaGapS7 (7x7),
 LavaCrossingS9N2 (9x9) and FourRooms (19x19, 361 threads a block; at two
 door slots 208,080 bytes of shared memory), and a hook-free and a
-post-step family roll out equal on the card and on the CPU.
+post-step family roll out equal on the card and on the CPU, as do two
+RoomGrid families and MultiRoom.  The key-domain kernel also runs on the
+layouts it was written for: KeyCorridorS3R2 at six door slots (C = 64, the
+global route) and ObstructedMaze-1Dl (11 wide and 6 high, the cluster
+route's instance for sizes given at run time).
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import pytest
 import torch
 
 import minigrid_dynamicprogramming_tpu_torch as port
+from minigrid_dynamicprogramming_tpu_torch.core.constants import OBJ_DOOR
 from minigrid_dynamicprogramming_tpu_torch.dp import cuda_vi
 from minigrid_dynamicprogramming_tpu_torch.dp import tabular as ttab
 from minigrid_dynamicprogramming_tpu_torch.dp import tabular_key as tkey
@@ -96,11 +101,16 @@ def test_vi_kernel_run_time_size_equals_plain(card, env_id, max_doors):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("env_id", ["MiniGrid-LavaGapS7-v0", "MiniGrid-PutNear-8x8-N3-v0"])
+@pytest.mark.parametrize("env_id", [
+    "MiniGrid-LavaGapS7-v0", "MiniGrid-PutNear-8x8-N3-v0", "MiniGrid-KeyCorridorS3R2-v0",
+    "MiniGrid-ObstructedMaze-1Dlhb-v0", "MiniGrid-MultiRoom-N2-S4-v0",
+])
 def test_family_rollout_card_equals_cpu(card, env_id):
     """The same pool and actions step alike on the card and on the CPU,
-    the path the CPU tests hold against JAX."""
+    the path the CPU tests hold against JAX.  The step limit is cut to 64,
+    so that every lane crosses an episode boundary."""
     env = port.make(env_id)
+    env.params = env.params.replace(max_steps=min(env.params.max_steps, 64))
     b, horizon, rounds = 128, 96, 3
     g = torch.Generator(device=card).manual_seed(8)
     pool = tlanes._lane_pool(env, g, b, "pool", rounds, card)
@@ -164,6 +174,22 @@ def test_key_vi_global_route_16x16(card):
     layouts = tkey.extract_key_layout(_states(card, "MiniGrid-DoorKey-16x16-v0", 3, seed=4), 1)
     got = _key_vi_on_route(layouts, 12, ("global", 0))
     want = tkey.key_value_iteration(layouts, GAMMA, 12)[0]
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env_id,max_doors,route", [
+    ("MiniGrid-KeyCorridorS3R2-v0", 6, ("global", 0)),
+    ("MiniGrid-ObstructedMaze-1Dl-v0", 1, ("cluster", 4)),
+])
+def test_key_vi_families_equal_plain(card, env_id, max_doors, route):
+    """The target named by aux slots 0-1, as the families' hook pays it."""
+    states = _states(card, env_id, 11, seed=7)
+    assert int((states.grid_obj == OBJ_DOOR).sum(dim=(1, 2)).max()) <= max_doors
+    layouts = tkey.extract_key_layout(states, max_doors, states.aux[:, 0], states.aux[:, 1])
+    got = _key_vi_on_route(layouts, 64, route)
+    want = tkey.key_vi_values(layouts, GAMMA, 64)
+    assert (want > 0).any()
     torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
 
 

@@ -62,7 +62,7 @@ def test_port_imports_no_jax():
         check=True,
     ).stdout.splitlines()
     imported, modules = out[-2].split(), out[-1].split()
-    assert modules[0] == "modules" and int(modules[1]) >= 15, out
+    assert modules[0] == "modules" and int(modules[1]) >= 40, out
     assert imported == ["imported"], f"the port pulled in {imported[1:]}"
 
 
@@ -80,7 +80,8 @@ def test_constants_equal_jax():
 
 def test_registry_ids_and_flags_equal_jax():
     ids = port.registered_ids()
-    assert len(ids) == 49 and set(ids) <= set(mgtpu.registered_ids())
+    minigrid = [i for i in mgtpu.registered_ids() if i.startswith("MiniGrid-")]
+    assert len(ids) == 75 and ids == sorted(minigrid)
     for env_id in ids:
         jenv, tenv = mgtpu.make(env_id), port.make(env_id)
         fields = ("width", "height", "max_steps", "see_through_walls",
@@ -98,20 +99,23 @@ def test_registry_ids_and_flags_equal_jax():
             jenv.pre_step_lanes is None and jenv.pre_step is None
         ), env_id
     with pytest.raises(KeyError, match="not ported"):
-        port.make("MiniGrid-KeyCorridorS3R1-v0")
+        port.make("BabyAI-GoToRedBall-v0")
 
 
 @pytest.mark.parametrize("env_id", ["MiniGrid-MultiRoom-N2-S4-v0", "MiniGrid-MultiRoom-N6-v0"])
-def test_multiroom_is_refused(env_id):
-    """MultiRoom needs the pooled generator, which is not ported: ``make``
-    raises, and a record given ``generate_batch`` refuses to build."""
-    assert env_id in mgtpu.registered_ids()
+def test_multiroom_generate_is_the_pooled_generator(env_id):
+    """JAX registers MultiRoom's pooled generator as ``generate_batch``; the
+    port's record has no such slot, and its batched ``generate`` is that
+    generator: it reports how many chain attempts succeeded, which the
+    margin keeps above the batch (here at n = 512)."""
     assert mgtpu.make(env_id).generate_batch is not None
-    with pytest.raises(KeyError, match="not ported"):
-        port.make(env_id)
-    env = port.make(ENV_ID)
-    with pytest.raises(NotImplementedError, match="generate_batch"):
+    env = port.make(env_id)
+    with pytest.raises(TypeError, match="generate_batch"):
         Environment(env_id, env.params, env.generate, generate_batch=env.generate)
+    states, accepted = env.generate(
+        torch.Generator().manual_seed(0), env.params, 512, device="cpu", return_accepted=True
+    )
+    assert states.grid_obj.shape == (512, 25, 25) and int(accepted) >= 512
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
