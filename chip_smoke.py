@@ -29,16 +29,17 @@ Phases (any failure raises, exits nonzero and prints no "ok" line):
    ``step_lanes`` on the card, reaches the goal in every layout in exactly
    ``steps_to_go`` steps with the closed-form return.
 6. families: ``lane_rollout`` with pool autoreset on every other
-   registered id but the RoomGrid families of phase 8, layouts generated
+   MiniGrid id but the RoomGrid families of phase 8, layouts generated
    on the card: LavaCrossingS9N2 and
    Dynamic-Obstacles-8x8 at B=32768, T=400, two pool rounds (both step
    limits are below T, so every lane resets); Fetch-8x8-N3 and
    MemoryS17Random at B=16384, T=256; Empty-8x8 and FourRooms at B=4096,
    T=256; every other id at B=4096, T=64.  Each prints its env-steps/s.
-   For every id whose hooks draw nothing, the first CPU_LANES lanes of the
-   same pool and the run's first CPU_STEPS actions step on the card and on
-   the CPU (the path the CPU tests hold against JAX): final state, resets
-   per lane, episodes and checksum must be equal.  DynamicObstacles keeps
+   For every id whose hooks draw nothing, the rollout's first CPU_LANES
+   lanes are replayed on the CPU (the path the CPU tests hold against
+   JAX) from the same pool with the same actions, in worker processes
+   while the card goes on: final state, its observation and resets per
+   lane must equal the card's.  DynamicObstacles keeps
    exactly its ball count per lane, with aux naming each ball, and pays
    only -1 or a reward in (0, 1].
 7. B1 on the families' layouts: ``tabular.solve`` (max_doors=1) on 1024
@@ -71,7 +72,21 @@ Phases (any failure raises, exits nonzero and prints no "ok" line):
    ObstructedMaze-1Dlhb layouts (the target from aux), with the same
    greedy check; layout-sweeps/s and peak memory; V on the card equal to
    V on the CPU within 1e-6 on the first two layouts at 16 sweeps.
-11. the kernels line: for each kernel, its launches on the main path (each
+11. BabyAI: the same on all 96 BabyAI ids, the verifier as the post-step
+   hook: GoToLocal and BossLevel at B=16384, T=256, two pool rounds (the
+   JAX bench's per-family sweep), GoToDoor at B=32768 (the PPO bench's
+   per-chip batch), the others at B=4096, T=64.  The verifier draws
+   nothing, so each replays on the CPU.  Each prints its env-steps/s, the
+   successes and failures the verifier counted (GoToLocal must succeed),
+   and how many attempts its pooled generator accepted.
+12. the two-key domain, plain PyTorch on the card (it has no kernel):
+   ``twokey_value_iteration`` (160 sweeps) on 64 UnlockToUnlock layouts
+   (16x6, two locked doors, the target the ball): every start finite, the
+   greedy policy, stepped with the verifier, picks up the ball in exactly
+   ``twokey_steps_to_go`` steps with the closed-form return on all 64;
+   layout-sweeps/s and peak memory; V on the card equal to V on the CPU
+   within 1e-6 on the first two layouts at 8 sweeps.
+13. the kernels line: for each kernel, its launches on the main path (each
    part of it driven with the counts set to 0 just before and read just
    after), its largest difference from the plain version, the times of
    kernel, plain version and bound, its design and route, and the
@@ -84,10 +99,12 @@ from __future__ import annotations
 
 import argparse
 import json
+import multiprocessing
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 import torch
@@ -116,7 +133,8 @@ FAMILY_RUNS = {
     "MiniGrid-FourRooms-v0": (4096, 256, 2),
 }
 FAMILY_OTHER = (4096, 64, 2)
-CPU_LANES, CPU_STEPS = 256, 64  # the card-against-CPU check of each family
+CPU_LANES = 256  # lanes of each family's rollout replayed on the CPU
+REPLAY_WORKERS = 5  # processes for the replays
 DYN_OBS_STEPS = 64  # steps of the DynamicObstacles reward and ball checks
 # The RoomGrid families (phase 8), by id prefix; (B, T, pool rounds) of the
 # JAX bench's per-family sweep (bench.py:442-459) for three of them, every
@@ -138,6 +156,18 @@ KEY_FAMILY_B, KEY_FAMILY_SWEEPS = 512, 128
 OBSTRUCTED = ("MiniGrid-BlockedUnlockPickup-v0", "MiniGrid-ObstructedMaze-1Dlhb-v0")
 OBS_B, OBS_SWEEPS = 64, 128
 OBS_CPU_LAYOUTS, OBS_CPU_SWEEPS = 2, 16
+# The BabyAI ids (phase 11): the JAX bench's per-family sweep (bench.py:442-459)
+# for GoToLocal and BossLevel, the PPO bench's per-chip batch for GoToDoor
+# (bench.py:258-281); every other id at FAMILY_OTHER.
+BABYAI_RUNS = {
+    "BabyAI-GoToLocal-v0": (16384, 256, 2),
+    "BabyAI-BossLevel-v0": (16384, 256, 2),
+    "BabyAI-GoToDoor-v0": (32768, 256, 2),
+}
+# The two-key domain (phase 12): registered UnlockToUnlock layouts (16x6, two
+# doors), V 59.0 MB a layout.  Card against CPU on the first layouts.
+TWOKEY_ENV, TWOKEY_B, TWOKEY_SWEEPS = "BabyAI-UnlockToUnlock-v0", 64, 160
+TWOKEY_CPU_LAYOUTS, TWOKEY_CPU_SWEEPS = 2, 8
 # B1 on the families' layouts: (env, sweeps), 1024 layouts each.
 VI_FAMILIES = (
     ("MiniGrid-LavaGapS7-v0", 128),
@@ -275,28 +305,48 @@ def check_dynamic_obstacles(ls, params, n_obs: int) -> torch.Tensor:
     return ok
 
 
-def family_rollouts(make, L, card: str, ids, runs: dict, seed: int) -> dict:
-    """Phases 6 and 8: each id at its ``runs`` size (else FAMILY_OTHER); the
-    card-against-CPU check of each id whose hooks draw nothing; the
-    DynamicObstacles invariants; MultiRoom's accepted chain attempts."""
+def replay_summary(L, params, final, resets) -> dict:
+    """What the card-against-CPU check compares, as numpy: the final state
+    of some lanes, their observation and their resets."""
+    out = {n: getattr(final, n).cpu().numpy() for n in L._FIELDS}
+    out["observation"] = L.obs_image_lanes(params, final).cpu().numpy()
+    out["resets_per_env"] = resets.cpu().numpy()
+    return out
+
+
+def cpu_replay(env_id: str, pool: dict, acts: np.ndarray, rounds: int) -> dict:
+    """A replay on the CPU, in a worker process: ``pool`` (numpy planes of a
+    lane-major pool) stepped with ``acts``; returns ``replay_summary``."""
+    torch.set_num_threads(1)
+    from minigrid_dynamicprogramming_tpu_torch import make
+    from minigrid_dynamicprogramming_tpu_torch.parallel import lanes as L
+
+    env = make(env_id)
+    lanes, steps = acts.shape[1], acts.shape[0]
+    sub = L.LaneState(**{n: torch.from_numpy(a) for n, a in pool.items()})
+    res = L._lane_scan(env, None, sub, lanes, steps, "pool", rounds, torch.from_numpy(acts))
+    return replay_summary(L, env.params, res.final_state, res.resets_per_env)
+
+
+def family_rollouts(make, L, card: str, ids, runs: dict, seed: int, workers) -> dict:
+    """Phases 6, 8 and 11: each id at its ``runs`` size (else FAMILY_OTHER);
+    the card-against-CPU check of each id whose hooks draw nothing: the
+    rollout's first CPU_LANES lanes, replayed on the CPU from the same pool
+    with the same actions by ``workers`` (a process pool) while the card
+    goes on to the next id, must end in the same state, observation and
+    resets; the DynamicObstacles invariants; the attempts MultiRoom's and
+    BabyAI's pooled generators accepted (MultiRoom's must cover its pool);
+    the terminations that paid a reward (successes) and the others."""
     from minigrid_dynamicprogramming_tpu_torch.core.constants import OBJ_BALL
 
     dev = torch.device(DEVICE)
-    out = {}
+    out, pending = {}, []
     for k, env_id in enumerate(ids):
         env = make(env_id)
         B, T, R = runs.get(env_id, FAMILY_OTHER)
+        pooled = env_id.startswith(("MiniGrid-MultiRoom", "BabyAI-"))
         g = gen(seed + k)
         g_again = torch.Generator(device=DEVICE).set_state(g.get_state())
-        if "MultiRoom" in env_id:
-            # The rollout's own pool, from the same generator state, with the
-            # count of attempts that chained every room.
-            _, accepted = env.generate(
-                torch.Generator(device=DEVICE).set_state(g.get_state()), env.params, R * B,
-                DEVICE, return_accepted=True,
-            )
-            require(int(accepted) >= R * B, f"{env_id}: {int(accepted)} attempts chained "
-                    f"every room, at least the {R * B} layouts of the pool")
         t0 = time.perf_counter()
         res = L.lane_rollout(env, g, B, T, pool_rounds=R, device=DEVICE)
         torch.cuda.synchronize()
@@ -306,15 +356,24 @@ def family_rollouts(make, L, card: str, ids, runs: dict, seed: int) -> dict:
             require(int(res.resets_per_env.min()) >= 1, f"{env_id}: every lane reset")
         entry = {
             "B": B, "T": T, "pool_rounds": R, "s": s, "env_steps_per_s": B * T / s,
-            "episodes": int(res.episodes), "total_reward": float(res.total_reward),
+            "episodes": int(res.episodes), "successes": int(res.successes),
+            "failures": int(res.failures), "total_reward": float(res.total_reward),
             "card": card,
         }
-        if "MultiRoom" in env_id:
-            entry["accepted_attempts"] = int(accepted)
-        # The same pool and the run's first actions, replayed from the
+        # The same pool and the run's actions, drawn again from the
         # generator's state (hooks that draw nothing leave it alone).
+        t0 = time.perf_counter()
         hooked = env.pre_step_lanes is not None or env.post_step_lanes is not None
-        pool = L._lane_pool(env, g_again, B, "pool", R, dev)
+        if pooled:
+            flat, accepted = env.generate(g_again, env.params, R * B, DEVICE, return_accepted=True)
+            pool = L.stack_rounds(flat, B, R)
+            entry["accepted_attempts"] = int(accepted)
+            if "MultiRoom" in env_id:
+                require(int(accepted) >= R * B, f"{env_id}: {int(accepted)} attempts chained "
+                        f"every room, at least the {R * B} layouts of the pool")
+            del flat
+        else:
+            pool = L._lane_pool(env, g_again, B, "pool", R, dev)
         if hooked and env.hook_rng:
             n_obs = int((pool.grid_obj[0, :, 0] == OBJ_BALL).sum())
             require(bool(check_dynamic_obstacles(res.final_state, env.params, n_obs).all()),
@@ -324,31 +383,33 @@ def family_rollouts(make, L, card: str, ids, runs: dict, seed: int) -> dict:
             acts = torch.stack([
                 torch.randint(0, env.action_dim, (B,), generator=g_again, device=dev,
                               dtype=torch.int32)
-                for _ in range(CPU_STEPS)
+                for _ in range(T)
             ])[:, :CPU_LANES]
-            sub = L.LaneState(**{n: getattr(pool, n)[..., :CPU_LANES] for n in L._FIELDS})
-            on_card = L._lane_scan(env, None, sub, CPU_LANES, CPU_STEPS, "pool", R, acts)
-            cpu_pool = L.LaneState(**{n: getattr(sub, n).cpu() for n in L._FIELDS})
-            on_cpu = L._lane_scan(env, None, cpu_pool, CPU_LANES, CPU_STEPS, "pool", R, acts.cpu())
-            for n in L._FIELDS:
-                require(torch.equal(getattr(on_card.final_state, n).cpu(),
-                                    getattr(on_cpu.final_state, n)),
-                        f"{env_id}: card and CPU agree on {n}")
-            require(torch.equal(on_card.resets_per_env.cpu(), on_cpu.resets_per_env),
-                    f"{env_id}: card and CPU agree on resets")
-            require(int(on_card.episodes) == int(on_cpu.episodes), f"{env_id}: episodes")
-            require(int(on_card.obs_checksum) == int(on_cpu.obs_checksum), f"{env_id}: checksum")
-            entry["card_equals_cpu"] = {"lanes": CPU_LANES, "steps": CPU_STEPS}
+            final = L.LaneState(**{n: getattr(res.final_state, n)[..., :CPU_LANES] for n in L._FIELDS})
+            on_card = replay_summary(L, env.params, final, res.resets_per_env[:CPU_LANES])
+            sub = {n: getattr(pool, n)[..., :CPU_LANES].cpu().numpy() for n in L._FIELDS}
+            pending.append((env_id, on_card, workers.submit(cpu_replay, env_id, sub, acts.cpu().numpy(), R)))
+            entry["card_equals_cpu"] = {"lanes": CPU_LANES, "steps": T}
+        entry["check_s"] = time.perf_counter() - t0
         print(
             f"[family] {env_id} B={B} T={T} pool={R}: {s:.3f} s, {B * T / s:.4g} env-steps/s "
-            f"({card}); episodes {entry['episodes']}; "
-            + ("card == CPU" if "card_equals_cpu" in entry else f"dyn_obs {entry['dyn_obs']}")
-            + (f"; {entry['accepted_attempts']} attempts chained every room"
-               if "accepted_attempts" in entry else ""),
+            f"({card}); episodes {entry['episodes']} ({entry['successes']} successes, "
+            f"{entry['failures']} failures); "
+            + ("replayed" if "card_equals_cpu" in entry else f"dyn_obs {entry['dyn_obs']}")
+            + (f"; {entry['accepted_attempts']} attempts accepted for {R * B} layouts"
+               if "accepted_attempts" in entry else "")
+            + f"; replay queued in {entry['check_s']:.3f} s",
             flush=True,
         )
         out[env_id] = entry
         del res, pool
+    t0 = time.perf_counter()
+    for env_id, on_card, job in pending:
+        on_cpu = job.result()
+        for n, want in on_cpu.items():
+            require(np.array_equal(on_card[n], want), f"{env_id}: card and CPU agree on {n}")
+    print(f"[family] {len(pending)} CPU replays equal to the card's; waited {time.perf_counter() - t0:.3f} s "
+          "for the last ones", flush=True)
     return out
 
 
@@ -553,6 +614,66 @@ def obstructed_families(make) -> list:
     return out
 
 
+def twokey_domain(make) -> dict:
+    """Phase 12: the two-key domain on the card on UnlockToUnlock layouts,
+    the target the one ball; its greedy policy stepped with the verifier;
+    its V held against the CPU's on the first layouts."""
+    import dataclasses
+
+    from minigrid_dynamicprogramming_tpu_torch.core.constants import OBJ_BALL
+    from minigrid_dynamicprogramming_tpu_torch.dp import tabular as T
+    from minigrid_dynamicprogramming_tpu_torch.dp import tabular_twokey as TT
+    from minigrid_dynamicprogramming_tpu_torch.parallel import lanes as L
+
+    env = make(TWOKEY_ENV)
+    states = env.generate(gen(11), env.params, TWOKEY_B, device=DEVICE)
+    balls = (states.grid_obj == OBJ_BALL).reshape(TWOKEY_B, -1)
+    require(bool((balls.sum(dim=1) == 1).all()), f"{TWOKEY_ENV}: one ball a layout")
+    color = states.grid_color.reshape(TWOKEY_B, -1).gather(1, balls.to(torch.int8).argmax(1, True))[:, 0]
+    layouts = TT.extract_twokey_layout(states, 2, OBJ_BALL, color)
+    hw = layouts.base_walk[0].numel()
+    require(bool(((layouts.key0 >= 0) & (layouts.key0 < hw)).all()), "two keys on the grid")
+    require(bool((layouts.door_unlockable.sum(dim=2) == 1).all()), "each key opens one door")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    v, policy = TT.twokey_value_iteration(layouts, GAMMA, TWOKEY_SWEEPS)
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    vals = TT.twokey_state_value(v, layouts, states)
+    dists = TT.twokey_steps_to_go(vals, GAMMA)
+    require(bool(torch.isfinite(dists).all()),
+            f"{TWOKEY_ENV}: every start reaches the ball within {TWOKEY_SWEEPS} sweeps")
+    greedy = greedy_optimal(
+        env, states, vals, dists, lambda st: TT.twokey_greedy_action(policy, layouts, st), T, L,
+    )
+    require(greedy["solved"] == TWOKEY_B, f"{TWOKEY_ENV}: the greedy policy solves every layout")
+    v_bytes = v[0].numel() * 4
+    del v, policy
+    # The card against the CPU, on the first layouts at a few sweeps.
+    head = {f.name: getattr(layouts, f.name)[:TWOKEY_CPU_LAYOUTS] for f in dataclasses.fields(layouts)}
+    v_card = TT.twokey_vi_values(TT.TwoKeyLayout(**head), GAMMA, TWOKEY_CPU_SWEEPS)
+    t0 = time.perf_counter()
+    v_cpu = TT.twokey_vi_values(
+        TT.TwoKeyLayout(**{k: t.cpu() for k, t in head.items()}), GAMMA, TWOKEY_CPU_SWEEPS
+    )
+    cpu_s = time.perf_counter() - t0
+    cpu_err = float((v_card.cpu() - v_cpu).abs().max())
+    require(cpu_err <= KEY_ATOL, f"{TWOKEY_ENV}: the two-key V on the card within {KEY_ATOL} of the CPU's")
+    require(bool((v_cpu > 0).any()), f"{TWOKEY_ENV}: some state pays within {TWOKEY_CPU_SWEEPS} sweeps")
+    entry = {
+        "env": TWOKEY_ENV, "layouts": TWOKEY_B, "sweeps": TWOKEY_SWEEPS, "s": s,
+        "layout_sweeps_per_s": TWOKEY_B * TWOKEY_SWEEPS / s, "v_bytes_per_layout": v_bytes,
+        "peak_bytes": peak, "bytes_before": base, "card_vs_cpu_err": cpu_err,
+        "card_vs_cpu": {"layouts": TWOKEY_CPU_LAYOUTS, "sweeps": TWOKEY_CPU_SWEEPS, "cpu_s": cpu_s},
+        **greedy,
+    }
+    print(f"[twokey] {entry}", flush=True)
+    return entry
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write the results as JSON to this file")
@@ -563,14 +684,23 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
         return 1
     try:
-        from minigrid_dynamicprogramming_tpu_torch import _kernels, make, registered_ids
-        from minigrid_dynamicprogramming_tpu_torch.dp import cuda_vi
-        from minigrid_dynamicprogramming_tpu_torch.dp import tabular as T
-        from minigrid_dynamicprogramming_tpu_torch.dp import tabular_key as TK
-        from minigrid_dynamicprogramming_tpu_torch.parallel import lanes as L
+        import minigrid_dynamicprogramming_tpu_torch  # noqa: F401
     except ImportError as e:
         print(f"chip_smoke: run from the repository root ({e})", file=sys.stderr)
         return 1
+    # Processes for the CPU halves of the card-against-CPU replays; the
+    # block ends them, whatever the run's outcome.
+    with ProcessPoolExecutor(REPLAY_WORKERS, mp_context=multiprocessing.get_context("spawn")) as workers:
+        return run(args, t_start, workers)
+
+
+def run(args, t_start: float, workers) -> int:
+    from minigrid_dynamicprogramming_tpu_torch import _kernels, make, registered_ids
+    from minigrid_dynamicprogramming_tpu_torch.dp import cuda_vi
+    from minigrid_dynamicprogramming_tpu_torch.dp import tabular as T
+    from minigrid_dynamicprogramming_tpu_torch.dp import tabular_key as TK
+    from minigrid_dynamicprogramming_tpu_torch.parallel import lanes as L
+
     counters = {"vi": cuda_vi.cuda_value_iteration, "key_vi": cuda_vi.cuda_key_value_iteration}
     key_routes = cuda_vi.cuda_key_value_iteration.route_launches
 
@@ -649,7 +779,7 @@ def main(argv=None) -> int:
     def kernel_row(name, source, replaces, launches, err, call, kernel_only, plain, work, reps, **design):
         ms = cuda_ms(call, reps)
         kernel_ms = cuda_ms(kernel_only, reps)
-        plain_ms = cuda_ms(plain, 2)
+        plain_ms = cuda_ms(plain, 2, warmup=0)  # each phase ran it once already, for err
         bound_ms, bound_by = bound(*work)
         row = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -851,9 +981,11 @@ def main(argv=None) -> int:
     results["greedy"] = {"layouts": VI_B, "max_steps_to_go": int(dists.max()), "return_err": r_err}
 
     # 6. The other families' rollouts; no kernel is on this path.
-    ids = [i for i in registered_ids() if "DoorKey" not in i and not i.startswith(ROOMGRID_PREFIXES)]
+    ids = [i for i in registered_ids()
+           if i.startswith("MiniGrid-") and "DoorKey" not in i and not i.startswith(ROOMGRID_PREFIXES)]
+    require(len(ids) == 45, f"45 MiniGrid ids of phase 6 ({len(ids)})")
     results["families"], counts = drive(
-        "family rollouts", lambda: family_rollouts(make, L, card, ids, FAMILY_RUNS, 100)
+        "family rollouts", lambda: family_rollouts(make, L, card, ids, FAMILY_RUNS, 100, workers)
     )
     require(not any(counts.values()), "the family rollouts launch no VI kernel")
 
@@ -902,7 +1034,7 @@ def main(argv=None) -> int:
     require(len(ids) == 26, f"26 RoomGrid, MultiRoom and Playground ids ({len(ids)})")
     results["roomgrid_families"], counts = drive(
         "RoomGrid family rollouts",
-        lambda: family_rollouts(make, L, card, ids, ROOMGRID_RUNS, 200),
+        lambda: family_rollouts(make, L, card, ids, ROOMGRID_RUNS, 200, workers),
     )
     require(not any(counts.values()), "the RoomGrid family rollouts launch no VI kernel")
     phase_s = {"roomgrid_rollouts": time.perf_counter() - t0}
@@ -917,10 +1049,27 @@ def main(argv=None) -> int:
     results["obstructed"], counts = drive("obstructed domain", lambda: obstructed_families(make))
     require(not any(counts.values()), "the obstructed domain launches no VI kernel")
     phase_s["obstructed"] = time.perf_counter() - t0
-    print(f"[phases 8-10] seconds {phase_s}", flush=True)
+    # 11. The BabyAI ids' rollouts; no kernel is on this path.
+    t0 = time.perf_counter()
+    ids = [i for i in registered_ids() if i.startswith("BabyAI-")]
+    require(len(ids) == 96, f"96 BabyAI ids ({len(ids)})")
+    results["babyai"], counts = drive(
+        "BabyAI rollouts", lambda: family_rollouts(make, L, card, ids, BABYAI_RUNS, 300, workers)
+    )
+    require(not any(counts.values()), "the BabyAI rollouts launch no VI kernel")
+    require(results["babyai"]["BabyAI-GoToLocal-v0"]["successes"] > 0,
+            "the verifier counted successes on GoToLocal")
+    phase_s["babyai_rollouts"] = time.perf_counter() - t0
+
+    # 12. The two-key domain, plain PyTorch on the card.
+    t0 = time.perf_counter()
+    results["twokey"], counts = drive("two-key domain", lambda: twokey_domain(make))
+    require(not any(counts.values()), "the two-key domain launches no VI kernel")
+    phase_s["twokey"] = time.perf_counter() - t0
+    print(f"[phases 8-12] seconds {phase_s}", flush=True)
     results["phase_s"] = phase_s
 
-    # 11. Kernels line, card, ok.
+    # 13. Kernels line, card, ok.
     results["kernels"] = kernels
     results["total_s"] = time.perf_counter() - t_start
     print(f"[chip_smoke] {results['total_s']:.1f} s in all, the build included", flush=True)

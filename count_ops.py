@@ -1,0 +1,119 @@
+#!/usr/bin/env python3
+"""How many PyTorch operators a rollout step and a DP sweep of the port
+launch, counted on the CPU.
+
+The port's rollouts are bound by the host launching one small kernel per
+operator, so the operator count of a step predicts its host time on the
+card.  Run from the repository root, on any machine:
+
+    python3 count_ops.py [ENV_ID ...]
+
+For each id (by default DoorKey-8x8, KeyCorridorS3R1, GoToLocal and
+BossLevel) it prints the operators of one step of the lane-major rollout
+loop and of its parts: the core transition, the id's post-step hook (the
+BabyAI verifier), the observation.  Then those of one sweep of the two-key
+domain on an UnlockToUnlock layout, and how many of them write a full
+(N, K1, K2, Cd, H, W) block.  Views (reshape, select, expand and the like)
+launch no kernel and are not counted, but for the sweep's total with
+views.
+"""
+
+from __future__ import annotations
+
+import sys
+from collections import Counter
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from minigrid_dynamicprogramming_tpu_torch import make
+from minigrid_dynamicprogramming_tpu_torch.parallel import lanes as L
+
+IDS = ("MiniGrid-DoorKey-8x8-v0", "MiniGrid-KeyCorridorS3R1-v0",
+       "BabyAI-GoToLocal-v0", "BabyAI-BossLevel-v0")
+VIEWS = ("view", "reshape", "select", "slice", "expand", "permute", "transpose",
+         "unsqueeze", "squeeze", "alias", "detach", "lift_fresh", "as_strided", "t.default")
+
+
+class Count(TorchDispatchMode):
+    """Counts the operators dispatched inside it, views left out; ``big``
+    counts those whose output has at least ``big_numel`` elements."""
+
+    def __init__(self, big_numel: int = 0):
+        super().__init__()
+        self.ops, self.big, self.big_numel, self.with_views = Counter(), 0, big_numel, 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        name = str(func)
+        self.with_views += 1
+        if not any(v in name for v in VIEWS):
+            self.ops[name] += 1
+            if self.big_numel and isinstance(out, torch.Tensor) and out.numel() >= self.big_numel:
+                self.big += 1
+        return out
+
+    @property
+    def total(self) -> int:
+        return sum(self.ops.values())
+
+
+def count(fn, big_numel: int = 0) -> Count:
+    with Count(big_numel) as c:
+        fn()
+    return c
+
+
+def step_counts(env_id: str) -> dict:
+    env = make(env_id)
+    g = torch.Generator().manual_seed(0)
+    pool = L._lane_pool(env, g, 64, "pool", 2, "cpu")
+    ls = L.LaneState(**{n: getattr(pool, n)[0] for n in L._FIELDS})
+    act = torch.randint(0, env.action_dim, (64,), generator=g, dtype=torch.int32)
+    new, reward, term = L.step_lanes(env.params, ls, act)
+    out = {
+        "rollout step": count(lambda: L._lane_scan(env, g, pool, 64, 1, "pool", 2)).total,
+        "core transition": count(lambda: L.step_lanes(env.params, ls, act)).total,
+        "observation": count(lambda: L.obs_lanes(env.params, ls)).total,
+    }
+    if env.post_step_lanes is not None:
+        hook = env.post_step_lanes
+        out["post-step hook"] = count(lambda: hook(env.params, None, ls, new, act, reward, term)).total
+    return out
+
+
+def twokey_sweep_counts() -> dict:
+    from minigrid_dynamicprogramming_tpu_torch.core.constants import OBJ_BALL
+    from minigrid_dynamicprogramming_tpu_torch.dp import tabular_twokey as TT
+
+    env = make("BabyAI-UnlockToUnlock-v0")
+    states = env.generate(torch.Generator().manual_seed(0), env.params, 1, device="cpu")
+    ball = (states.grid_obj == OBJ_BALL).reshape(1, -1).to(torch.int8).argmax(1, True)
+    color = states.grid_color.reshape(1, -1).gather(1, ball)[:, 0]
+    layout = TT.extract_twokey_layout(states, 2, OBJ_BALL, color)
+    v = TT._empty_v(layout)
+    tables = TT._tables(layout, v.shape[1])
+
+    def sweep():
+        nxt = torch.empty_like(v)
+        for d, t in enumerate(tables):
+            best = None
+            for q in TT._action_values(v, t, d, layout.box_idx, 0.995):
+                best = q if best is None else torch.maximum(best, q)
+            nxt[:, :, :, :, d] = best
+
+    c = count(sweep, big_numel=v[:, :, :, :, 0].numel())
+    return {"operators": c.total, "with views": c.with_views, "full-block outputs": c.big,
+            "V shape": tuple(v.shape)}
+
+
+def main(argv) -> int:
+    torch.set_num_threads(1)
+    for env_id in argv or IDS:
+        print(env_id, step_counts(env_id), flush=True)
+    print("two-key sweep", twokey_sweep_counts(), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

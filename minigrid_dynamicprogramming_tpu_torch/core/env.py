@@ -68,3 +68,10 @@ class Environment:
         if self._mission_text is None:
             return ""
         return self._mission_text([int(c) for c in mission_codes])
+
+    @property
+    def mission_space(self):
+        """The string-facing mission space of this id (``core/mission.py``)."""
+        from minigrid_dynamicprogramming_tpu_torch.core.mission import mission_space_for
+
+        return mission_space_for(self.env_id)

@@ -139,3 +139,27 @@ def sample_mask_pos(
 def select_state(cond: torch.Tensor, a: LaneState, b: LaneState) -> LaneState:
     """Per-env ``where(cond, a, b)``."""
     return _select_lanes(cond, a, b)
+
+
+def reduce_any_cells(params: EnvParams, ls: LaneState, mask: torch.Tensor) -> torch.Tensor:
+    """``any`` over the cell axis of an (HW, B) mask: (B,) bool."""
+    return mask.any(dim=0)
+
+
+def reduce_sum_cells(params: EnvParams, ls: LaneState, x: torch.Tensor) -> torch.Tensor:
+    """Sum over the cell axis of an (HW, B) plane: (B,)."""
+    return x.sum(dim=0)
+
+
+def shift_cells(params: EnvParams, ls: LaneState, mask: torch.Tensor, dx: int, dy: int):
+    """An (HW, B) plane shifted by a static (dx, dy), zero-filled:
+    ``out[y, x] = mask[y - dy, x - dx]``, and 0 where (x - dx, y - dy) is
+    off the grid.  Cells shifted past an edge are dropped, never wrapped
+    onto the opposite edge or the next row."""
+    h, w = params.height, params.width
+    m = mask.reshape(h, w, -1)
+    out = torch.zeros_like(m)
+    ys, yd = slice(max(-dy, 0), h - max(dy, 0)), slice(max(dy, 0), h - max(-dy, 0))
+    xs, xd = slice(max(-dx, 0), w - max(dx, 0)), slice(max(dx, 0), w - max(-dx, 0))
+    out[yd, xd] = m[ys, xs]
+    return out.reshape(h * w, -1)

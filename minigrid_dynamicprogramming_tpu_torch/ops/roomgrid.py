@@ -364,7 +364,8 @@ def connect_all(
     """Add unlocked doors at random until every room is reachable from the
     agent's room: ``max_itrs`` iid draws of (room, edge, color) per env,
     with the color uniform over the other five where ``exclude_color``
-    (an int or (B,) tensor) is given.  See :func:`connect_all_draws`."""
+    (an int or (B,) tensor) is given, and over all six where an entry of
+    it is negative.  See :func:`connect_all_draws`."""
     b = state.grid_obj.shape[0]
     dev = state.grid_obj.device
     rows, cols = ctx.locked.shape[1:]
@@ -378,7 +379,7 @@ def connect_all(
     else:
         r = draw(5)
         ex = torch.as_tensor(exclude_color, device=dev).to(torch.int64).reshape(-1, 1)
-        dcolor = r + (r >= ex).to(torch.int64)
+        dcolor = torch.where(ex < 0, draw(6), r + (r >= ex).to(torch.int64))
     return connect_all_draws(state, ctx, room_size, di, dj, dk, dcolor)
 
 

@@ -385,6 +385,23 @@ def obs_lanes(params: EnvParams, ls: LaneState):
     return obj, color, obj_state, vis
 
 
+def _spread(row: torch.Tensor, see_row: torch.Tensor, v: int, up: bool) -> torch.Tensor:
+    """``row`` grown along ``see_row`` (v-bit int32 bitboards): a set bit
+    moves to the next column (the next higher bit if ``up``, else the next
+    lower) while the column it leaves is see-through, as far as that goes.
+    The reference moves one column a pass, v - 1 passes; this doubles the
+    reach each round (a Kogge-Stone fill), ``run`` holding the columns that
+    start k see-through columns in a row.  Bits moved past column v - 1
+    are left for the caller to mask; they never come back."""
+    run, k = see_row, 1
+    while True:
+        row = row | (((row & run) << k) if up else ((row & run) >> k))
+        if 2 * k >= v:
+            return row
+        run = run & ((run >> k) if up else (run << k))
+        k *= 2
+
+
 def _process_vis_lanes(see: torch.Tensor, v: int) -> torch.Tensor:
     """The reference's sequential visibility sweep over ``see`` ((v*v, B)
     bool), one view row per int32 bitboard (bit i = column i); the result
@@ -399,11 +416,9 @@ def _process_vis_lanes(see: torch.Tensor, v: int) -> torch.Tensor:
     not_first = row_mask ^ 1
     for j in reversed(range(v)):
         row, see_row = rows[j], sees[j]
-        for _ in range(v - 1):
-            row = row | (((row & see_row) << 1) & row_mask)
+        row = _spread(row, see_row, v, up=True) & row_mask
         cond1 = row & see_row & not_last
-        for _ in range(v - 1):
-            row = row | ((row & see_row) >> 1)
+        row = _spread(row, see_row, v, up=False)
         cond2 = row & see_row & not_first
         rows[j] = row
         if j > 0:
@@ -470,6 +485,8 @@ class LaneRolloutResult(NamedTuple):
     steps: int
     obs_checksum: torch.Tensor  # () i64 in [0, 2**32): JAX's wrapping u32 sum
     resets_per_env: torch.Tensor  # (B,) i32
+    successes: torch.Tensor  # () i64: terminations that paid a positive reward
+    failures: torch.Tensor  # () i64: the other terminations
 
 
 def _select_lanes(
@@ -562,6 +579,12 @@ def _lane_pool(
         raise ValueError(f"{env.env_id}: the lane engine does not cover its hooks")
     rounds = _rounds(autoreset, pool_rounds)
     flat = env.generate(generator, env.params, rounds * batch_size, device)
+    return stack_rounds(flat, batch_size, rounds)
+
+
+def stack_rounds(flat: EnvState, batch_size: int, rounds: int) -> LaneState:
+    """``rounds * batch_size`` batch-first layouts as a lane-major pool
+    (rounds, ..., batch_size), round r the layouts r*B to (r+1)*B - 1."""
     per_round = [
         to_lanes(
             EnvState(
@@ -615,6 +638,8 @@ def _lane_scan(
     reset_count = torch.zeros(batch_size, dtype=torch.int32, device=dev)
     rewards = torch.empty(horizon, dtype=torch.float32, device=dev)
     dones = torch.empty(horizon, dtype=torch.int64, device=dev)
+    wins = torch.empty(horizon, dtype=torch.int64, device=dev)
+    ends = torch.empty(horizon, dtype=torch.int64, device=dev)
     checksums = torch.empty(horizon, dtype=torch.int64, device=dev)
     for t in range(horizon):
         if actions is None:
@@ -637,6 +662,8 @@ def _lane_scan(
         checksums[t] = seen.sum()
         rewards[t] = reward.sum()
         dones[t] = done.sum()
+        wins[t] = (term & (reward > 0)).sum()
+        ends[t] = term.sum()
     return LaneRolloutResult(
         final_state=ls,
         total_reward=rewards.sum(),
@@ -644,4 +671,6 @@ def _lane_scan(
         steps=batch_size * horizon,
         obs_checksum=checksums.sum() % (1 << 32),
         resets_per_env=reset_count,
+        successes=wins.sum(),
+        failures=ends.sum() - wins.sum(),
     )

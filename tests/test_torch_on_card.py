@@ -22,7 +22,9 @@ post-step family roll out equal on the card and on the CPU, as do two
 RoomGrid families and MultiRoom.  The key-domain kernel also runs on the
 layouts it was written for: KeyCorridorS3R2 at six door slots (C = 64, the
 global route) and ObstructedMaze-1Dl (11 wide and 6 high, the cluster
-route's instance for sizes given at run time).
+route's instance for sizes given at run time).  Three BabyAI ids roll out
+equal on the card and on the CPU, the verifier included, and the two-key
+domain (plain PyTorch, no kernel) gives the same V on both.
 """
 
 from __future__ import annotations
@@ -104,11 +106,13 @@ def test_vi_kernel_run_time_size_equals_plain(card, env_id, max_doors):
 @pytest.mark.parametrize("env_id", [
     "MiniGrid-LavaGapS7-v0", "MiniGrid-PutNear-8x8-N3-v0", "MiniGrid-KeyCorridorS3R2-v0",
     "MiniGrid-ObstructedMaze-1Dlhb-v0", "MiniGrid-MultiRoom-N2-S4-v0",
+    "BabyAI-GoToLocal-v0", "BabyAI-BossLevel-v0", "BabyAI-PutNextS5N2Carrying-v0",
 ])
 def test_family_rollout_card_equals_cpu(card, env_id):
     """The same pool and actions step alike on the card and on the CPU,
     the path the CPU tests hold against JAX.  The step limit is cut to 64,
-    so that every lane crosses an episode boundary."""
+    so that every lane crosses an episode boundary (a BabyAI id whose
+    limit is set per episode ends its episodes through the verifier)."""
     env = port.make(env_id)
     env.params = env.params.replace(max_steps=min(env.params.max_steps, 64))
     b, horizon, rounds = 128, 96, 3
@@ -244,3 +248,21 @@ def test_wrappers_refuse_other_inputs(card):
         cuda_vi.cuda_value_iteration(
             dataclasses.replace(layouts, goal=layouts.goal.cpu())
         )
+
+
+@pytest.mark.cuda
+def test_twokey_values_card_equal_cpu(card):
+    """The two-key domain on two UnlockToUnlock layouts (16x6, two doors),
+    the target the ball: V on the card within 1e-6 of V on the CPU."""
+    from minigrid_dynamicprogramming_tpu_torch.core.constants import OBJ_BALL
+    from minigrid_dynamicprogramming_tpu_torch.dp import tabular_twokey as ttk
+
+    states = _states(card, "BabyAI-UnlockToUnlock-v0", 2, seed=9)
+    balls = (states.grid_obj == OBJ_BALL).reshape(2, -1)
+    color = states.grid_color.reshape(2, -1).gather(1, balls.to(torch.int8).argmax(1, True))[:, 0]
+    layouts = ttk.extract_twokey_layout(states, 2, OBJ_BALL, color)
+    got = ttk.twokey_vi_values(layouts, GAMMA, 16)
+    cpu = ttk.TwoKeyLayout(**{f.name: getattr(layouts, f.name).cpu() for f in dataclasses.fields(layouts)})
+    want = ttk.twokey_vi_values(cpu, GAMMA, 16)
+    assert (want > 0).any()
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-6)

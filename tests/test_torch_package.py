@@ -44,8 +44,17 @@ bad = sorted(
     if n.startswith(("jax", "flax")) or n == jax_pkg or n.startswith(jax_pkg + ".")
 )
 print(" ".join(["imported"] + bad))
-print("modules", sum(n.startswith(pkg.__name__) for n in sys.modules))
+print(" ".join(["modules"] + sorted(n for n in sys.modules if n.startswith(pkg.__name__))))
 """
+
+# Modules the fresh-process import must reach, with everything else.
+MUST_IMPORT = [
+    "minigrid_dynamicprogramming_tpu_torch.dp.tabular_twokey",
+    "minigrid_dynamicprogramming_tpu_torch.core.mission",
+] + [
+    f"minigrid_dynamicprogramming_tpu_torch.envs.babyai.{m}"
+    for m in ("core", "level", "goto", "open", "pickup", "unlock", "other", "levelgen")
+]
 
 
 def _np(tree) -> dict:
@@ -62,7 +71,8 @@ def test_port_imports_no_jax():
         check=True,
     ).stdout.splitlines()
     imported, modules = out[-2].split(), out[-1].split()
-    assert modules[0] == "modules" and int(modules[1]) >= 40, out
+    assert modules[0] == "modules" and len(modules) > 50, out
+    assert set(MUST_IMPORT) <= set(modules[1:]), sorted(set(MUST_IMPORT) - set(modules))
     assert imported == ["imported"], f"the port pulled in {imported[1:]}"
 
 
@@ -79,9 +89,11 @@ def test_constants_equal_jax():
 
 
 def test_registry_ids_and_flags_equal_jax():
+    """All 171 ids, MiniGrid and BabyAI, with JAX's params, static flags
+    (the instruction profile and ``done_actions`` among them) and hooks."""
     ids = port.registered_ids()
-    minigrid = [i for i in mgtpu.registered_ids() if i.startswith("MiniGrid-")]
-    assert len(ids) == 75 and ids == sorted(minigrid)
+    assert len(ids) == 171 and ids == sorted(mgtpu.registered_ids())
+    assert sum(i.startswith("BabyAI-") for i in ids) == 96
     for env_id in ids:
         jenv, tenv = mgtpu.make(env_id), port.make(env_id)
         fields = ("width", "height", "max_steps", "see_through_walls",
@@ -91,15 +103,19 @@ def test_registry_ids_and_flags_equal_jax():
         assert tenv.action_dim == jenv.action_dim
         assert tenv.hook_rng == jenv.hook_rng, env_id
         assert tenv.reward_range == tuple(jenv.reward_range), env_id
-        for hook in ("action_map", "post_step_lanes"):
+        for hook in ("action_map", "post_step_lanes", "mission_text"):
             assert (getattr(tenv, hook) is None) == (getattr(jenv, hook) is None), (env_id, hook)
+        if env_id.startswith("BabyAI-"):
+            # The verifier is the post-step hook; no MiniGrid plane-gate flag.
+            assert tenv.post_step_lanes.__name__ == jenv.post_step_lanes.__name__ == "verify_step"
+            assert not {"no_marks", "no_boxes"} & {k for k, _ in tenv.params.extra}, env_id
         # JAX's DynamicObstacles draws in its batch-first pre_step; the
         # port registers that hook lane-major only.
         assert (tenv.pre_step_lanes is None) == (
             jenv.pre_step_lanes is None and jenv.pre_step is None
         ), env_id
-    with pytest.raises(KeyError, match="not ported"):
-        port.make("BabyAI-GoToRedBall-v0")
+    with pytest.raises(KeyError, match="unknown environment id"):
+        port.make("BabyAI-NoSuchLevel-v0")
 
 
 @pytest.mark.parametrize("env_id", ["MiniGrid-MultiRoom-N2-S4-v0", "MiniGrid-MultiRoom-N6-v0"])
@@ -173,3 +189,20 @@ def test_bridge_refuses_unknown_fields():
     arrays["bogus"] = np.zeros(2)
     with pytest.raises(ValueError, match="bogus"):
         from_numpy(EnvState, arrays, "cpu")
+
+
+def test_count_ops_counts_a_step_and_a_sweep():
+    """``count_ops.py`` (operator counts of a rollout step and a two-key
+    sweep) runs, and shows what the verifier's profile prunes: a
+    single-goto id's verifier launches a fraction of the generic one's."""
+    sys.path.insert(0, str(REPO))
+    try:
+        import count_ops
+    finally:
+        sys.path.remove(str(REPO))
+    local, boss = (count_ops.step_counts(i) for i in ("BabyAI-GoToLocal-v0", "BabyAI-BossLevel-v0"))
+    assert local["observation"] == boss["observation"] > 0
+    assert 3 * local["post-step hook"] < boss["post-step hook"]
+    assert local["rollout step"] > local["core transition"] + local["post-step hook"] + local["observation"]
+    sweep = count_ops.twokey_sweep_counts()
+    assert 0 < sweep["full-block outputs"] < sweep["operators"] < sweep["with views"]

@@ -124,13 +124,16 @@ def test_connect_all_equals_the_retry_loop(shape, T):
 
 
 def test_connect_all_excludes_a_color():
+    """Each env's doors avoid its excluded color; a negative entry (BabyAI
+    Unlock's half of the envs) excludes none, so all six occur."""
     state, ctx = _layout("3x3", seed=5)
-    exclude = torch.arange(B) % 6
+    exclude = torch.arange(B) % 7 - 1
     out, out_ctx = RG.connect_all(torch.Generator().manual_seed(1), state, ctx, 5, exclude_color=exclude)
     added = (out.grid_obj == OBJ_DOOR) & (state.grid_obj != OBJ_DOOR)
     colors = out.grid_color[added].long()
     owners = exclude[:, None, None].expand_as(added)[added]
     assert len(colors) > 100 and (colors != owners).all()
+    assert set(colors[owners < 0].tolist()) == set(range(6))
     # Every room joined (no room is locked here).
     for b in range(B):
         assert _reached(out_ctx.edge[b].numpy(), (0, 0)) == 9

@@ -105,3 +105,22 @@ def test_step_obs_bit_identical(env_id, see_through_walls, gated):
         seen["goal"] += int((np.asarray(j_rew) > 0).sum())
         seen["truncated"] += int(want["truncated"].sum())
     assert all(n > 0 for n in seen.values()), seen
+
+
+@pytest.mark.parametrize("v", [3, 5, 7, 9])
+def test_visibility_fill_equals_the_reference_passes(v):
+    """``lanes._spread``'s doubling fill equals the reference's v - 1
+    one-column passes, both ways, on every v-bit row and see-through
+    mask."""
+    n = 1 << v
+    row = torch.arange(n, dtype=torch.int32).repeat_interleave(n)
+    see = torch.arange(n, dtype=torch.int32).repeat(n)
+    up = row.clone()
+    for _ in range(v - 1):
+        up = up | (((up & see) << 1) & (n - 1))
+    down = up.clone()
+    for _ in range(v - 1):
+        down = down | ((down & see) >> 1)
+    got_up = tlanes._spread(row, see, v, up=True) & (n - 1)
+    assert torch.equal(got_up, up)
+    assert torch.equal(tlanes._spread(got_up, see, v, up=False), down)
