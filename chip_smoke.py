@@ -86,7 +86,23 @@ Phases (any failure raises, exits nonzero and prints no "ok" line):
    ``twokey_steps_to_go`` steps with the closed-form return on all 64;
    layout-sweeps/s and peak memory; V on the card equal to V on the CPU
    within 1e-6 on the first two layouts at 8 sweeps.
-13. the kernels line: for each kernel, its launches on the main path (each
+13. the environment API: ``reset``, ``step`` and ``observation`` at
+   B=4096 on DoorKey-8x8, BabyAI-GoToLocal and MemoryS7 for 64 scripted
+   steps on the card, equal at every step (observation, state, flags;
+   the reward within 1e-5: the card divides by the step limit as a
+   multiply by its reciprocal) to the same calls on the CPU, run in
+   worker processes;
+   DynamicObstacles' balls kept through ``step``; the same at B=1.
+14. PPO throughput at the JAX bench's configuration (BabyAI-GoToDoor,
+   32768 envs, T=32, 2 epochs, 8 minibatches): two warm-up updates, then
+   five timed ones; the full update's env-steps/s, and the rollout /
+   learner split, the rollout timed by a zero-epoch update.
+15. PPO learning: MiniGrid-DoorKey-5x5 and BabyAI-GoToDoor at the JAX
+   learning bench's configuration (8192 envs, T=64, 2 epochs, 8
+   minibatches) must each reach mean return >= 0.90 over >= 1024
+   episodes for 3 updates in a row within 100 updates; each curve is
+   printed.
+16. the kernels line: for each kernel, its launches on the main path (each
    part of it driven with the counts set to 0 just before and read just
    after), its largest difference from the plain version, the times of
    kernel, plain version and bound, its design and route, and the
@@ -168,6 +184,21 @@ BABYAI_RUNS = {
 # doors), V 59.0 MB a layout.  Card against CPU on the first layouts.
 TWOKEY_ENV, TWOKEY_B, TWOKEY_SWEEPS = "BabyAI-UnlockToUnlock-v0", 64, 160
 TWOKEY_CPU_LAYOUTS, TWOKEY_CPU_SWEEPS = 2, 8
+# The environment API (phase 13): ids, batch, scripted steps; the
+# DynamicObstacles id; steps of the B=1 call.
+ENV_API_IDS = ("MiniGrid-DoorKey-8x8-v0", "BabyAI-GoToLocal-v0", "MiniGrid-MemoryS7-v0")
+ENV_API_B, ENV_API_STEPS = 4096, 64
+ENV_API_DYN = "MiniGrid-Dynamic-Obstacles-8x8-v0"
+ENV_API_SINGLE_STEPS = 32
+# left, right, forward, pickup, drop, toggle, done: weighted towards forward
+ENV_API_ACTION_P = np.array([0.15, 0.15, 0.3, 0.1, 0.1, 0.1, 0.1])
+# PPO (phases 14-15): the JAX bench's throughput configuration
+# (bench.py:255-281) and learning configuration (bench.py:310-386).
+PPO_ENV, PPO_B, PPO_T, PPO_MB = "BabyAI-GoToDoor-v0", 32768, 32, 8
+PPO_WARMUP, PPO_TIMED = 2, 5
+LEARN_IDS = ("MiniGrid-DoorKey-5x5-v0", "BabyAI-GoToDoor-v0")
+LEARN_B, LEARN_T, LEARN_MB, LEARN_MAX_UPDATES = 8192, 64, 8, 100
+LEARN_THRESHOLD, LEARN_MIN_EPISODES, LEARN_PATIENCE = 0.90, 1024, 3
 # B1 on the families' layouts: (env, sweeps), 1024 layouts each.
 VI_FAMILIES = (
     ("MiniGrid-LavaGapS7-v0", 128),
@@ -674,6 +705,175 @@ def twokey_domain(make) -> dict:
     return entry
 
 
+def state_numpy(state) -> dict:
+    import dataclasses
+
+    return {f.name: getattr(state, f.name).cpu().numpy() for f in dataclasses.fields(state)}
+
+
+def env_api_steps(env, state, acts, generator=None) -> dict:
+    """``env.step`` with each row of ``acts``: every step's observation,
+    reward and flags, and the final state, as numpy."""
+    dev = state.agent_dir.device
+    out = {"image": [], "direction": [], "mission": [], "reward": [], "terminated": [],
+           "truncated": []}
+    for act in acts:
+        obs, state, rew, term, trunc, _ = env.step(state, torch.from_numpy(act).to(dev), generator)
+        for k, v in (*obs.items(), ("reward", rew), ("terminated", term), ("truncated", trunc)):
+            out[k].append(v)
+    steps = {k: torch.stack(v).cpu().numpy() for k, v in out.items()}
+    steps.update({f"state.{k}": v for k, v in state_numpy(state).items()})
+    return steps
+
+
+def cpu_env_api(env_id: str, state: dict, acts: np.ndarray) -> dict:
+    """The CPU half of phase 13, in a worker process: the observation of
+    the numpy ``state`` ("reset.<key>") and ``env_api_steps`` from it."""
+    torch.set_num_threads(1)
+    from minigrid_dynamicprogramming_tpu_torch import EnvState, make
+
+    env = make(env_id)
+    state = EnvState(**{k: torch.from_numpy(v) for k, v in state.items()})
+    out = {f"reset.{k}": v.numpy() for k, v in env.observation(state).items()}
+    return {**out, **env_api_steps(env, state, acts)}
+
+
+def env_api(make, workers) -> dict:
+    """Phase 13: the batch-first ``Environment`` methods on the card
+    against the same calls on the CPU."""
+    from minigrid_dynamicprogramming_tpu_torch.core.constants import OBJ_BALL
+    from minigrid_dynamicprogramming_tpu_torch.parallel import lanes as L
+
+    out, pending = {}, []
+    rng = np.random.default_rng(13)
+    runs = [(i, ENV_API_B, ENV_API_STEPS) for i in ENV_API_IDS]
+    runs.append((ENV_API_IDS[0], 1, ENV_API_SINGLE_STEPS))
+    for k, (env_id, b, steps) in enumerate(runs):
+        env = make(env_id)
+        obs, state = env.reset(gen(400 + k), b, device=DEVICE)
+        require(obs["image"].shape == (b, 7, 7, 3) and obs["image"].device.type == torch.device(DEVICE).type,
+                f"{env_id}: reset's observation on the card")
+        acts = rng.choice(7, size=(steps, b), p=ENV_API_ACTION_P).astype(np.int32)
+        job = workers.submit(cpu_env_api, env_id, state_numpy(state), acts)
+        t0 = time.perf_counter()
+        on_card = env_api_steps(env, state, acts)
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        on_card.update({f"reset.{k2}": v.cpu().numpy() for k2, v in obs.items()})
+        name = f"{env_id} B={b}"
+        out[name] = {
+            "B": b, "steps": steps, "s": s, "env_steps_per_s": b * steps / s,
+            "terminated": int(on_card["terminated"].sum()), "truncated": int(on_card["truncated"].sum()),
+            "rewards": float(on_card["reward"].sum()),
+        }
+        pending.append((name, on_card, job))
+    require(sum(e["terminated"] for e in out.values()) > 0, "some env terminated")
+    for name, on_card, job in pending:
+        on_cpu = job.result()
+        require(set(on_cpu) == set(on_card), f"{name}: card and CPU return the same fields")
+        for field, want in on_cpu.items():
+            if field == "reward":
+                err = float(np.abs(on_card[field] - want).max())
+                out[name]["reward_card_vs_cpu_err"] = err
+                require(err <= RETURN_ATOL, f"{name}: card and CPU rewards within {RETURN_ATOL}")
+            else:
+                require(np.array_equal(on_card[field], want), f"{name}: card and CPU agree on {field}")
+        print(f"[env_api] {name}, card equal to CPU: {out[name]}", flush=True)
+
+    # DynamicObstacles: the hook draws from the generator passed to step.
+    env = make(ENV_API_DYN)
+    g = gen(430)
+    obs, state = env.reset(g, ENV_API_B, device=DEVICE)
+    n_obs = int((state.grid_obj[0] == OBJ_BALL).sum())
+    try:
+        env.step(state, torch.zeros(ENV_API_B, dtype=torch.int32, device=DEVICE))
+        raise RuntimeError(f"check failed: {ENV_API_DYN}: step without a generator must raise")
+    except ValueError:
+        pass
+    collisions = 0
+    for _ in range(ENV_API_STEPS):
+        act = torch.from_numpy(rng.choice(7, size=ENV_API_B, p=ENV_API_ACTION_P).astype(np.int32))
+        obs, state, rew, term, trunc, _ = env.step(state, act.to(DEVICE), g)
+        require(bool(check_dynamic_obstacles(L.to_lanes(state), env.params, n_obs).all()),
+                f"{ENV_API_DYN}: {n_obs} balls named by aux after every step")
+        require(bool(((rew == 0) | (rew == -1) | ((rew > 0) & (rew <= 1))).all()),
+                f"{ENV_API_DYN}: rewards are 0, -1 or in (0, 1]")
+        collisions += int((rew == -1).sum())
+    require(collisions > 0, f"{ENV_API_DYN}: some env collided")
+    out[ENV_API_DYN] = {"B": ENV_API_B, "steps": ENV_API_STEPS, "n_obs": n_obs, "collisions": collisions}
+    print(f"[env_api] {ENV_API_DYN}: {out[ENV_API_DYN]}", flush=True)
+    return out
+
+
+def ppo_throughput(make, card: str) -> dict:
+    """Phase 14: the full update's env-steps/s on GoToDoor, and the rollout
+    / learner split, the rollout timed by a zero-epoch update."""
+    from minigrid_dynamicprogramming_tpu_torch.models import PPO, PPOConfig
+
+    env = make(PPO_ENV)
+
+    def timed(epochs: int) -> list:
+        cfg = PPOConfig(num_envs=PPO_B, rollout_len=PPO_T, epochs=epochs, num_minibatches=PPO_MB)
+        ppo = PPO(env, cfg, device=DEVICE)
+        ts = ppo.init(3)
+        for _ in range(PPO_WARMUP):
+            ts, m = ppo.update(ts)
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(PPO_TIMED):
+            t0 = time.perf_counter()
+            ts, m = ppo.update(ts)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        finite = [float(x) for x in m]
+        if epochs:
+            require(all(np.isfinite(finite)), f"{PPO_ENV}: finite update metrics {finite}")
+        return times
+
+    torch.cuda.reset_peak_memory_stats()
+    full = timed(2)
+    peak = torch.cuda.max_memory_allocated()
+    roll = timed(0)
+    steps = PPO_B * PPO_T
+    out = {
+        "env": PPO_ENV, "num_envs": PPO_B, "rollout_len": PPO_T, "epochs": 2,
+        "num_minibatches": PPO_MB, "update_s": full, "rollout_s": roll,
+        "env_steps_per_s": steps / statistics.mean(full),
+        "rollout_mean_s": statistics.mean(roll),
+        "learner_mean_s": statistics.mean(full) - statistics.mean(roll),
+        "peak_bytes": peak, "card": card,
+    }
+    print(f"[ppo_throughput] {out}", flush=True)
+    return out
+
+
+def ppo_learning(make, env_id: str) -> dict:
+    """Phase 15: train until the mean return holds LEARN_THRESHOLD over at
+    least LEARN_MIN_EPISODES episodes for LEARN_PATIENCE updates in a row."""
+    from minigrid_dynamicprogramming_tpu_torch.models import PPO, PPOConfig
+
+    cfg = PPOConfig(num_envs=LEARN_B, rollout_len=LEARN_T, epochs=2, num_minibatches=LEARN_MB)
+    ppo = PPO(make(env_id), cfg, device=DEVICE)
+    ts = ppo.init(0)
+    curve, hits, solved_at = [], 0, None
+    t0 = time.perf_counter()
+    for u in range(LEARN_MAX_UPDATES):
+        ts, m = ppo.update(ts)
+        ret, eps = float(m.mean_return), int(m.episodes)
+        curve.append({"update": u + 1, "mean_return": ret, "episodes": eps,
+                      "entropy": float(m.entropy), "s": time.perf_counter() - t0})
+        hits = hits + 1 if ret >= LEARN_THRESHOLD and eps >= LEARN_MIN_EPISODES else 0
+        if hits >= LEARN_PATIENCE:
+            solved_at = u + 1
+            break
+    out = {"env": env_id, "solved_at": solved_at, "s": time.perf_counter() - t0, "curve": curve}
+    print(f"[ppo_learning] {env_id}: solved at update {solved_at} in {out['s']:.1f} s; curve "
+          + " ".join(f"{c['update']}:{c['mean_return']:.4f}/{c['episodes']}" for c in curve), flush=True)
+    require(solved_at is not None, f"{env_id}: mean return >= {LEARN_THRESHOLD} over >= "
+            f"{LEARN_MIN_EPISODES} episodes for {LEARN_PATIENCE} updates within {LEARN_MAX_UPDATES}")
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write the results as JSON to this file")
@@ -1066,10 +1266,31 @@ def run(args, t_start: float, workers) -> int:
     results["twokey"], counts = drive("two-key domain", lambda: twokey_domain(make))
     require(not any(counts.values()), "the two-key domain launches no VI kernel")
     phase_s["twokey"] = time.perf_counter() - t0
-    print(f"[phases 8-12] seconds {phase_s}", flush=True)
+
+    # 13. The environment API, card against CPU.
+    t0 = time.perf_counter()
+    results["env_api"], counts = drive("environment API", lambda: env_api(make, workers))
+    require(not any(counts.values()), "the environment API launches no VI kernel")
+    phase_s["env_api"] = time.perf_counter() - t0
+
+    # 14. PPO throughput, rollout / learner split.
+    t0 = time.perf_counter()
+    results["ppo_throughput"], counts = drive("PPO throughput", lambda: ppo_throughput(make, card))
+    require(not any(counts.values()), "PPO launches no VI kernel")
+    phase_s["ppo_throughput"] = time.perf_counter() - t0
+
+    # 15. PPO learning.
+    results["ppo_learning"] = []
+    for env_id in LEARN_IDS:
+        t0 = time.perf_counter()
+        run, counts = drive(f"PPO learning {env_id}", lambda: ppo_learning(make, env_id))
+        require(not any(counts.values()), "PPO launches no VI kernel")
+        results["ppo_learning"].append(run)
+        phase_s[f"ppo_learning {env_id}"] = time.perf_counter() - t0
+    print(f"[phases 8-15] seconds {phase_s}", flush=True)
     results["phase_s"] = phase_s
 
-    # 13. Kernels line, card, ok.
+    # 16. Kernels line, card, ok.
     results["kernels"] = kernels
     results["total_s"] = time.perf_counter() - t_start
     print(f"[chip_smoke] {results['total_s']:.1f} s in all, the build included", flush=True)

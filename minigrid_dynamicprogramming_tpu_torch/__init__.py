@@ -5,21 +5,39 @@ reference; this package imports only ``torch`` and ``numpy`` (never JAX or
 the JAX package) and keeps the reference's module layout so each part has
 an obvious counterpart:
 
-* ``core/``      integer codes, state records, the ``Environment`` record;
-* ``ops/``       batched grid builders and the success reward;
-* ``envs/``      layout generators (DoorKey);
+* ``core/``      integer codes, state records, missions, and the
+  ``Environment`` record with its batch-first ``reset``/``step``/
+  ``observation``;
+* ``ops/``       batched grid and RoomGrid builders, the lane-major hook
+  toolkit, the view helpers of batch-first states (``ops/obs.py``);
+* ``envs/``      the layout generators and step hooks of every MiniGrid
+  family, and the BabyAI levels and verifier (``envs/babyai/``);
+* ``registry.py`` all 171 ids;
 * ``parallel/lanes.py``  the batch-last step, observation and rollout;
 * ``dp/``        exact value iteration, with hand-written CUDA kernels in
   ``dp/cuda_vi.py`` (sources under ``csrc/``);
-* ``bridge.py``  numpy-dict converters to and from the JAX state pytrees.
+* ``models/``    the actor-critic network and the PPO learner;
+* ``bridge.py``  numpy-dict converters to and from the JAX state pytrees,
+  and the actor-critic's flax parameters.
 
 Entry points that make tensors from a seed (``lane_rollout``, an env's
-``generate``, ``dp.tabular.solve``) default to ``device="cuda"`` and raise
-when CUDA is absent unless the caller asks for ``"cpu"``.
+``generate`` and ``reset``, ``dp.tabular.solve``, ``models.PPO``) default
+to ``device="cuda"`` and raise when CUDA is absent unless the caller asks
+for ``"cpu"``.
 """
 
 __version__ = "0.1.0"
 
-from minigrid_dynamicprogramming_tpu_torch.registry import make, registered_ids
+from minigrid_dynamicprogramming_tpu_torch.core.env import Environment
+from minigrid_dynamicprogramming_tpu_torch.core.state import EnvParams, EnvState
+from minigrid_dynamicprogramming_tpu_torch.registry import make, register, registered_ids
 
-__all__ = ["make", "registered_ids", "__version__"]
+__all__ = [
+    "Environment",
+    "EnvParams",
+    "EnvState",
+    "make",
+    "register",
+    "registered_ids",
+    "__version__",
+]

@@ -1,9 +1,9 @@
-"""Carry state and layouts across from the JAX package, as numpy dicts.
+"""Carry state, layouts and network weights across from the JAX package,
+as numpy dicts.
 
-The port has no weights; what crosses between the two packages is world
-state and DP layouts.  The JAX side turns its pytrees into plain dicts of
-numpy arrays (``{name: np.asarray(leaf)}``), so this module never touches
-JAX.  ``from_numpy`` builds any of the port's records from such a dict:
+The JAX side turns its pytrees into plain dicts of numpy arrays
+(``{name: np.asarray(leaf)}``), so this module never touches JAX.
+``from_numpy`` builds any of the port's records from such a dict:
 
 * a batch-first :class:`~.core.state.EnvState` (leading batch axis);
 * a lane-major :class:`~.parallel.lanes.LaneState`, or a pool of them with
@@ -15,6 +15,10 @@ Unsigned dtypes that PyTorch cannot compute with on the CPU are widened on
 the way in (uint16 -> int32, uint32 -> int64) and ``to_numpy`` narrows the
 marks planes back to uint16 on the way out.  The JAX states' per-env
 ``rng`` key has no counterpart in the port and is dropped.
+
+``actor_critic_from_flax`` turns the flax ``ActorCritic``'s parameter tree
+(nested dicts of numpy arrays) into a ``state_dict`` of the port's
+:class:`~.models.nets.ActorCritic`.
 """
 
 from __future__ import annotations
@@ -66,4 +70,35 @@ def to_numpy(record) -> dict:
         if f.name in _NARROW:
             a = a.astype(_NARROW[f.name])
         out[f.name] = a
+    return out
+
+
+def actor_critic_from_flax(params: Mapping) -> dict:
+    """The flax ``ActorCritic``'s parameters (the variables dict, or its
+    ``"params"`` entry, leaves numpy arrays) as the port's ``state_dict``:
+    conv kernels HWIO -> OIHW, dense kernels ``(in, out)`` -> ``(out, in)``,
+    embedding tables and ``code_pos`` as they are."""
+    params = params.get("params", params)
+    enc = params["ObsEncoder_0"]
+
+    def t(a) -> torch.Tensor:
+        return torch.from_numpy(np.array(a, dtype=np.float32))
+
+    out = {}
+
+    def dense(name: str, p: Mapping) -> None:
+        out[f"{name}.weight"] = t(p["kernel"]).T.contiguous()
+        out[f"{name}.bias"] = t(p["bias"])
+
+    for name in ("plane_embed_0", "plane_embed_1", "plane_embed_2", "dir_embed", "code_embed"):
+        out[f"encoder.{name}.weight"] = t(enc[name]["embedding"])
+    i = 0
+    while f"conv_{i}" in enc:
+        out[f"encoder.convs.{i}.weight"] = t(enc[f"conv_{i}"]["kernel"]).permute(3, 2, 0, 1).contiguous()
+        out[f"encoder.convs.{i}.bias"] = t(enc[f"conv_{i}"]["bias"])
+        i += 1
+    out["encoder.code_pos"] = t(enc["code_pos"])
+    dense("encoder.trunk", enc["trunk"])
+    dense("policy_head", params["policy_head"])
+    dense("value_head", params["value_head"])
     return out

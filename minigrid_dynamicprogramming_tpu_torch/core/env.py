@@ -1,4 +1,4 @@
-"""The environment record.
+"""The environment record and its batch-first API.
 
 Counterpart of ``minigrid_dynamicprogramming_tpu/core/env.py``: one
 registered id with its static params, its layout generator and the
@@ -9,6 +9,19 @@ per-family hooks (the reference's per-subclass ``step`` overrides).
 
 and returns a batch-first :class:`EnvState` drawn from ``generator`` (a
 ``torch.Generator`` on ``device``).
+
+The methods a user calls are batch-first, where JAX's are one env's
+functions that ``vmap`` batches; a single env is a call at B=1::
+
+    reset(generator, batch_size=1, device="cuda") -> (obs, state)
+    step(state, action, generator=None)
+        -> (obs, state, reward, terminated, truncated, info)
+    observation(state) -> {"image", "direction", "mission"}
+    in_view(state, x, y), agent_sees(state, x, y) -> (B,) bool
+
+``step`` runs the one lane engine (``parallel/lanes.py``): the state goes
+lane-major, through ``step_lanes_env``, and back; the observation is
+encoded from the lanes.
 
 The port keeps one batch-last engine (``parallel/lanes.py``), so each hook
 is registered once, lane-major, with these signatures::
@@ -28,9 +41,11 @@ counterpart, and neither has its ``generate_batch``: the port's
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
-from minigrid_dynamicprogramming_tpu_torch.core.state import EnvParams
+import torch
+
+from minigrid_dynamicprogramming_tpu_torch.core.state import EnvParams, EnvState
 
 
 class Environment:
@@ -61,6 +76,73 @@ class Environment:
         # False when the hooks never draw: step paths then pass them no
         # generator.
         self.hook_rng = hook_rng
+
+    def reset(
+        self, generator: torch.Generator, batch_size: int = 1, device="cuda"
+    ) -> Tuple[Dict[str, torch.Tensor], EnvState]:
+        """``batch_size`` fresh layouts drawn from ``generator`` (on
+        ``device``) and their observation."""
+        state = self.generate(generator, self.params, batch_size, device)
+        return self.observation(state), state
+
+    def step(
+        self,
+        state: EnvState,
+        action,
+        generator: Optional[torch.Generator] = None,
+    ) -> Tuple[Dict[str, torch.Tensor], EnvState, torch.Tensor, torch.Tensor, torch.Tensor, Dict]:
+        """One transition of every env in the batch; ``action`` is ``(B,)``
+        or one action for all.  ``generator`` feeds the hooks of families
+        that draw (``hook_rng``), and must then be given.  No auto-reset."""
+        from minigrid_dynamicprogramming_tpu_torch.parallel import lanes as L
+
+        hooked = self.pre_step_lanes is not None or self.post_step_lanes is not None
+        draws = hooked and self.hook_rng
+        if draws and generator is None:
+            raise ValueError(f"{self.env_id}: its hooks draw; pass a generator")
+        b = state.agent_dir.shape[0]
+        action = torch.as_tensor(action, device=state.agent_dir.device).expand(b)
+        ls, reward, terminated = L.step_lanes_env(
+            self, L.to_lanes(state), action, generator if draws else None
+        )
+        obs = self.observation_lanes(ls)
+        return obs, L.from_lanes(self.params, ls), reward, terminated, ls.truncated, {}
+
+    def observation(self, state: EnvState) -> Dict[str, torch.Tensor]:
+        """``{"image": (B, view, view, 3) uint8 in the [x, y] layout,
+        "direction": (B,), "mission": (B, MISSION_SLOTS)}``."""
+        from minigrid_dynamicprogramming_tpu_torch.parallel import lanes as L
+
+        return self.observation_lanes(L.to_lanes(state))
+
+    def observation_lanes(self, ls) -> Dict[str, torch.Tensor]:
+        """:meth:`observation` of a lane-major state (``parallel/lanes.py``),
+        in the same batch-first layout."""
+        from minigrid_dynamicprogramming_tpu_torch.parallel import lanes as L
+
+        return {
+            "image": L.obs_image_lanes(self.params, ls),
+            "direction": ls.agent_dir,
+            "mission": ls.mission.T,
+        }
+
+    def in_view(self, state: EnvState, x, y) -> torch.Tensor:
+        """Whether world cell ``(x, y)`` is inside each agent's view
+        rectangle (``MiniGridEnv.in_view``)."""
+        from minigrid_dynamicprogramming_tpu_torch.ops.obs import in_view
+
+        return in_view(self.params, state, x, y)
+
+    def agent_sees(self, state: EnvState, x, y) -> torch.Tensor:
+        """Whether the non-empty world cell ``(x, y)`` is visible through
+        each encoded observation (``MiniGridEnv.agent_sees``)."""
+        from minigrid_dynamicprogramming_tpu_torch.ops.obs import agent_sees
+
+        return agent_sees(self.params, state, x, y)
+
+    @property
+    def default_params(self) -> EnvParams:
+        return self.params
 
     def mission_text(self, mission_codes) -> str:
         """Decode one env's mission code vector to the reference's mission

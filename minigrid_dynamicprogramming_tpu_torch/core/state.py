@@ -11,8 +11,9 @@ Two differences from the JAX record, both at the dtype level:
 * ``marks``/``vmarks``/``carrying_marks`` are uint16 in JAX and int32 here
   (PyTorch on the CPU lacks compares and selects for uint16);
   ``bridge.py`` widens and narrows at the boundary.
-* the per-env ``rng`` key is left out: no DoorKey hook consumes it, and
-  random draws come from an explicit ``torch.Generator``.
+* the per-env ``rng`` key is left out: every random draw, the
+  DynamicObstacles hook's included, comes from an explicit
+  ``torch.Generator``.
 """
 
 from __future__ import annotations

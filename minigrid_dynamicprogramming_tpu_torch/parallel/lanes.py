@@ -385,8 +385,12 @@ def obs_lanes(params: EnvParams, ls: LaneState):
     return obj, color, obj_state, vis
 
 
+# The widest view whose rows fit an int64 bitboard with the sign bit clear.
+MAX_VIEW = 63
+
+
 def _spread(row: torch.Tensor, see_row: torch.Tensor, v: int, up: bool) -> torch.Tensor:
-    """``row`` grown along ``see_row`` (v-bit int32 bitboards): a set bit
+    """``row`` grown along ``see_row`` (v-bit int64 bitboards): a set bit
     moves to the next column (the next higher bit if ``up``, else the next
     lower) while the column it leaves is see-through, as far as that goes.
     The reference moves one column a pass, v - 1 passes; this doubles the
@@ -404,11 +408,14 @@ def _spread(row: torch.Tensor, see_row: torch.Tensor, v: int, up: bool) -> torch
 
 def _process_vis_lanes(see: torch.Tensor, v: int) -> torch.Tensor:
     """The reference's sequential visibility sweep over ``see`` ((v*v, B)
-    bool), one view row per int32 bitboard (bit i = column i); the result
-    has the same shape."""
+    bool), one view row per int64 bitboard (bit i = column i); the result
+    has the same shape.  Views wider than 63 columns do not fit a
+    bitboard and raise."""
+    if v > MAX_VIEW:
+        raise ValueError(f"agent_view_size {v} exceeds the visibility sweep's {MAX_VIEW}")
     row_mask = (1 << v) - 1
-    bit = torch.arange(v, dtype=torch.int32, device=see.device)[None, :, None]
-    sees = (see.reshape(v, v, -1).to(torch.int32) << bit).sum(1, dtype=torch.int32)
+    bit = torch.arange(v, dtype=torch.int64, device=see.device)[None, :, None]
+    sees = (see.reshape(v, v, -1).to(torch.int64) << bit).sum(1, dtype=torch.int64)
 
     rows = [torch.zeros_like(sees[0]) for _ in range(v)]
     rows[v - 1] = torch.full_like(sees[0], 1 << (v // 2))

@@ -86,6 +86,19 @@ from minigrid_dynamicprogramming_tpu_torch.envs.unlock import (
 )
 
 _REGISTRY: Dict[str, Callable[[], Environment]] = {}
+_FAMILY: Dict[str, str] = {}  # env id -> family slug (factory name)
+
+
+def register(env_id: str, factory: Callable[[], Environment]) -> None:
+    """Register ``factory`` (no arguments, returns an :class:`Environment`)
+    under ``env_id``, replacing any earlier registration."""
+    _REGISTRY[env_id] = factory
+
+
+def family(env_id: str) -> str:
+    """Family slug of an id: its factory's name without ``make_``
+    ("misc" for ids registered through :func:`register`)."""
+    return _FAMILY.get(env_id, "misc")
 
 # Families that can never hold a Box (nor, being MiniGrid, a verifier
 # mark), whose mission vector is one per-id constant, and that never write
@@ -124,7 +137,8 @@ def _reg(env_id: str, factory, **kwargs) -> None:
         env.params = env.params.with_extra(**flags)
         return env
 
-    _REGISTRY[env_id] = build
+    register(env_id, build)
+    _FAMILY[env_id] = fam
 
 
 # The reference's MiniGrid registration table, same ids and kwargs.

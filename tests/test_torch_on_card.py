@@ -25,6 +25,8 @@ global route) and ObstructedMaze-1Dl (11 wide and 6 high, the cluster
 route's instance for sizes given at run time).  Three BabyAI ids roll out
 equal on the card and on the CPU, the verifier included, and the two-key
 domain (plain PyTorch, no kernel) gives the same V on both.
+``Environment.step`` gives the same on both on DoorKey-8x8, and PPO
+updates on the card with finite metrics.
 """
 
 from __future__ import annotations
@@ -266,3 +268,43 @@ def test_twokey_values_card_equal_cpu(card):
     want = ttk.twokey_vi_values(cpu, GAMMA, 16)
     assert (want > 0).any()
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_env_step_card_equals_cpu(card):
+    """``Environment.step`` on DoorKey-8x8 on the card and on the CPU from
+    the same states with the same actions: equal observations, states,
+    rewards and flags at every step."""
+    env = port.make("MiniGrid-DoorKey-8x8-v0")
+    obs, state = env.reset(torch.Generator(device=card).manual_seed(4), 256, device=card)
+    cpu = port.EnvState(**{f.name: getattr(state, f.name).cpu() for f in dataclasses.fields(state)})
+    g = torch.Generator().manual_seed(5)
+    for _ in range(48):
+        act = torch.randint(0, 7, (256,), generator=g)
+        got = env.step(state, act.to(card))
+        want = env.step(cpu, act)
+        state, cpu = got[1], want[1]
+        for k in want[0]:
+            assert torch.equal(got[0][k].cpu(), want[0][k]), k
+        for f in dataclasses.fields(cpu):
+            assert torch.equal(getattr(state, f.name).cpu(), getattr(cpu, f.name)), f.name
+        for a, b in zip(got[2:5], want[2:5]):
+            assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+def test_ppo_update_on_card_is_finite(card):
+    """Two PPO updates on the card (bf16 model) on BabyAI-GoToRedBallGrey:
+    finite metrics, parameters on the card and changed."""
+    from minigrid_dynamicprogramming_tpu_torch.models import PPO, PPOConfig
+
+    ppo = PPO(port.make("BabyAI-GoToRedBallGrey-v0"),
+              PPOConfig(num_envs=256, rollout_len=16, num_minibatches=4))
+    ts = ppo.init(0)
+    before = [p.detach().clone() for p in ts.model.parameters()]
+    for _ in range(2):
+        ts, m = ppo.update(ts)
+    assert all(torch.isfinite(x).all() for x in m), m
+    after = list(ts.model.parameters())
+    assert all(p.device.type == "cuda" for p in after)
+    assert any(not torch.equal(a, b) for a, b in zip(after, before))

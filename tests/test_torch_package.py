@@ -41,7 +41,7 @@ for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
 jax_pkg = "minigrid_dynamicprogramming_tpu"
 bad = sorted(
     n for n in sys.modules
-    if n.startswith(("jax", "flax")) or n == jax_pkg or n.startswith(jax_pkg + ".")
+    if n.startswith(("jax", "flax", "optax")) or n == jax_pkg or n.startswith(jax_pkg + ".")
 )
 print(" ".join(["imported"] + bad))
 print(" ".join(["modules"] + sorted(n for n in sys.modules if n.startswith(pkg.__name__))))
@@ -51,6 +51,10 @@ print(" ".join(["modules"] + sorted(n for n in sys.modules if n.startswith(pkg._
 MUST_IMPORT = [
     "minigrid_dynamicprogramming_tpu_torch.dp.tabular_twokey",
     "minigrid_dynamicprogramming_tpu_torch.core.mission",
+    "minigrid_dynamicprogramming_tpu_torch.ops.obs",
+    "minigrid_dynamicprogramming_tpu_torch.models",
+    "minigrid_dynamicprogramming_tpu_torch.models.nets",
+    "minigrid_dynamicprogramming_tpu_torch.models.ppo",
 ] + [
     f"minigrid_dynamicprogramming_tpu_torch.envs.babyai.{m}"
     for m in ("core", "level", "goto", "open", "pickup", "unlock", "other", "levelgen")
