@@ -102,7 +102,24 @@ Phases (any failure raises, exits nonzero and prints no "ok" line):
    minibatches) must each reach mean return >= 0.90 over >= 1024
    episodes for 3 updates in a row within 100 updates; each curve is
    printed.
-16. the kernels line: for each kernel, its launches on the main path (each
+16. rendering and wrappers: ``render_frame`` (tile 32, highlight) on 4096
+   DoorKey-8x8 states two steps into their episodes (805 MB of frames) and
+   ``render_pov`` (tile 8) on 32768, each with its ms, frames/s, peak
+   memory and bound (bytes over 3.35 TB/s), the first 256 frames equal to
+   the CPU's; the pixel observation of pixel-based agents,
+   ``ImgObsWrapper(RGBImgPartialObsWrapper(env, 8))``, on DoorKey-8x8 and
+   BabyAI-GoToDoor at B=32768 for 32 steps of seeded random actions
+   (env-steps/s, peak memory); each of the 15 wrappers at B=256 for 16
+   steps, every deterministic one equal on card and CPU at every step
+   (rewards within 1e-5, "angle" within 1e-6), StochasticActionWrapper
+   (prob=1.0 is the bare step; at 0.5 the replaced share within 4 sigma,
+   no replacement 6) and ReseedWrapper (its cycle) by their invariants.
+17. the BabyAI bot: four envs of each of the 92 solvable BabyAI ids, one
+   ``BabyAIBot`` per env over one batch-first ``step`` (``run_bots``), up
+   to 240 steps; an id that solves none gets four more episodes.  Every
+   id solved at least once, with a positive reward, and the solve share
+   >= 0.90; per-id counts, episodes/s and the phase's seconds.
+18. the kernels line: for each kernel, its launches on the main path (each
    part of it driven with the counts set to 0 just before and read just
    after), its largest difference from the plain version, the times of
    kernel, plain version and bound, its design and route, and the
@@ -199,6 +216,23 @@ PPO_WARMUP, PPO_TIMED = 2, 5
 LEARN_IDS = ("MiniGrid-DoorKey-5x5-v0", "BabyAI-GoToDoor-v0")
 LEARN_B, LEARN_T, LEARN_MB, LEARN_MAX_UPDATES = 8192, 64, 8, 100
 LEARN_THRESHOLD, LEARN_MIN_EPISODES, LEARN_PATIENCE = 0.90, 1024, 3
+# Rendering and wrappers (phase 16): render_frame at tile 32 on DoorKey-8x8
+# (805 MB of frames at B=4096), render_pov at tile 8; the pixel observation
+# of pixel-based agents, ImgObs(RGBImgPartialObs(env, 8)) (56x56x3), at the
+# PPO bench's per-chip batch; each wrapper at WRAP_B for WRAP_T steps, card
+# against CPU.  The first RENDER_CPU_B frames are rendered on the CPU too.
+RENDER_B, RENDER_TILE, POV_B, POV_TILE = 4096, 32, 32768, 8
+RENDER_CPU_B = 256
+PIXEL_IDS = ("MiniGrid-DoorKey-8x8-v0", "BabyAI-GoToDoor-v0")
+PIXEL_B, PIXEL_T = 32768, 32
+WRAP_B, WRAP_T = 256, 16
+# The bot (phase 17): BOT_B envs of every solvable BabyAI id, one bot each,
+# up to BOT_STEPS steps; an id that solves none gets one more batch (eight
+# episodes in all, as the CPU test's MAX_SEEDS).  BOT_SOLVE_FLOOR is the JAX
+# test's SOLVE_FLOOR (tests/test_babyai_bot.py:66).
+BOT_BROKEN = ("BabyAI-PutNextS5N2Carrying-v0", "BabyAI-PutNextS6N3Carrying-v0",
+              "BabyAI-PutNextS7N4Carrying-v0", "BabyAI-KeyInBox-v0")
+BOT_B, BOT_STEPS, BOT_SOLVE_FLOOR = 4, 240, 0.90
 # B1 on the families' layouts: (env, sweeps), 1024 layouts each.
 VI_FAMILIES = (
     ("MiniGrid-LavaGapS7-v0", 128),
@@ -874,6 +908,274 @@ def ppo_learning(make, env_id: str) -> dict:
     return out
 
 
+def tree_to(x, device):
+    """A copy of ``x`` (tensor, dict, ``EnvState`` or ``WrapperState``,
+    nested) on ``device``."""
+    import dataclasses
+
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    if isinstance(x, dict):
+        return {k: tree_to(v, device) for k, v in x.items()}
+    if dataclasses.is_dataclass(x):
+        return type(x)(**{f.name: tree_to(getattr(x, f.name), device) for f in dataclasses.fields(x)})
+    return x
+
+
+def tree_equal(card, cpu, what: str, close=None) -> None:
+    """``card`` equal to ``cpu`` bit for bit (NaN equal to NaN, dtypes
+    equal), but for the fields named in ``close``, each held within its
+    tolerance."""
+    import dataclasses
+
+    close = close or {}
+    if isinstance(cpu, torch.Tensor):
+        atol = close.get(what.rsplit(" ", 1)[-1], 0.0)
+        try:
+            torch.testing.assert_close(card.cpu(), cpu.cpu(), rtol=0, atol=atol, equal_nan=True)
+        except AssertionError as e:
+            raise RuntimeError(f"check failed: {what}: card and CPU within {atol}: {e}") from None
+    elif isinstance(cpu, dict):
+        require(set(card) == set(cpu), f"{what}: same keys")
+        for k in cpu:
+            tree_equal(card[k], cpu[k], f"{what} {k}", close)
+    elif dataclasses.is_dataclass(cpu):
+        for f in dataclasses.fields(cpu):
+            tree_equal(getattr(card, f.name), getattr(cpu, f.name), f"{what} {f.name}", close)
+    else:
+        require(card == cpu, f"{what}: equal")
+
+
+def peak_after(fn):
+    """(fn's result, the peak bytes it allocated above what was allocated
+    before it)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+def render_part(make, card: str, name: str, b: int, render, tile: int) -> dict:
+    """One render function on ``b`` DoorKey-8x8 states two steps into
+    their episodes: time, frames/s, peak memory and bound, and the first
+    RENDER_CPU_B frames against the CPU's."""
+    env = make(ENV_ID)
+    g = gen(500)
+    _, state = env.reset(g, b, device=DEVICE)
+    for _ in range(2):
+        act = torch.randint(0, 7, (b,), generator=g, device=DEVICE)
+        state = env.step(state, act)[1]
+    frames, peak = peak_after(lambda: render(env.params, state, tile))
+    ms = cuda_ms(lambda: render(env.params, state, tile), reps=5)
+    lut = tile * tile * 3 * 1980
+    planes = 3 * state.grid_obj.numel() + 4 * (state.agent_pos.numel() + state.agent_dir.numel())
+    bound_ms, bound_by = bound(frames.numel() + planes + lut, 0)
+    small = tree_to(state, "cpu")
+    small = type(small)(**{k: v[:RENDER_CPU_B] for k, v in small.__dict__.items()})
+    require(torch.equal(frames[:RENDER_CPU_B].cpu(), render(env.params, small, tile)),
+            f"{name}: card frames equal to the CPU's")
+    require(frames.dtype == torch.uint8 and frames.shape[0] == b, f"{name}: (B, H, W, 3) uint8")
+    out = {
+        "env": ENV_ID, "B": b, "tile": tile, "shape": list(frames.shape), "frame_bytes": frames.numel(),
+        "ms": ms, "frames_per_s": b / (ms / 1e3), "bound_ms": bound_ms, "bound_by": bound_by,
+        "peak_bytes": peak, "card": card,
+    }
+    print(f"[{name}] {out}", flush=True)
+    return out
+
+
+def pixel_steps(make, card: str, env_id: str) -> dict:
+    """ImgObs(RGBImgPartialObs(env, 8)) at PIXEL_B for PIXEL_T batch-first
+    steps of seeded random actions: env-steps/s and peak memory."""
+    from minigrid_dynamicprogramming_tpu_torch import wrappers as W
+
+    env = W.ImgObsWrapper(W.RGBImgPartialObsWrapper(make(env_id), POV_TILE))
+    g = gen(510)
+    obs, state = env.reset(g, PIXEL_B, device=DEVICE)
+    acts = torch.randint(0, 7, (PIXEL_T + 1, PIXEL_B), generator=g, device=DEVICE)
+    obs, state, *_ = env.step(state, acts[0], g)  # warm-up
+
+    def run():
+        nonlocal obs, state
+        for t in range(1, PIXEL_T + 1):
+            obs, state, *_ = env.step(state, acts[t], g)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, peak = peak_after(run)
+    s = time.perf_counter() - t0
+    v = make(env_id).params.agent_view_size * POV_TILE
+    require(obs.shape == (PIXEL_B, v, v, 3) and obs.dtype == torch.uint8, f"{env_id}: pixel observation")
+    out = {"env": env_id, "B": PIXEL_B, "T": PIXEL_T, "s": s, "ms_per_step": 1e3 * s / PIXEL_T,
+           "env_steps_per_s": PIXEL_B * PIXEL_T / s, "peak_bytes": peak, "obs_shape": list(obs.shape),
+           "card": card}
+    print(f"[pixel_step] {out}", flush=True)
+    return out
+
+
+class _Record:
+    """Wraps an env and remembers the action it was stepped with (the
+    StochasticActionWrapper's replacements, seen from below)."""
+
+    def __init__(self, env):
+        self.env, self.params, self.action_dim = env, env.params, env.action_dim
+        self.seen = []
+
+    def reset(self, *args, **kwargs):
+        return self.env.reset(*args, **kwargs)
+
+    def step(self, state, action, generator=None):
+        self.seen.append(action)
+        return self.env.step(state, action, generator)
+
+
+def wrapper_suite(make, card: str) -> dict:
+    """Each of the 15 wrappers at WRAP_B for WRAP_T steps: the deterministic
+    ones card against CPU at every step (observations, flags, states and
+    count tables bit for bit, rewards within RETURN_ATOL, "angle" of
+    DirectionObsWrapper within 1e-6 since arctan may differ in the last
+    ulp); StochasticActionWrapper and ReseedWrapper by their invariants.
+    Each prints the card's ms a step, env-steps/s and peak memory."""
+    from minigrid_dynamicprogramming_tpu_torch import wrappers as W
+
+    dk, lava, local = make(ENV_ID), make("MiniGrid-LavaCrossingS9N1-v0"), make("BabyAI-GoToLocal-v0")
+    deterministic = {
+        "ActionBonus": W.ActionBonus(dk),
+        "PositionBonus": W.PositionBonus(dk),
+        "ImgObsWrapper": W.ImgObsWrapper(dk),
+        "OneHotPartialObsWrapper": W.OneHotPartialObsWrapper(dk),
+        "RGBImgObsWrapper": W.RGBImgObsWrapper(dk, 8),
+        "RGBImgPartialObsWrapper": W.RGBImgPartialObsWrapper(dk, 8),
+        "FullyObsWrapper": W.FullyObsWrapper(dk),
+        "DictObservationSpaceWrapper": W.DictObservationSpaceWrapper(local),
+        "FlatObsWrapper": W.FlatObsWrapper(local),
+        "ViewSizeWrapper": W.ViewSizeWrapper(dk, 9),
+        "DirectionObsWrapper slope": W.DirectionObsWrapper(dk, type="slope"),
+        "DirectionObsWrapper angle": W.DirectionObsWrapper(dk, type="angle"),
+        "SymbolicObsWrapper": W.SymbolicObsWrapper(dk),
+        "NoDeath": W.NoDeath(lava, no_death_types=("lava",), death_cost=-1.0),
+    }
+    rng = np.random.default_rng(16)
+    out = {}
+    for k, (name, w) in enumerate(deterministic.items()):
+        obs, on_card = w.reset(gen(520 + k), WRAP_B, device=DEVICE)
+        cpu = tree_to(on_card, "cpu")
+        close = {"goal_direction": 1e-6} if name.endswith("angle") else {}
+        cpu_obs = w.unwrapped.observation(W.core_state(cpu))
+        if isinstance(w, W.ObservationWrapper):
+            cpu_obs = w.observation(cpu_obs, cpu)
+        tree_equal(obs, cpu_obs, f"{name} reset", close)
+        card_s, rewards, negative = 0.0, 0.0, 0
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        for t in range(WRAP_T):
+            act = torch.from_numpy(rng.choice(7, size=WRAP_B, p=ENV_API_ACTION_P).astype(np.int32))
+            t0 = time.perf_counter()
+            c_out = w.step(on_card, act.to(DEVICE))
+            torch.cuda.synchronize()
+            card_s += time.perf_counter() - t0
+            p_out = w.step(cpu, act)
+            on_card, cpu = c_out[1], p_out[1]
+            what = f"{name} t={t}"
+            tree_equal(c_out[0], p_out[0], f"{what} obs", close)
+            tree_equal(c_out[2], p_out[2], f"{what} reward", {"reward": RETURN_ATOL})
+            tree_equal(c_out[3], p_out[3], f"{what} terminated")
+            tree_equal(c_out[4], p_out[4], f"{what} truncated")
+            tree_equal(on_card, cpu, f"{what} state")
+            rewards += float(c_out[2].sum())
+            negative += int((c_out[2] < 0).sum())
+        out[name] = {"steps": WRAP_T, "B": WRAP_B, "ms_per_step": 1e3 * card_s / WRAP_T,
+                     "env_steps_per_s": WRAP_B * WRAP_T / card_s,
+                     "peak_bytes": torch.cuda.max_memory_allocated() - base, "rewards": rewards,
+                     "negative_rewards": negative, "card_equals_cpu": True, "card": card}
+        print(f"[wrapper] {name}: card equal to CPU at every step; {out[name]}", flush=True)
+    require(out["NoDeath"]["negative_rewards"] > 0, "NoDeath paid death costs")
+
+    # StochasticActionWrapper: prob=1.0 is the bare step; at 0.5 done (6) is
+    # replaced in half the envs by a draw over 0..5.
+    obs, state = dk.reset(gen(540), WRAP_B, device=DEVICE)
+    g = gen(541)
+    act = torch.randint(0, 7, (WRAP_B,), generator=g, device=DEVICE)
+    tree_equal(W.StochasticActionWrapper(dk, prob=1.0).step(state, act, g)[0], dk.step(state, act)[0],
+               "StochasticActionWrapper prob=1.0")
+    rec = _Record(dk)
+    w = W.StochasticActionWrapper(rec, prob=0.5)
+    for _ in range(WRAP_T):
+        state = w.step(state, 6, g)[1]
+    seen = torch.cat(rec.seen).cpu().numpy()
+    share = float((seen != 6).mean())
+    sigma = (0.25 / seen.size) ** 0.5
+    require(abs(share - 0.5) <= 4 * sigma, f"StochasticActionWrapper replaced share {share} within 4 sigma of 0.5")
+    require(set(np.unique(seen[seen != 6]).tolist()) == set(range(6)), "replacements cover 0..5 and never 6")
+    out["StochasticActionWrapper"] = {"draws": int(seen.size), "replaced_share": share, "sigma": sigma}
+
+    # ReseedWrapper: two seeds cycle, so resets 1 and 3 are equal.
+    w = W.ReseedWrapper(dk, seeds=[7, 9])
+    (o1, s1), (_, s2), (o3, s3) = [w.reset(batch_size=WRAP_B, device=DEVICE) for _ in range(3)]
+    require(torch.equal(s1.grid_obj, s3.grid_obj) and torch.equal(o1["image"], o3["image"]),
+            "ReseedWrapper: resets 1 and 3 equal")
+    require(not torch.equal(s1.grid_obj, s2.grid_obj), "ReseedWrapper: resets 1 and 2 differ")
+    out["ReseedWrapper"] = {"cycle": [7, 9, 7], "B": WRAP_B}
+    require(len(out) == 16, f"all 15 wrappers ran ({sorted(out)})")
+    print(f"[wrapper] StochasticActionWrapper: prob=1.0 is the bare step; {out['StochasticActionWrapper']}; "
+          f"ReseedWrapper cycles; {card}", flush=True)
+    return out
+
+
+def render_and_wrappers(make, card: str) -> dict:
+    """Phase 16: the renderer, the pixel observation and the 15 wrappers on
+    the card."""
+    from minigrid_dynamicprogramming_tpu_torch.render import render_frame, render_pov
+
+    return {
+        "render_frame": render_part(make, card, "render_frame", RENDER_B, render_frame, RENDER_TILE),
+        "render_pov": render_part(make, card, "render_pov", POV_B, render_pov, POV_TILE),
+        "pixel_step": [pixel_steps(make, card, env_id) for env_id in PIXEL_IDS],
+        "wrappers": wrapper_suite(make, card),
+    }
+
+
+def bot_solves(make, ids, card: str) -> dict:
+    """Phase 17: BOT_B bots per id over one batch-first ``step`` on the
+    card, up to BOT_STEPS steps; one more batch where none solved."""
+    from minigrid_dynamicprogramming_tpu_torch.utils.babyai_bot import run_bots
+
+    per_id, episodes, solved = {}, 0, 0
+    t0 = time.perf_counter()
+    for k, env_id in enumerate(ids):
+        env = make(env_id)
+        runs = []
+        for extra in range(2):
+            _, state = env.reset(gen(700 + 2 * k + extra), BOT_B, device=DEVICE)
+            runs.append(run_bots(env, state, BOT_STEPS))
+            if runs[-1].solved.any():
+                break
+        n_solved = sum(int(r.solved.sum()) for r in runs)
+        require(all((r.reward[r.solved] > 0).all() for r in runs), f"{env_id}: solved episodes pay")
+        per_id[env_id] = {
+            "episodes": BOT_B * len(runs), "solved": n_solved,
+            "steps": [int(x) for r in runs for x in r.steps],
+            "errors": [e for r in runs for e in r.errors if e],
+        }
+        episodes += BOT_B * len(runs)
+        solved += n_solved
+    s = time.perf_counter() - t0
+    share = solved / episodes
+    out = {"ids": len(ids), "episodes": episodes, "solved": solved, "share": share, "s": s,
+           "episodes_per_s": episodes / s, "per_id": per_id, "card": card}
+    print(f"[bot] {card}: {len(ids)} ids, {solved}/{episodes} episodes solved (share {share:.4f}), "
+          f"{episodes / s:.3f} episodes/s, {s:.1f} s; per id "
+          + " ".join(f"{i.removeprefix('BabyAI-')}:{e['solved']}/{e['episodes']}" for i, e in per_id.items()),
+          flush=True)
+    unsolved = [i for i, e in per_id.items() if e["solved"] == 0]
+    require(not unsolved, f"every id solved at least once (not {unsolved})")
+    require(share >= BOT_SOLVE_FLOOR, f"solve share {share:.4f} >= {BOT_SOLVE_FLOOR}")
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write the results as JSON to this file")
@@ -1287,10 +1589,24 @@ def run(args, t_start: float, workers) -> int:
         require(not any(counts.values()), "PPO launches no VI kernel")
         results["ppo_learning"].append(run)
         phase_s[f"ppo_learning {env_id}"] = time.perf_counter() - t0
-    print(f"[phases 8-15] seconds {phase_s}", flush=True)
+
+    # 16. The renderer, the pixel observation and the wrappers.
+    t0 = time.perf_counter()
+    results["render_wrappers"], counts = drive("render and wrappers", lambda: render_and_wrappers(make, card))
+    require(not any(counts.values()), "rendering and the wrappers launch no VI kernel")
+    phase_s["render_wrappers"] = time.perf_counter() - t0
+
+    # 17. The BabyAI bot, one per env, over the batch-first step.
+    t0 = time.perf_counter()
+    ids = [i for i in registered_ids() if i.startswith("BabyAI-") and i not in BOT_BROKEN]
+    require(len(ids) == 92, f"92 solvable BabyAI ids ({len(ids)})")
+    results["bot"], counts = drive("BabyAI bot", lambda: bot_solves(make, ids, card))
+    require(not any(counts.values()), "the bot launches no VI kernel")
+    phase_s["bot"] = time.perf_counter() - t0
+    print(f"[phases 8-17] seconds {phase_s}", flush=True)
     results["phase_s"] = phase_s
 
-    # 16. Kernels line, card, ok.
+    # 18. Kernels line, card, ok.
     results["kernels"] = kernels
     results["total_s"] = time.perf_counter() - t_start
     print(f"[chip_smoke] {results['total_s']:.1f} s in all, the build included", flush=True)

@@ -17,13 +17,21 @@ an obvious counterpart:
 * ``dp/``        exact value iteration, with hand-written CUDA kernels in
   ``dp/cuda_vi.py`` (sources under ``csrc/``);
 * ``models/``    the actor-critic network and the PPO learner;
+* ``render/``    RGB frames and agent views from a tile table, on the
+  state's device;
+* ``wrappers/``  the 15 observation, action and reward wrappers;
+* ``utils/babyai_bot.py``  the BabyAI oracle bot, one per env of a batch;
+* ``benchmark.py``  the micro-benchmark CLI (reset ms, render FPS,
+  agent-view FPS, batched env-steps/s);
 * ``bridge.py``  numpy-dict converters to and from the JAX state pytrees,
   and the actor-critic's flax parameters.
 
 Entry points that make tensors from a seed (``lane_rollout``, an env's
-``generate`` and ``reset``, ``dp.tabular.solve``, ``models.PPO``) default
-to ``device="cuda"`` and raise when CUDA is absent unless the caller asks
-for ``"cpu"``.
+``generate`` and ``reset``, a wrapper's ``reset``, ``dp.tabular.solve``,
+``models.PPO``, ``benchmark.benchmark``) default to ``device="cuda"`` and
+raise when CUDA is absent unless the caller asks for ``"cpu"``; the
+renderer and the wrappers' steps follow the device of the state they are
+given.
 """
 
 __version__ = "0.1.0"

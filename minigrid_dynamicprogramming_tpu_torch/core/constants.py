@@ -2,9 +2,10 @@
 
 Own copy of the codes in ``minigrid_dynamicprogramming_tpu/core/constants.py``
 (which imports ``jax.numpy``); the port keeps the plain Python ints and
-numpy tables of the codes only (the renderer's tables wait for the
-renderer).  The codes are the observation wire format, so they must stay
-identical to the reference's (checked by ``tests/test_torch_package.py``).
+numpy tables of the codes only (the renderer keeps its colour table in
+``render/tiles.py``).  The codes are the observation wire format, so they
+must stay identical to the reference's (checked by
+``tests/test_torch_package.py``).
 """
 
 from __future__ import annotations

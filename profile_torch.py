@@ -20,7 +20,15 @@ the card's name and power limit, then:
 * for one PPO update at ``chip_smoke.py``'s throughput configuration
   (BabyAI-GoToDoor, 32768 envs, T=32, 2 epochs x 8 minibatches, bf16): the
   same for its two halves, the rollout (``PPO._collect``) and the learner
-  (``PPO._learn``: GAE and the 16 minibatch steps) on that rollout.
+  (``PPO._learn``: GAE and the 16 minibatch steps) on that rollout;
+* the same for ``chip_smoke.py``'s rendering: ``render_frame`` (tile 32,
+  highlight) of 4096 DoorKey-8x8 states, and a step of the pixel
+  observation ``ImgObs(RGBImgPartialObs(env, 8))`` on BabyAI-GoToDoor at
+  32768 envs;
+* the frame's row gather alone, the renderer's largest kernel, at those
+  4096 frames: tile rows moved as bytes against the same rows moved as
+  int64 words, CUDA-event means over 10 calls, timed bytes, words, words,
+  bytes, three times over.
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ import torch
 ENV_ID = "MiniGrid-DoorKey-8x8-v0"
 BATCH, STEPS, POOL_ROUNDS = 65536, 32, 4
 PPO_ENV, PPO_B, PPO_T, PPO_MB = "BabyAI-GoToDoor-v0", 32768, 32, 8
+RENDER_B, RENDER_TILE = 4096, 32
 
 
 def part_ms(fn, reps: int) -> float:
@@ -109,6 +118,54 @@ def profile_ppo(results: dict) -> None:
     profiled(lambda: ppo._learn(ts, traj, last_value), "ppo learner, per update", 1, results["ppo"])
 
 
+def profile_render(results: dict) -> None:
+    """One ``render_frame`` call, and one step of the pixel observation."""
+    from minigrid_dynamicprogramming_tpu_torch import make
+    from minigrid_dynamicprogramming_tpu_torch import wrappers as W
+    from minigrid_dynamicprogramming_tpu_torch.render import render_frame
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+    env = make(ENV_ID)
+    _, state = env.reset(g, RENDER_B, device=dev)
+    render_frame(env.params, state, RENDER_TILE)  # warm-up, builds the tile table
+    results["render"] = {"env": ENV_ID, "B": RENDER_B, "tile": RENDER_TILE}
+    profiled(lambda: render_frame(env.params, state, RENDER_TILE), "render_frame", 1, results["render"])
+    pixel = W.ImgObsWrapper(W.RGBImgPartialObsWrapper(make(PPO_ENV), 8))
+    _, state = pixel.reset(g, PPO_B, device=dev)
+    act = torch.randint(0, 7, (PPO_B,), generator=g, device=dev)
+    pixel.step(state, act, g)  # warm-up
+    results["pixel_step"] = {"env": PPO_ENV, "B": PPO_B, "tile": 8}
+    profiled(lambda: pixel.step(state, act, g), "pixel step", 1, results["pixel_step"])
+
+
+def profile_render_rows(results: dict) -> None:
+    """The row gather of ``render_frame`` (tile 32, 4096 DoorKey-8x8
+    states; keys without agent and highlight) with the table's rows read
+    as uint8 and as int64 words, in alternating order."""
+    from minigrid_dynamicprogramming_tpu_torch import make
+    from minigrid_dynamicprogramming_tpu_torch.render import tiles
+
+    dev = torch.device("cuda")
+    env = make(ENV_ID)
+    _, state = env.reset(torch.Generator(device=dev).manual_seed(1), RENDER_B, device=dev)
+    ts = RENDER_TILE
+    key = ((state.grid_obj.to(torch.int64) * tiles.N_COLOR + state.grid_color) * tiles.N_STATE
+           + state.grid_state) * tiles.N_AGENT * tiles.N_HL
+    rows = (key[:, :, None, :] * ts + torch.arange(ts, device=dev)[:, None]).reshape(-1)
+    table = tiles.tile_lut_tensor(ts, dev).reshape(-1, ts * 3)
+    words = table.view(torch.int64)
+    gathers = {"bytes": lambda: table.index_select(0, rows), "words": lambda: words.index_select(0, rows)}
+    equal = torch.equal(gathers["bytes"](), gathers["words"]().view(torch.uint8))
+    out = results["render_rows"] = {"B": RENDER_B, "tile": ts, "equal": equal,
+                                    "bytes_ms": [], "words_ms": []}
+    for _ in range(3):
+        for name in ("bytes", "words", "words", "bytes"):
+            out[f"{name}_ms"].append(part_ms(gathers[name], 10))
+    print(f"[render rows] equal {equal}; uint8 rows ms {out['bytes_ms']}; "
+          f"int64 words ms {out['words_ms']}", flush=True)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write the results as JSON to this file")
@@ -158,6 +215,8 @@ def main(argv=None) -> int:
              f"rollout loop, B={b}, per step", steps, results)
     del pool, ls
     profile_ppo(results)
+    profile_render(results)
+    profile_render_rows(results)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(results, f, indent=1)

@@ -26,7 +26,9 @@ route's instance for sizes given at run time).  Three BabyAI ids roll out
 equal on the card and on the CPU, the verifier included, and the two-key
 domain (plain PyTorch, no kernel) gives the same V on both.
 ``Environment.step`` gives the same on both on DoorKey-8x8, and PPO
-updates on the card with finite metrics.
+updates on the card with finite metrics.  The renderer (tiles 8 and 32)
+and a wrapper stack with a count table give the same frames, observations
+and states on both.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ import pytest
 import torch
 
 import minigrid_dynamicprogramming_tpu_torch as port
-from minigrid_dynamicprogramming_tpu_torch.core.constants import OBJ_DOOR
+from minigrid_dynamicprogramming_tpu_torch.core.constants import OBJ_DOOR, OBJ_LAVA
 from minigrid_dynamicprogramming_tpu_torch.dp import cuda_vi
 from minigrid_dynamicprogramming_tpu_torch.dp import tabular as ttab
 from minigrid_dynamicprogramming_tpu_torch.dp import tabular_key as tkey
@@ -308,3 +310,69 @@ def test_ppo_update_on_card_is_finite(card):
     after = list(ts.model.parameters())
     assert all(p.device.type == "cuda" for p in after)
     assert any(not torch.equal(a, b) for a, b in zip(after, before))
+
+
+def _to(x, device):
+    """A copy of an ``EnvState`` or ``WrapperState`` (nested) on ``device``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    return type(x)(**{f.name: _to(getattr(x, f.name), device) for f in dataclasses.fields(x)})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env_id", ["MiniGrid-DoorKey-8x8-v0", "BabyAI-GoToLocal-v0"])
+def test_render_card_equals_cpu(card, env_id):
+    """``render_frame`` (with and without highlight), ``render_pov`` and
+    ``view_highlight_mask`` of 256 states a few steps into their episodes:
+    bit for bit equal on the card and on the CPU; the tile table lives on
+    the card."""
+    from minigrid_dynamicprogramming_tpu_torch import render as R
+    from minigrid_dynamicprogramming_tpu_torch.render.tiles import tile_lut_tensor
+
+    env = port.make(env_id)
+    g = torch.Generator(device=card).manual_seed(6)
+    _, state = env.reset(g, 256, device=card)
+    for _ in range(3):
+        state = env.step(state, torch.randint(0, 7, (256,), generator=g, device=card))[1]
+    cpu = _to(state, "cpu")
+    for tile in (8, 32):
+        for got, want in (
+            (R.render_frame(env.params, state, tile), R.render_frame(env.params, cpu, tile)),
+            (R.render_frame(env.params, state, tile, False), R.render_frame(env.params, cpu, tile, False)),
+            (R.render_pov(env.params, state, tile), R.render_pov(env.params, cpu, tile)),
+        ):
+            assert got.device.type == card.type and got.dtype == torch.uint8
+            assert torch.equal(got.cpu(), want)
+        assert tile_lut_tensor(tile, state.grid_obj.device).device.type == card.type
+    mask = R.view_highlight_mask(env.params, state)
+    assert torch.equal(mask.cpu(), R.view_highlight_mask(env.params, cpu)) and mask.any()
+
+
+@pytest.mark.cuda
+def test_wrapper_stack_card_equals_cpu(card):
+    """NoDeath over PositionBonus under RGBImgPartialObs on
+    LavaCrossingS9N1: observations, states, count tables and flags equal on
+    the card and on the CPU at every step, rewards within 1e-5."""
+    from minigrid_dynamicprogramming_tpu_torch import wrappers as W
+
+    env = W.RGBImgPartialObsWrapper(
+        W.NoDeath(W.PositionBonus(port.make("MiniGrid-LavaCrossingS9N1-v0")), ("lava",)), 8
+    )
+    obs, state = env.reset(torch.Generator(device=card).manual_seed(7), 256, device=card)
+    cpu = _to(state, "cpu")
+    g = torch.Generator().manual_seed(8)
+    deaths = 0
+    for _ in range(24):
+        act = torch.randint(0, 7, (256,), generator=g)
+        got, want = env.step(state, act.to(card)), env.step(cpu, act)
+        state, cpu = got[1], want[1]
+        assert torch.equal(got[0]["image"].cpu(), want[0]["image"])
+        assert torch.equal(state.data.cpu(), cpu.data)
+        for f in dataclasses.fields(cpu.inner):
+            assert torch.equal(getattr(state.inner, f.name).cpu(), getattr(cpu.inner, f.name)), f.name
+        torch.testing.assert_close(got[2].cpu(), want[2], rtol=0, atol=1e-5)
+        assert torch.equal(got[3].cpu(), want[3]) and torch.equal(got[4].cpu(), want[4])
+        core = cpu.inner
+        pos = core.agent_pos.long()
+        deaths += int((core.grid_obj[torch.arange(256), pos[:, 1], pos[:, 0]] == OBJ_LAVA).sum())
+    assert deaths > 0  # agents on lava, their deaths cancelled

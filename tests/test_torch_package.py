@@ -55,6 +55,12 @@ MUST_IMPORT = [
     "minigrid_dynamicprogramming_tpu_torch.models",
     "minigrid_dynamicprogramming_tpu_torch.models.nets",
     "minigrid_dynamicprogramming_tpu_torch.models.ppo",
+    "minigrid_dynamicprogramming_tpu_torch.render",
+    "minigrid_dynamicprogramming_tpu_torch.render.tiles",
+    "minigrid_dynamicprogramming_tpu_torch.wrappers",
+    "minigrid_dynamicprogramming_tpu_torch.utils",
+    "minigrid_dynamicprogramming_tpu_torch.utils.babyai_bot",
+    "minigrid_dynamicprogramming_tpu_torch.benchmark",
 ] + [
     f"minigrid_dynamicprogramming_tpu_torch.envs.babyai.{m}"
     for m in ("core", "level", "goto", "open", "pickup", "unlock", "other", "levelgen")
