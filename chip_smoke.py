@@ -119,7 +119,32 @@ Phases (any failure raises, exits nonzero and prints no "ok" line):
    to 240 steps; an id that solves none gets four more episodes.  Every
    id solved at least once, with a positive reward, and the solve share
    >= 0.90; per-id counts, episodes/s and the phase's seconds.
-18. the kernels line: for each kernel, its launches on the main path (each
+18. multi-device on one card (NCCL takes one rank a card): a one-rank NCCL
+   group's sharded ``lane_rollout`` on DoorKey-8x8 at B=65536, T=256, four
+   pool rounds (grouped, ungrouped, grouped, each timed) equals the
+   ungrouped run from the same seed bit for bit;
+   one sharded PPO update on GoToDoor at 32768 envs, T=32 lands within
+   twice the spread of three ungrouped updates from the same seed.  Then
+   two gloo ranks spawned on the one card: the sharded rollout on a fixed
+   pool and action script (Empty-5x5, B=4096, T=256, four rounds) equals
+   the one-process run's slices bit for bit, the all-reduced scalars equal
+   on both ranks; one sharded PPO update (GoToDoor, two envs a rank, T=8)
+   gives finite metrics and parameters equal on both ranks.  Then
+   ``measure_scaling`` at one rank: steps/s only.
+19. host tools: ``checked_step`` over 64 steps at B=4096 on DoorKey-8x8,
+   a corrupted state caught; ``debug_mode`` trips on a NaN made on the
+   card; a PPO train state on the card through a checkpoint round trip
+   (parameters, optimizer, env state, pool, generators equal, then the
+   same actions collected); ``generation_acceptance`` at n=4096 on
+   DoorKey-8x8 (structural), MultiRoom-N6 and GoToLocal (pooled
+   attempts); ``state_hash`` and ``pprint_state`` of card states equal to
+   those of their CPU copies.
+20. the CLI's ``--dp`` (``benchmark.main``), inside its ``--trace``: the
+   plain value iteration, then B1, at JAX's sizes (1024 DoorKey-8x8
+   layouts from seed 7, two door slots, 128 sweeps); B1's V equal to the
+   plain V exactly; the Chrome trace holds B1's kernel and the CLI's
+   ``annotate`` ranges.
+21. the kernels line: for each kernel, its launches on the main path (each
    part of it driven with the counts set to 0 just before and read just
    after), its largest difference from the plain version, the times of
    kernel, plain version and bound, its design and route, and the
@@ -247,6 +272,23 @@ VI_FAMILIES = (
 # is half of it.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12 / 2
+
+# Multi-device (phase 18): the one-rank NCCL rollout and PPO update at the
+# main path's and the PPO bench's sizes; the two-rank gloo legs at
+# dryrun_multichip's (its Empty-5x5 rollout at B=4096 here); the scaling
+# harness at one rank.
+NCCL_B, NCCL_T = 65536, 256
+PPO_SPREAD_RUNS = 3
+GLOO_ENV, GLOO_B, GLOO_T = "MiniGrid-Empty-5x5-v0", 4096, 256
+GLOO_TIMEOUT_S = 300
+SCALING_B, SCALING_T = 65536, 256
+# Host tools (phase 19).
+GUARD_B, GUARD_T = 4096, 64
+CKPT_B, CKPT_T = 4096, 8
+TELEMETRY_N = 4096
+TELEMETRY_IDS = ("MiniGrid-DoorKey-8x8-v0", "MiniGrid-MultiRoom-N6-v0", "BabyAI-GoToLocal-v0")
+HASH_IDS, HASH_B = ("MiniGrid-DoorKey-8x8-v0", "BabyAI-GoToLocal-v0"), 16
+REWARD_RTOL = 1e-6
 
 PALLAS_VI = "minigrid_dynamicprogramming_tpu/dp/pallas_vi.py"
 CSRC = "minigrid_dynamicprogramming_tpu_torch/csrc"
@@ -1176,6 +1218,293 @@ def bot_solves(make, ids, card: str) -> dict:
     return out
 
 
+def free_address() -> str:
+    from minigrid_dynamicprogramming_tpu_torch.parallel.scaling import free_port
+
+    return f"127.0.0.1:{free_port()}"
+
+
+def params_diff(a, b) -> float:
+    """The largest difference between two models' parameters."""
+    with torch.no_grad():
+        return max(float((p - q).abs().max()) for p, q in zip(a.parameters(), b.parameters()))
+
+
+def one_rank_nccl(make, card: str) -> dict:
+    """Phase 18, first leg: a one-rank NCCL group against the ungrouped
+    path on the same card."""
+    import torch.distributed as dist
+
+    from minigrid_dynamicprogramming_tpu_torch.models import PPO, PPOConfig
+    from minigrid_dynamicprogramming_tpu_torch.parallel import distributed
+    from minigrid_dynamicprogramming_tpu_torch.parallel import lanes as L
+    from minigrid_dynamicprogramming_tpu_torch.parallel.sharding import rank_seed, sharded_keys
+
+    distributed.initialize(free_address(), 1, 0, local_device_ids=[0], max_retries=1,
+                           backend="nccl", timeout_s=GLOO_TIMEOUT_S)
+    try:
+        group = distributed.global_env_group()
+        print(f"[nccl] {distributed.process_summary()} backend {dist.get_backend()} on {group.device}",
+              flush=True)
+        env = make(ENV_ID)
+        out = {"rollout_s": []}
+        runs = []
+        # Grouped, ungrouped, grouped: the first run at this size also pays
+        # for its allocations, so the times compare from the second on.
+        for grouped in (True, False, True):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if grouped:
+                runs.append(L.lane_rollout(env, sharded_keys(0, group), NCCL_B, NCCL_T, "pool",
+                                           POOL_ROUNDS, group=group))
+            else:
+                runs.append(L.lane_rollout(env, gen(rank_seed(0, 0)), NCCL_B, NCCL_T, "pool",
+                                           POOL_ROUNDS, device=DEVICE))
+            torch.cuda.synchronize()
+            out["rollout_s"].append(time.perf_counter() - t0)
+        b = runs[1]
+        for a in (runs[0], runs[2]):
+            tree_equal(a.final_state, b.final_state, "one-rank NCCL rollout, final state")
+            for f in ("resets_per_env", "total_reward", "episodes", "obs_checksum", "successes", "failures"):
+                require(torch.equal(getattr(a, f), getattr(b, f)), f"one-rank NCCL rollout: {f} equal")
+        require(int(b.episodes) > 0, "the NCCL rollout ended episodes")
+        out.update(episodes=int(b.episodes), steps=b.steps)
+        del runs, a, b
+
+        # PPO: three ungrouped updates from one seed give the spread of the
+        # card's atomics; the grouped update must land within twice it.
+        cfg = PPOConfig(num_envs=PPO_B, rollout_len=PPO_T, epochs=2, num_minibatches=PPO_MB)
+        models, metrics = [], []
+        for grp in [None] * PPO_SPREAD_RUNS + [group]:
+            ppo = PPO(make(PPO_ENV), cfg, device=DEVICE, group=grp)
+            ts, m = ppo.update(ppo.init(3))
+            models.append(ts.model)
+            metrics.append([float(x) for x in m])
+            del ppo, ts
+        spread = max(params_diff(models[i], models[j])
+                     for i in range(PPO_SPREAD_RUNS) for j in range(i))
+        grouped_diff = params_diff(models[-1], models[0])
+        out.update(ppo_spread=spread, ppo_grouped_diff=grouped_diff, ppo_metrics=metrics)
+        print(f"[nccl] PPO update, {PPO_B} envs: max|param diff| ungrouped-ungrouped {spread:.4g}, "
+              f"grouped-ungrouped {grouped_diff:.4g}; metrics {metrics}", flush=True)
+        require(all(np.isfinite(metrics[-1])), "finite one-rank NCCL PPO metrics")
+        require(grouped_diff <= 2 * spread, "the one-rank NCCL update within twice the ungrouped spread")
+    finally:
+        dist.destroy_process_group()
+    print(f"[nccl] {out}", flush=True)
+    return out
+
+
+# One rank of the two-rank gloo group, both on cuda:0 (NCCL refuses two
+# ranks on one card); it imports only the port.
+GLOO_WORKER = f"""
+import sys
+import numpy as np
+import torch
+from minigrid_dynamicprogramming_tpu_torch import make
+from minigrid_dynamicprogramming_tpu_torch.bridge import from_numpy, to_numpy
+from minigrid_dynamicprogramming_tpu_torch.models import PPO, PPOConfig
+from minigrid_dynamicprogramming_tpu_torch.parallel import distributed
+from minigrid_dynamicprogramming_tpu_torch.parallel import lanes as L
+
+addr, rank, inputs, out = sys.argv[1], int(sys.argv[2]), sys.argv[3], sys.argv[4]
+distributed.initialize(addr, 2, rank, local_device_ids=[0], max_retries=1, backend="gloo",
+                       timeout_s={GLOO_TIMEOUT_S})
+group = distributed.global_env_group()
+assert group.device == torch.device("cuda:0"), group
+data = np.load(inputs)
+pool = from_numpy(L.LaneState, {{k[5:]: data[k] for k in data.files if k.startswith("pool_")}}, group.device)
+actions = torch.from_numpy(data["actions"]).to(group.device)
+res = L._lane_scan(make("{GLOO_ENV}"), None, L.shard_lanes(pool, group), {GLOO_B} // 2, {GLOO_T}, "pool",
+                   {POOL_ROUNDS}, L.shard_batch(actions, group, axis=1), group)
+ppo = PPO(make("{PPO_ENV}"), PPOConfig(num_envs=4, rollout_len=8), group=group)
+ts, m = ppo.update(ppo.init(1))
+np.savez(
+    out,
+    **{{"final_" + k: v for k, v in to_numpy(res.final_state).items()}},
+    resets=res.resets_per_env.cpu().numpy(),
+    scalars=np.array([int(res.episodes), int(res.successes), int(res.failures), int(res.obs_checksum)]),
+    total_reward=res.total_reward.cpu().numpy(),
+    ppo_metrics=np.array([float(x) for x in m]),
+    ppo_params=torch.cat([p.detach().reshape(-1).float() for p in ts.model.parameters()]).cpu().numpy(),
+)
+torch.distributed.destroy_process_group()
+print("gloo rank", rank, "ok", flush=True)
+"""
+
+
+def two_rank_gloo(make) -> dict:
+    """Phase 18, second leg: two gloo ranks spawned on the one card,
+    against the one-process run on the same pool and action script."""
+    import os
+    import tempfile
+
+    from minigrid_dynamicprogramming_tpu_torch.bridge import to_numpy
+    from minigrid_dynamicprogramming_tpu_torch.parallel import lanes as L
+
+    env = make(GLOO_ENV)
+    pool = L._lane_pool(env, gen(11), GLOO_B, "pool", POOL_ROUNDS, torch.device(DEVICE))
+    actions = np.random.default_rng(11).integers(0, env.action_dim, (GLOO_T, GLOO_B)).astype(np.int64)
+    single = L._lane_scan(env, None, pool, GLOO_B, GLOO_T, "pool", POOL_ROUNDS,
+                          torch.from_numpy(actions).to(DEVICE))
+    with tempfile.TemporaryDirectory() as tmp:
+        inputs = os.path.join(tmp, "inputs.npz")
+        np.savez(inputs, actions=actions, **{"pool_" + k: v for k, v in to_numpy(pool).items()})
+        outs = [os.path.join(tmp, f"rank{r}.npz") for r in range(2)]
+        addr = free_address()
+        t0 = time.perf_counter()
+        procs = [
+            subprocess.Popen([sys.executable, "-c", GLOO_WORKER, addr, str(r), inputs, outs[r]],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(2)
+        ]
+        logs = []
+        try:
+            for proc in procs:
+                logs.append(proc.communicate(timeout=GLOO_TIMEOUT_S + 60)[0])
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+        for r, (proc, log) in enumerate(zip(procs, logs)):
+            require(proc.returncode == 0, f"gloo rank {r} exited {proc.returncode}:\n{log[-4000:]}")
+        dumps = [dict(np.load(o)) for o in outs]
+    s = time.perf_counter() - t0
+    want_final = to_numpy(single.final_state)
+    want_scalars = [int(single.episodes), int(single.successes), int(single.failures),
+                    int(single.obs_checksum)]
+    want_resets = single.resets_per_env.cpu().numpy()
+    half = GLOO_B // 2
+    for r, d in enumerate(dumps):
+        lanes = slice(r * half, (r + 1) * half)
+        for name, want in want_final.items():
+            require(np.array_equal(d["final_" + name], want[..., lanes]), f"gloo rank {r}: {name} equal")
+        require(np.array_equal(d["resets"], want_resets[lanes]), f"gloo rank {r}: resets equal")
+        require(d["resets"].sum() > 0, f"gloo rank {r} ended episodes")
+        require(d["scalars"].tolist() == want_scalars, f"gloo rank {r}: summed scalars equal")
+        rel = abs(float(d["total_reward"]) - float(single.total_reward)) / abs(float(single.total_reward))
+        require(rel <= REWARD_RTOL, f"gloo rank {r}: total reward within {REWARD_RTOL} relative")
+        require(np.isfinite(d["ppo_metrics"]).all(), f"gloo rank {r}: finite PPO metrics")
+    require(np.array_equal(dumps[0]["total_reward"], dumps[1]["total_reward"]), "total reward equal on both ranks")
+    require(np.array_equal(dumps[0]["ppo_metrics"], dumps[1]["ppo_metrics"]), "PPO metrics equal on both ranks")
+    require(np.array_equal(dumps[0]["ppo_params"], dumps[1]["ppo_params"]), "PPO parameters equal on both ranks")
+    out = {"s": s, "scalars": want_scalars, "total_reward": float(single.total_reward),
+           "ppo_metrics": dumps[0]["ppo_metrics"].tolist()}
+    print(f"[gloo] two ranks on one card, {GLOO_ENV} B={GLOO_B} T={GLOO_T}: slices equal, {out}", flush=True)
+    return out
+
+
+def multi_device(make, card: str) -> dict:
+    """Phase 18."""
+    from minigrid_dynamicprogramming_tpu_torch.parallel.scaling import measure_scaling
+
+    out = {"nccl": one_rank_nccl(make, card), "gloo": two_rank_gloo(make)}
+    (pt,) = measure_scaling(ENV_ID, SCALING_B, SCALING_T, device_counts=[1], device=DEVICE)
+    out["scaling"] = {"n_devices": pt.n_devices, "batch": pt.batch, "horizon": SCALING_T,
+                      "steps_per_s": pt.steps_per_s, "card": card}
+    print(f"[scaling] one rank: {out['scaling']}", flush=True)
+    return out
+
+
+def host_tools(make, card: str) -> dict:
+    """Phase 19."""
+    import tempfile
+
+    from minigrid_dynamicprogramming_tpu_torch.models import PPO, PPOConfig
+    from minigrid_dynamicprogramming_tpu_torch.utils import checkpoint as ckpt
+    from minigrid_dynamicprogramming_tpu_torch.utils.debug import pprint_state, state_hash
+    from minigrid_dynamicprogramming_tpu_torch.utils.guards import checked_step, debug_mode
+    from minigrid_dynamicprogramming_tpu_torch.utils.telemetry import generation_acceptance
+
+    out = {}
+    env = make(ENV_ID)
+    _, state = env.reset(gen(20), GUARD_B, DEVICE)
+    step, g = checked_step(env), gen(21)
+    t0 = time.perf_counter()
+    for _ in range(GUARD_T):
+        act = torch.randint(0, env.action_dim, (GUARD_B,), generator=g, device=DEVICE)
+        err, (_, state, *_) = step(state, act, g)
+        require(err.get() is None, f"checked_step: {err.get()}")
+    out["checked_step_ms"] = 1e3 * (time.perf_counter() - t0) / GUARD_T
+    pos = state.agent_pos.clone()
+    pos[7] = torch.tensor([99, 1], device=DEVICE)
+    err, _ = step(state.replace(agent_pos=pos), 0, g)
+    require(err.get() == "agent position out of bounds", f"the corrupted state caught ({err.get()})")
+
+    x = torch.zeros(4, device=DEVICE)
+    try:
+        with debug_mode():
+            x / x
+        tripped = None
+    except FloatingPointError as e:
+        tripped = str(e)
+    require(tripped is not None and "aten.div" in tripped, f"debug_mode tripped on a NaN ({tripped})")
+    out["debug_mode"] = tripped
+
+    ppo = PPO(make(PPO_ENV), PPOConfig(num_envs=CKPT_B, rollout_len=CKPT_T), device=DEVICE)
+    ts, _ = ppo.update(ppo.init(0))
+    with tempfile.TemporaryDirectory() as tmp:
+        meta = ckpt.save(tmp, ts, env_state=ts.env_state)
+        restored = ckpt.restore(tmp, ppo.init(1), env_state_of=lambda t: t.env_state)
+    require(params_diff(ts.model, restored.model) == 0.0, "checkpoint: parameters equal")
+    tree_equal(restored.optimizer.state_dict()["state"], ts.optimizer.state_dict()["state"],
+               "checkpoint: optimizer state")
+    tree_equal(restored.env_state, ts.env_state, "checkpoint: env state")
+    tree_equal(restored.pool, ts.pool, "checkpoint: pool")
+    for name in ("generator", "learner_generator"):
+        require(torch.equal(getattr(restored, name).get_state(), getattr(ts, name).get_state()),
+                f"checkpoint: {name} state equal")
+    want = ppo._collect(ts)[3].actions
+    require(torch.equal(ppo._collect(restored)[3].actions, want), "checkpoint: the next actions equal")
+    out["checkpoint_digests"] = meta["env_digests"]
+    del ppo, ts, restored
+
+    out["telemetry"] = {}
+    for env_id in TELEMETRY_IDS:
+        rep = generation_acceptance(make(env_id), TELEMETRY_N, device=DEVICE)
+        print(f"[telemetry] {rep}", flush=True)
+        require(rep["mode"] == ("structural" if "DoorKey" in env_id else "loop"), f"{env_id}: mode")
+        require(rep["accept_rate"] >= (0.99 if "MultiRoom" in env_id else 1.0), f"{env_id}: accept rate")
+        out["telemetry"][env_id] = rep
+
+    for env_id in HASH_IDS:
+        e = make(env_id)
+        st = e.generate(gen(22), e.params, HASH_B, DEVICE)
+        cpu = tree_to(st, "cpu")
+        for i in range(HASH_B):
+            require(state_hash(st, i) == state_hash(cpu, i), f"{env_id}: state_hash card == CPU")
+            require(pprint_state(st, i) == pprint_state(cpu, i), f"{env_id}: pprint_state card == CPU")
+    print(f"[host tools] {out}", flush=True)
+    return out
+
+
+def cli_dp(card: str) -> tuple:
+    """Phase 20: the CLI's --dp inside its --trace; returns (reports, the
+    trace's kernel and range names found)."""
+    import tempfile
+
+    from minigrid_dynamicprogramming_tpu_torch import benchmark
+    from minigrid_dynamicprogramming_tpu_torch.utils.profiling import TRACE_FILE
+
+    with tempfile.TemporaryDirectory() as tmp:
+        reports = benchmark.main([
+            "--env-id", ENV_ID, "--num-resets", "2", "--num-frames", "2", "--batch", "256",
+            "--horizon", "8", "--dp", "--trace", tmp,
+        ])
+        with open(f"{tmp}/{TRACE_FILE}") as f:
+            events = json.load(f)["traceEvents"]
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    names = {e.get("name") for e in events}
+    vi = sorted(k for k in kernels if "vi_kernel" in k)
+    ranges = sorted(n for n in ("dp/layouts", "dp/value_iteration", "reset", "lane_rollout") if n in names)
+    print(f"[cli --dp] {len(events)} trace events, {len(kernels)} kernel names; B1: {vi}; ranges {ranges}",
+          flush=True)
+    require(vi, "the trace holds B1's kernel")
+    require(len(ranges) == 4, "the trace holds the CLI's annotate ranges")
+    return reports, {"vi_kernels": vi, "ranges": ranges, "events": len(events), "card": card}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write the results as JSON to this file")
@@ -1603,10 +1932,56 @@ def run(args, t_start: float, workers) -> int:
     results["bot"], counts = drive("BabyAI bot", lambda: bot_solves(make, ids, card))
     require(not any(counts.values()), "the bot launches no VI kernel")
     phase_s["bot"] = time.perf_counter() - t0
-    print(f"[phases 8-17] seconds {phase_s}", flush=True)
+
+    # 18. Multi-device on one card.
+    t0 = time.perf_counter()
+    results["multi_device"], counts = drive("multi-device", lambda: multi_device(make, card))
+    require(not any(counts.values()), "the multi-device legs launch no VI kernel")
+    phase_s["multi_device"] = time.perf_counter() - t0
+
+    # 19. Host tools.
+    t0 = time.perf_counter()
+    results["host_tools"], counts = drive("host tools", lambda: host_tools(make, card))
+    require(not any(counts.values()), "the host tools launch no VI kernel")
+    phase_s["host_tools"] = time.perf_counter() - t0
+
+    # 20. The CLI's --dp: the plain VI, then B1, inside the CLI's trace.
+    t0 = time.perf_counter()
+    (reports, found), counts = drive("CLI --dp", lambda: cli_dp(card))
+    require(counts["vi"] == 2, "the CLI's --dp launched B1 twice (warm-up and timed)")
+    require(not counts["key_vi"], "the CLI launches no B2")
+    from minigrid_dynamicprogramming_tpu_torch import benchmark
+
+    layouts = benchmark.dp_layouts(batch=VI_B, device=DEVICE)
+    v = cuda_vi.cuda_value_iteration(layouts, benchmark.DP_GAMMA, VI_SWEEPS)
+    err = float((v - T.vi_values(layouts, benchmark.DP_GAMMA, VI_SWEEPS)).abs().max())
+    require(err == 0.0, "B1 equals its plain version at the CLI's shape")
+    masks = cuda_vi.vi_masks(layouts)
+    C, D = v.shape[1], layouts.n_doors
+    lpb, G = cuda_vi.vi_plan(C, D, h * w)
+    kernel_row(
+        "vi_cli_dp", f"{CSRC}/vi.cu", f"{PALLAS_VI}:201", counts["vi"], err,
+        lambda: cuda_vi.cuda_value_iteration(layouts, benchmark.DP_GAMMA, VI_SWEEPS),
+        lambda: cuda_vi._vi_kernel(masks, benchmark.DP_GAMMA, VI_SWEEPS, v.shape),
+        lambda: T.vi_values(layouts, benchmark.DP_GAMMA, VI_SWEEPS),
+        cuda_vi.vi_work(layouts, VI_SWEEPS), reps=10,
+        design="a thread per (cell, config group) with its 4 directions and per-cell data "
+        "in registers; V in shared memory",
+        kernel_route="shared", route_launches={"shared": counts["vi"]},
+        launcher="benchmark.py --dp", shape=f"{VI_B} DoorKey-8x8 layouts (seed 7), {VI_SWEEPS} sweeps, "
+        f"max_doors {D} (C={C})",
+        cli_layout_sweeps_per_s={k: reports[k]["vi_sweeps_per_s"] for k in ("dp_torch", "dp_cuda")},
+        layouts_per_block=lpb, config_groups=G, threads_per_block=lpb * G * h * w,
+        walk_bits=cuda_vi.vi_walk_bits(C), shared_bytes=cuda_vi.vi_shared_bytes(C, D, h * w, lpb),
+        compiled=compiled(ptxas, f"vi_kernelILi{cuda_vi.vi_walk_bits(C)}ELi{h}ELi{w}E"),
+    )
+    results["cli_dp"] = {"reports": reports, "trace": found}
+    del layouts, v, masks
+    phase_s["cli_dp"] = time.perf_counter() - t0
+    print(f"[phases 8-20] seconds {phase_s}", flush=True)
     results["phase_s"] = phase_s
 
-    # 18. Kernels line, card, ok.
+    # 21. Kernels line, card, ok.
     results["kernels"] = kernels
     results["total_s"] = time.perf_counter() - t_start
     print(f"[chip_smoke] {results['total_s']:.1f} s in all, the build included", flush=True)

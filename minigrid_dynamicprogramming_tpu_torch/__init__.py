@@ -20,18 +20,27 @@ an obvious counterpart:
 * ``render/``    RGB frames and agent views from a tile table, on the
   state's device;
 * ``wrappers/``  the 15 observation, action and reward wrappers;
-* ``utils/babyai_bot.py``  the BabyAI oracle bot, one per env of a batch;
+* ``parallel/sharding.py``, ``distributed.py``, ``scaling.py``  a
+  ``torch.distributed`` process group over devices, each rank a slice of
+  the env axis, and the scaling harness;
+* ``utils/``     the BabyAI bot, the ASCII printer and state digest,
+  checkpoints, guards, generator telemetry, tracing;
 * ``benchmark.py``  the micro-benchmark CLI (reset ms, render FPS,
-  agent-view FPS, batched env-steps/s);
+  agent-view FPS, batched env-steps/s, ``--dp`` value iteration);
+* ``manual_control.py``, ``docs_gen.py``  keyboard control of one env, and
+  the environment pages and GIFs;
 * ``bridge.py``  numpy-dict converters to and from the JAX state pytrees,
   and the actor-critic's flax parameters.
 
 Entry points that make tensors from a seed (``lane_rollout``, an env's
 ``generate`` and ``reset``, a wrapper's ``reset``, ``dp.tabular.solve``,
-``models.PPO``, ``benchmark.benchmark``) default to ``device="cuda"`` and
-raise when CUDA is absent unless the caller asks for ``"cpu"``; the
-renderer and the wrappers' steps follow the device of the state they are
-given.
+``models.PPO``, ``benchmark.benchmark`` and ``benchmark_dp``,
+``parallel.scaling.measure_scaling``, ``utils.telemetry.
+generation_acceptance``, ``manual_control``, ``docs_gen``) default to
+``device="cuda"`` and raise when CUDA is absent unless the caller asks
+for ``"cpu"``; ``parallel.distributed.global_env_group`` puts a rank on
+``cuda:{local rank}`` unless asked otherwise; the renderer and the
+wrappers' steps follow the device of the state they are given.
 """
 
 __version__ = "0.1.0"

@@ -36,7 +36,9 @@ True and None otherwise (the hooks of such families draw nothing).  The
 JAX record's batch-first ``pre_step``/``post_step`` slots have no
 counterpart, and neither has its ``generate_batch``: the port's
 ``generate`` is already batched, so a family with a pooled generator
-(MultiRoom) registers it as its ``generate``.
+(MultiRoom) registers it as its ``generate``.  ``generate_stats``, where a
+family has one, takes ``generate``'s arguments and returns ``(state,
+GenStats)``, the acceptance telemetry of ``utils/telemetry.py``.
 """
 
 from __future__ import annotations
@@ -63,6 +65,7 @@ class Environment:
         pre_step_lanes: Optional[Callable] = None,
         post_step_lanes: Optional[Callable] = None,
         hook_rng: bool = True,
+        generate_stats: Optional[Callable] = None,
     ):
         self.env_id = env_id
         self.params = params
@@ -76,6 +79,7 @@ class Environment:
         # False when the hooks never draw: step paths then pass them no
         # generator.
         self.hook_rng = hook_rng
+        self.generate_stats = generate_stats
 
     def reset(
         self, generator: torch.Generator, batch_size: int = 1, device="cuda"

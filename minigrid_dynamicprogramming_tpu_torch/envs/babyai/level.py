@@ -10,8 +10,9 @@ raising ``RejectSampling``, and ``generate`` is JAX's pooled
 stable sort), takes the first n (``idx % accepted`` in the rare shortfall,
 as JAX does) and resolves the instruction into mark planes on those n
 only.  The kept layouts are iid draws of the acceptance-conditioned law
-the reference's loop gives.  JAX's ``generate_stats`` (GenStats
-telemetry) is not ported yet.
+the reference's loop gives.  ``generate_stats`` reports, for each layout,
+whether it came from an accepted attempt and the attempts spent on it
+(``utils/telemetry.py:pooled_stats``).
 
 ``gen_mission`` has the signature::
 
@@ -43,6 +44,7 @@ from minigrid_dynamicprogramming_tpu_torch.core.state import (
 )
 from minigrid_dynamicprogramming_tpu_torch.envs.babyai import core as B
 from minigrid_dynamicprogramming_tpu_torch.ops import roomgrid as rg
+from minigrid_dynamicprogramming_tpu_torch.utils.telemetry import pooled_stats
 
 GenMissionFn = Callable
 
@@ -194,16 +196,9 @@ def make_level(
         state, codes, ok = gen_mission(generator, p, state, ctx)
         return state, codes, validate(p, state, codes, ok)
 
-    def generate(
-        generator: torch.Generator,
-        p: EnvParams,
-        batch_size: int,
-        device="cuda",
-        return_accepted: bool = False,
-    ):
-        """``batch_size`` layouts; with ``return_accepted`` also the number
-        of accepted attempts (a (), int64 tensor), which must be at least
-        ``batch_size`` for the layouts to be distinct draws."""
+    def attempts_and_layouts(generator: torch.Generator, p: EnvParams, batch_size: int, device):
+        """(``batch_size`` layouts, each attempt's acceptance in draw
+        order)."""
         dev = resolve_device(device)
         n = batch_size
         m = max(n + 8, int(math.ceil(n * (p.opt("gen_oversample") or 1.5))))
@@ -215,7 +210,25 @@ def make_level(
         state = B.init_instr(p, take(state, sel), codes[sel])
         if after_init is not None:
             state = after_init(state)
-        return (state, accepted) if return_accepted else state
+        return state, ok
+
+    def generate(
+        generator: torch.Generator,
+        p: EnvParams,
+        batch_size: int,
+        device="cuda",
+        return_accepted: bool = False,
+    ):
+        """``batch_size`` layouts; with ``return_accepted`` also the number
+        of accepted attempts (a (), int64 tensor), which must be at least
+        ``batch_size`` for the layouts to be distinct draws."""
+        state, ok = attempts_and_layouts(generator, p, batch_size, device)
+        return (state, ok.sum()) if return_accepted else state
+
+    def generate_stats(generator: torch.Generator, p: EnvParams, batch_size: int, device="cuda"):
+        """``generate`` and the acceptance telemetry of its layouts."""
+        state, ok = attempts_and_layouts(generator, p, batch_size, device)
+        return state, pooled_stats(ok, batch_size)
 
     return Environment(
         env_id,
@@ -224,4 +237,5 @@ def make_level(
         mission_text=B.surface_text,
         post_step_lanes=B.verify_step,
         hook_rng=False,  # the verifier draws nothing
+        generate_stats=generate_stats,
     )

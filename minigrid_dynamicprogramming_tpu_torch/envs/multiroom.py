@@ -13,7 +13,9 @@ and the first ``batch_size`` of them are painted.  Every registered id
 draws a fixed number of rooms (min == max), so every attempt succeeds
 with the same chance and keeping the successes keeps the reference's law.
 Where too few attempts succeed, the successes repeat (``idx % accepted``),
-as in JAX; the margins make that vanishingly rare.
+as in JAX; the margins make that vanishingly rare.  ``generate_stats``
+reports, for each layout, whether it came from a successful attempt and
+the attempts spent on it (``utils/telemetry.py:pooled_stats``).
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from minigrid_dynamicprogramming_tpu_torch.core.state import (
     resolve_device,
 )
 from minigrid_dynamicprogramming_tpu_torch.ops import grid as G
+from minigrid_dynamicprogramming_tpu_torch.utils.telemetry import pooled_stats
 
 MISSION = "traverse the rooms to get to the goal"
 SIZE = 25
@@ -186,17 +189,8 @@ def make_multiroom(
     n_max = max_num_rooms
     margin = MARGIN.get(max_num_rooms, 9.0)
 
-    def generate(
-        generator: torch.Generator,
-        p: EnvParams,
-        batch_size: int,
-        device="cuda",
-        return_accepted: bool = False,
-    ):
-        """``batch_size`` layouts; with ``return_accepted`` also the number
-        of attempts that chained every room (a (), int64 tensor), which
-        must be at least ``batch_size`` for the layouts to be distinct
-        draws."""
+    def attempts_and_layouts(generator: torch.Generator, p: EnvParams, batch_size: int, device):
+        """(``batch_size`` layouts, each attempt's success in draw order)."""
         dev = resolve_device(device)
         n = batch_size
         m = max(n + 8, int(math.ceil(n * margin)))
@@ -214,6 +208,28 @@ def make_multiroom(
             return a[:, :, sel].permute(2, 0, 1)
 
         state = _paint(generator, p, take(tops), take(sizes), take(entries), count[sel], dev)
-        return (state, accepted) if return_accepted else state
+        return state, ok
 
-    return Environment(env_id, params, generate, mission_text=lambda c: MISSION)
+    def generate(
+        generator: torch.Generator,
+        p: EnvParams,
+        batch_size: int,
+        device="cuda",
+        return_accepted: bool = False,
+    ):
+        """``batch_size`` layouts; with ``return_accepted`` also the number
+        of attempts that chained every room (a (), int64 tensor), which
+        must be at least ``batch_size`` for the layouts to be distinct
+        draws."""
+        state, ok = attempts_and_layouts(generator, p, batch_size, device)
+        return (state, ok.sum()) if return_accepted else state
+
+    def generate_stats(generator: torch.Generator, p: EnvParams, batch_size: int, device="cuda"):
+        """``generate`` and the acceptance telemetry of its layouts: ``ok``
+        where the chain reached every room."""
+        state, ok = attempts_and_layouts(generator, p, batch_size, device)
+        return state, pooled_stats(ok, batch_size)
+
+    return Environment(
+        env_id, params, generate, mission_text=lambda c: MISSION, generate_stats=generate_stats
+    )

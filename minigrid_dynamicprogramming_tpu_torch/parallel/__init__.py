@@ -1,1 +1,2 @@
-"""Batch-last (lane-major) stepping and rollouts."""
+"""Batch-last (lane-major) stepping and rollouts, and the process groups
+that split an env batch over devices."""

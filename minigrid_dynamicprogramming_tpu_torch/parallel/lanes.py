@@ -54,6 +54,7 @@ from minigrid_dynamicprogramming_tpu_torch.core.state import (
     resolve_device,
 )
 from minigrid_dynamicprogramming_tpu_torch.ops.step import success_reward
+from minigrid_dynamicprogramming_tpu_torch.parallel.sharding import EnvGroup, all_reduce, shard_batch
 
 _U8 = torch.uint8
 
@@ -545,6 +546,7 @@ def lane_rollout(
     pool_rounds: int = 4,
     actions: Optional[torch.Tensor] = None,
     device="cuda",
+    group: Optional[EnvGroup] = None,
 ) -> LaneRolloutResult:
     """Rollout on the lane-major path, uniform random actions unless given.
 
@@ -558,12 +560,30 @@ def lane_rollout(
     ``torch.Generator`` on ``device``); ``actions``, if given, is a
     ``(horizon, batch_size)`` integer tensor used instead of the draws.
     The observation encoder runs every step and is folded into
-    ``obs_checksum``, so the steps/s include observations."""
-    dev = resolve_device(device)
-    pool = _lane_pool(env, generator, batch_size, autoreset, pool_rounds, dev)
+    ``obs_checksum``, so the steps/s include observations.
+
+    With a ``group`` (``parallel/sharding.py``) each rank runs its
+    ``batch_size / N`` lanes on ``group.device`` (``device`` is not read),
+    its layouts and actions drawn from its own ``generator`` (or its slice
+    of ``actions``); the step needs no communication, and the result's
+    scalars are summed over the ranks (``_lane_scan``)."""
+    if group is not None:
+        mine = group.slice(batch_size)  # raises unless the batch divides
+        dev, lanes = group.device, mine.stop - mine.start
+        if actions is not None:
+            actions = shard_batch(actions, group, axis=1)
+    else:
+        dev, lanes = resolve_device(device), batch_size
+    pool = _lane_pool(env, generator, lanes, autoreset, pool_rounds, dev)
     return _lane_scan(
-        env, generator, pool, batch_size, horizon, autoreset, pool_rounds, actions
+        env, generator, pool, lanes, horizon, autoreset, pool_rounds, actions, group
     )
+
+
+def shard_lanes(ls: LaneState, group: EnvGroup) -> LaneState:
+    """This rank's slice of a lane-major state or pool: every field's envs
+    are its last axis (JAX's ``lane_sharding``/``shard_lanes``)."""
+    return shard_batch(ls, group, axis=-1)
 
 
 def _rounds(autoreset: str, pool_rounds: int) -> int:
@@ -620,10 +640,17 @@ def _lane_scan(
     autoreset: str,
     pool_rounds: int,
     actions: Optional[torch.Tensor] = None,
+    group: Optional[EnvGroup] = None,
 ) -> LaneRolloutResult:
     """Step ``horizon`` times from round 0 of ``pool`` with autoreset.
     The hooks draw from ``generator`` after each step's actions, and only
-    where ``env.hook_rng``."""
+    where ``env.hook_rng``.
+
+    With a ``group``, ``pool`` and ``actions`` are this rank's
+    ``batch_size`` lanes; ``total_reward``, ``episodes``, ``successes``,
+    ``failures`` and the checksum (its int64 sum, before the modulus) are
+    summed over the ranks, and ``steps`` counts every rank's.
+    ``final_state`` and ``resets_per_env`` stay the rank's own."""
     rounds = _rounds(autoreset, pool_rounds)
     dev = pool.grid_obj.device
     if actions is None:
@@ -671,13 +698,16 @@ def _lane_scan(
         dones[t] = done.sum()
         wins[t] = (term & (reward > 0)).sum()
         ends[t] = term.sum()
+    total_reward = all_reduce(rewards.sum(), group)
+    counts = all_reduce(torch.stack([dones.sum(), wins.sum(), ends.sum(), checksums.sum()]), group)
+    episodes, successes, terminations, checksum = counts.unbind()
     return LaneRolloutResult(
         final_state=ls,
-        total_reward=rewards.sum(),
-        episodes=dones.sum(),
-        steps=batch_size * horizon,
-        obs_checksum=checksums.sum() % (1 << 32),
+        total_reward=total_reward,
+        episodes=episodes,
+        steps=batch_size * horizon * (group.world_size if group is not None else 1),
+        obs_checksum=checksum % (1 << 32),
         resets_per_env=reset_count,
-        successes=wins.sum(),
-        failures=ends.sum() - wins.sum(),
+        successes=successes,
+        failures=terminations - successes,
     )

@@ -28,7 +28,9 @@ domain (plain PyTorch, no kernel) gives the same V on both.
 ``Environment.step`` gives the same on both on DoorKey-8x8, and PPO
 updates on the card with finite metrics.  The renderer (tiles 8 and 32)
 and a wrapper stack with a count table give the same frames, observations
-and states on both.
+and states on both.  A one-rank NCCL group's sharded rollout equals the
+ungrouped rollout from the same seed bit for bit, and a PPO train state
+on the card survives a checkpoint round trip.
 """
 
 from __future__ import annotations
@@ -376,3 +378,59 @@ def test_wrapper_stack_card_equals_cpu(card):
         pos = core.agent_pos.long()
         deaths += int((core.grid_obj[torch.arange(256), pos[:, 1], pos[:, 0]] == OBJ_LAVA).sum())
     assert deaths > 0  # agents on lava, their deaths cancelled
+
+
+def _assert_lanes_equal(a, b, what: str):
+    for f in dataclasses.fields(a):
+        assert torch.equal(getattr(a, f.name), getattr(b, f.name)), f"{what} {f.name}"
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_rollout_equals_ungrouped(card):
+    """NCCL takes one rank a card, so a one-rank group is what one card
+    can hold: its sharded rollout (the scalars all-reduced) equals the
+    ungrouped one from the same seed, bit for bit."""
+    import torch.distributed as dist
+
+    from minigrid_dynamicprogramming_tpu_torch.parallel import distributed
+    from minigrid_dynamicprogramming_tpu_torch.parallel.scaling import free_port
+    from minigrid_dynamicprogramming_tpu_torch.parallel.sharding import rank_seed, sharded_keys
+
+    distributed.initialize(f"127.0.0.1:{free_port()}", 1, 0, local_device_ids=[0], max_retries=1,
+                           backend="nccl", timeout_s=120)
+    try:
+        group = distributed.global_env_group()
+        assert group.device == torch.device("cuda:0") and group.world_size == 1
+        env = port.make("MiniGrid-Empty-5x5-v0")  # T above max_steps=100: every lane resets
+        got = tlanes.lane_rollout(env, sharded_keys(0, group), 4096, 128, "pool", 4, group=group)
+        g = torch.Generator(device=card).manual_seed(rank_seed(0, 0))
+        want = tlanes.lane_rollout(env, g, 4096, 128, "pool", 4, device=card)
+        _assert_lanes_equal(got.final_state, want.final_state, "final state")
+        assert torch.equal(got.resets_per_env, want.resets_per_env)
+        for name in ("total_reward", "episodes", "obs_checksum", "successes", "failures"):
+            assert torch.equal(getattr(got, name), getattr(want, name)), name
+        assert int(got.resets_per_env.min()) > 0
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_on_card(card, tmp_path):
+    """A PPO train state on the card: model, optimizer, env state, pool and
+    both generators restored equal, each tensor back on the card; the
+    restored run then collects the same actions."""
+    from minigrid_dynamicprogramming_tpu_torch.models import PPO, PPOConfig
+    from minigrid_dynamicprogramming_tpu_torch.utils import checkpoint as ckpt
+
+    ppo = PPO(port.make("BabyAI-GoToDoor-v0"), PPOConfig(num_envs=256, rollout_len=8), device=card)
+    ts, _ = ppo.update(ppo.init(0))
+    ckpt.save(str(tmp_path / "ts"), ts, env_state=ts.env_state)
+    want = ppo._collect(ts)[3]
+    got_ts = ckpt.restore(str(tmp_path / "ts"), ppo.init(1), env_state_of=lambda t: t.env_state)
+    for (name, p), q in zip(ts.model.named_parameters(), got_ts.model.parameters()):
+        assert q.is_cuda and torch.equal(p, q), name
+    _assert_lanes_equal(got_ts.pool, ts.pool, "pool")
+    assert got_ts.env_state.grid_obj.is_cuda
+    assert torch.equal(got_ts.learner_generator.get_state(), ts.learner_generator.get_state())
+    got = ppo._collect(got_ts)[3]
+    assert torch.equal(got.actions, want.actions)

@@ -41,7 +41,8 @@ for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
 jax_pkg = "minigrid_dynamicprogramming_tpu"
 bad = sorted(
     n for n in sys.modules
-    if n.startswith(("jax", "flax", "optax")) or n == jax_pkg or n.startswith(jax_pkg + ".")
+    if n.startswith(("jax", "flax", "optax", "orbax", "PIL", "pygame"))
+    or n == jax_pkg or n.startswith(jax_pkg + ".")
 )
 print(" ".join(["imported"] + bad))
 print(" ".join(["modules"] + sorted(n for n in sys.modules if n.startswith(pkg.__name__))))
@@ -61,6 +62,16 @@ MUST_IMPORT = [
     "minigrid_dynamicprogramming_tpu_torch.utils",
     "minigrid_dynamicprogramming_tpu_torch.utils.babyai_bot",
     "minigrid_dynamicprogramming_tpu_torch.benchmark",
+    "minigrid_dynamicprogramming_tpu_torch.parallel.sharding",
+    "minigrid_dynamicprogramming_tpu_torch.parallel.distributed",
+    "minigrid_dynamicprogramming_tpu_torch.parallel.scaling",
+    "minigrid_dynamicprogramming_tpu_torch.utils.debug",
+    "minigrid_dynamicprogramming_tpu_torch.utils.checkpoint",
+    "minigrid_dynamicprogramming_tpu_torch.utils.guards",
+    "minigrid_dynamicprogramming_tpu_torch.utils.telemetry",
+    "minigrid_dynamicprogramming_tpu_torch.utils.profiling",
+    "minigrid_dynamicprogramming_tpu_torch.manual_control",
+    "minigrid_dynamicprogramming_tpu_torch.docs_gen",
 ] + [
     f"minigrid_dynamicprogramming_tpu_torch.envs.babyai.{m}"
     for m in ("core", "level", "goto", "open", "pickup", "unlock", "other", "levelgen")

@@ -67,7 +67,7 @@ def test_learner_phase_equals_jax():
     tts = tppo.TrainState(
         model=model, optimizer=torch.optim.Adam(model.parameters(), lr=cfg.lr, eps=1e-5),
         env_state=None, obs=None, generator=torch.Generator().manual_seed(0), update_idx=0,
-        pool=None, reset_count=None,
+        pool=None, reset_count=None, learner_generator=torch.Generator().manual_seed(0),
     )
     m = ppo._learn(tts, ttraj, last_value)
 
