@@ -22,9 +22,16 @@ Phases (any failure raises, exits nonzero and prints no "ok" line):
    sweeps, within 1e-6 of the plain version, on the cluster route (V in a
    thread-block cluster's shared memory), at one door slot (a cluster of
    4) and two (a cluster of 8); then on 32 DoorKey-16x16 layouts, 24
-   sweeps, on the global route (V in device memory), the route for V too
-   large for a cluster of 8.  The global route is also timed at the 8x8
-   shape, as the yardstick of the cluster route.
+   sweeps, on the wide route (V in the shared memory of a cluster of 16,
+   swept in place), the route for V too large for a cluster of 8; the
+   global route (V in device memory), launched directly on the same
+   layouts, within 1e-6 of the plain version too, and timed beside the
+   wide route in turns (global, wide, wide, global), as it is on 512
+   DoorKey-16x16 layouts at 96 sweeps, the B2 bench's size (wide against
+   global there, within 1e-6).  Then the same 32 layouts at two door
+   slots, where V (4.2 MB a layout) is too large for 16 CTAs: the global
+   route, through the wrapper.  The global route is also checked at the
+   8x8 shape.
 5. greedy solve: the max_doors=1 policy of phase 3, stepped by the port's
    ``step_lanes`` on the card, reaches the goal in every layout in exactly
    ``steps_to_go`` steps with the closed-form return.
@@ -58,10 +65,11 @@ Phases (any failure raises, exits nonzero and prints no "ok" line):
    CPU as in phase 6.  MultiRoom's pooled generator must chain every room
    in at least as many attempts as it has layouts to give.
 9. B2 on the families' layouts: ``cuda_key_value_iteration`` (128 sweeps)
-   on 512 KeyCorridorS3R2 layouts at six door slots (C = 64, the global
-   route) and 512 ObstructedMaze-1Dl layouts at one (11 wide and 6 high,
-   the cluster route), the target named by aux slots 0-1; every layout has
-   at most that many doors.  V within 1e-6 of the plain version; the
+   on 512 KeyCorridorS3R2 layouts at six door slots (C = 64, the wide
+   route, double-buffered; the global route timed beside it in turns on
+   the same layouts) and 512 ObstructedMaze-1Dl layouts at one (11 wide
+   and 6 high, the cluster route), the target named by aux slots 0-1;
+   every layout has at most that many doors.  V within 1e-6 of the plain version; the
    greedy policy, stepped by ``step_lanes_env`` with the family's hook,
    picks up the target in exactly ``key_steps_to_go`` steps with the
    closed-form return on every layout whose start has V > 0 and
@@ -174,6 +182,9 @@ ROLLOUT_B, ROLLOUT_T, POOL_ROUNDS = 65536, 768, 4
 VI_B, VI_SWEEPS = 1024, 128
 KEY_B, KEY_SWEEPS = 512, 96
 KEY16_ENV, KEY16_B, KEY16_SWEEPS = "MiniGrid-DoorKey-16x16-v0", 32, 24
+# The B2 bench's size (bench.py:141), where the wide route is timed
+# against the global route on DoorKey-16x16 (1.08 GB of V).
+KEY16_BENCH_B, KEY16_BENCH_SWEEPS = 512, 96
 # B1 at more door slots: (env, max_doors) for the 64-bit walk mask and for
 # walkability bytes in shared memory.
 VI_MANY_DOORS = (("MiniGrid-DoorKey-8x8-v0", 3), ("MiniGrid-DoorKey-5x5-v0", 4))
@@ -291,6 +302,11 @@ HASH_IDS, HASH_B = ("MiniGrid-DoorKey-8x8-v0", "BabyAI-GoToLocal-v0"), 16
 REWARD_RTOL = 1e-6
 
 PALLAS_VI = "minigrid_dynamicprogramming_tpu/dp/pallas_vi.py"
+WIDE_DESIGN = (
+    "V in a cluster of 16 CTAs' shared memory, one CTA an SM: the rows other than CARRIED "
+    "split over 15, the CARRIED row alone on the last, which sends their pickup values and "
+    "takes their drop values by remote stores"
+)
 CSRC = "minigrid_dynamicprogramming_tpu_torch/csrc"
 
 
@@ -357,6 +373,29 @@ def compiled(report: dict, kernel: str) -> dict:
 
 def gen(seed: int) -> torch.Generator:
     return torch.Generator(device=DEVICE).manual_seed(seed)
+
+
+def global_against_wide(name: str, masks, shape, sweeps: int, reps: int) -> dict:
+    """B2's global route (the route these shapes took before the wide one)
+    and the wide route on the same masks, each launched directly and timed
+    in turns: global, wide, wide, global.  Their V must agree within
+    KEY_ATOL.  Returns the four times and the difference."""
+    from minigrid_dynamicprogramming_tpu_torch.dp import cuda_vi
+
+    def run_global():
+        return cuda_vi._key_vi_kernel_global(masks, GAMMA, sweeps, shape)
+
+    def run_wide():
+        return cuda_vi._key_vi_kernel_wide(masks, GAMMA, sweeps, shape)
+
+    diff = float((run_wide() - run_global()).abs().max())
+    require(diff <= KEY_ATOL, f"{name}: the wide and global routes within {KEY_ATOL}")
+    ms = [cuda_ms(f, reps) for f in (run_global, run_wide, run_wide, run_global)]
+    out = {"shape": name, "global_ms": [ms[0], ms[3]], "wide_ms": [ms[1], ms[2]],
+           "max_abs_wide_minus_global": diff}
+    print(f"[key_vi global against wide] {name}: global {ms[0]:.4f} / {ms[3]:.4f} ms, "
+          f"wide {ms[1]:.4f} / {ms[2]:.4f} ms, max|wide - global| {diff:.3g}", flush=True)
+    return out
 
 
 def check_doorkey_pool(pool, h: int, w: int) -> int:
@@ -619,7 +658,22 @@ def key_families(make, drive, kernel_row, ptxas) -> list:
         out.append(entry)
         del policy
         masks = cuda_vi.key_vi_masks(layouts)
-        if route == "cluster":
+        if route == "wide":
+            entry["global_against_wide"] = global_against_wide(
+                f"{env_id} {KEY_FAMILY_B} layouts, {KEY_FAMILY_SWEEPS} sweeps", masks, v.shape,
+                KEY_FAMILY_SWEEPS, reps=3,
+            )
+            in_place = cuda_vi.key_vi_wide_in_place(C, h * w, n)
+            G = cuda_vi.key_vi_wide_groups(h * w)
+            design = dict(
+                design=WIDE_DESIGN + ("; swept in place" if in_place else "; double-buffered")
+                + "; grid size given at run time",
+                cluster=n, groups=G, threads_per_cta=G * h * w, in_place=in_place,
+                active_clusters=cuda_vi.key_vi_wide_active_clusters(C, h, w, n),
+                shared_bytes=cuda_vi.key_vi_wide_shared_bytes(C, h * w, n, in_place),
+                compiled=compiled(ptxas, f"key_vi_wide_kernelILb{int(in_place)}E"),
+            )
+        elif route == "cluster":
             G = cuda_vi.key_vi_groups(h * w)
             design = dict(
                 design="V split by key row over a thread-block cluster's shared memory; "
@@ -1755,31 +1809,90 @@ def run(args, t_start: float, workers) -> int:
     def key16_path():
         states = env16.generate(gen(4), env16.params, KEY16_B, device=DEVICE)
         layouts = TK.extract_key_layout(states, max_doors=1)
+        return states, layouts, cuda_vi.cuda_key_value_iteration(layouts, GAMMA, KEY16_SWEEPS)
+
+    (l16_states, l16, kv16), counts16 = drive("key-domain VI, DoorKey-16x16", key16_path)
+    require(counts16["key_vi"] == 1 and counts16["key_vi_wide"] == 1,
+            "B2 launched once, on the wide route, at DoorKey-16x16")
+    kv16_plain = TK.key_vi_values(l16, GAMMA, KEY16_SWEEPS)
+    err16 = float((kv16 - kv16_plain).abs().max())
+    require(err16 <= KEY_ATOL, f"B2's wide route within {KEY_ATOL} at DoorKey-16x16")
+    require(bool((kv16 > 0).any()), "some DoorKey-16x16 state reaches the goal")
+    m16 = cuda_vi.key_vi_masks(l16)
+    # The global route, launched directly on the same layouts.
+    err16_global = float(
+        (cuda_vi._key_vi_kernel_global(m16, GAMMA, KEY16_SWEEPS, kv16.shape) - kv16_plain).abs().max()
+    )
+    require(err16_global <= KEY_ATOL, f"B2's global route within {KEY_ATOL} at DoorKey-16x16")
+    print(f"[key_vi 16x16] {KEY16_B} layouts, {KEY16_SWEEPS} sweeps: max|kernel - plain| wide {err16:.3g}, "
+          f"global {err16_global:.3g}", flush=True)
+    del kv16_plain
+    K16, C16, h16, w16 = kv16.shape[1], kv16.shape[2], env16.params.height, env16.params.width
+    n16 = cuda_vi.key_vi_route(K16, C16, h16 * w16)[1]
+    in_place16 = cuda_vi.key_vi_wide_in_place(C16, h16 * w16, n16)
+    require(in_place16, "DoorKey-16x16 is swept in place")
+    G16 = cuda_vi.key_vi_wide_groups(h16 * w16)
+    kernel_row(
+        "key_vi_wide", f"{CSRC}/key_vi.cu", f"{PALLAS_VI}:452", counts16["key_vi"], err16,
+        lambda: cuda_vi.cuda_key_value_iteration(l16, GAMMA, KEY16_SWEEPS),
+        lambda: cuda_vi._key_vi_kernel(m16, GAMMA, KEY16_SWEEPS, kv16.shape),
+        lambda: TK.key_vi_values(l16, GAMMA, KEY16_SWEEPS),
+        cuda_vi.key_vi_work(l16, KEY16_SWEEPS), reps=5,
+        design=WIDE_DESIGN + "; swept in place",
+        kernel_route="wide",
+        route_launches={r: counts16[f"key_vi_{r}"] for r in cuda_vi.ROUTES},
+        shape=f"{KEY16_B} layouts 16x16, {KEY16_SWEEPS} sweeps, max_doors 1 (K={K16}, C={C16})",
+        cluster=n16, groups=G16, threads_per_cta=G16 * h16 * w16, in_place=in_place16,
+        active_clusters=cuda_vi.key_vi_wide_active_clusters(C16, h16, w16, n16),
+        shared_bytes=cuda_vi.key_vi_wide_shared_bytes(C16, h16 * w16, n16, in_place16),
+        compiled=compiled(ptxas, "key_vi_wide_kernelILb1E"),
+    )
+    results["key_vi_global_against_wide"] = [global_against_wide(
+        f"{KEY16_ENV} {KEY16_B} layouts, {KEY16_SWEEPS} sweeps", m16, kv16.shape, KEY16_SWEEPS, reps=5,
+    )]
+    del kv16, m16
+    # The B2 bench's size: 512 layouts, 96 sweeps (1.08 GB of V).
+    bench16 = TK.extract_key_layout(
+        env16.generate(gen(12), env16.params, KEY16_BENCH_B, device=DEVICE), max_doors=1
+    )
+    mb16 = cuda_vi.key_vi_masks(bench16)
+    bench_shape = (KEY16_BENCH_B, K16, C16, 4, h16, w16)
+    pair = global_against_wide(
+        f"{KEY16_ENV} {KEY16_BENCH_B} layouts, {KEY16_BENCH_SWEEPS} sweeps", mb16, bench_shape,
+        KEY16_BENCH_SWEEPS, reps=3,
+    )
+    pair["bound_ms"], pair["bound_by"] = bound(*cuda_vi.key_vi_work(bench16, KEY16_BENCH_SWEEPS))
+    results["key_vi_global_against_wide"].append(pair)
+    del bench16, mb16
+
+    # The same 32 layouts at two door slots: V is 4.2 MB a layout, too large
+    # for 16 CTAs, so the wrapper takes the global route.
+    def key16d2_path():
+        layouts = TK.extract_key_layout(l16_states, max_doors=2)
         return layouts, cuda_vi.cuda_key_value_iteration(layouts, GAMMA, KEY16_SWEEPS)
 
-    (l16, kv16), counts16 = drive("key-domain VI, DoorKey-16x16", key16_path)
-    require(counts16["key_vi_global"] == 1, "B2 took the global route at DoorKey-16x16")
-    err16 = float((kv16 - TK.key_vi_values(l16, GAMMA, KEY16_SWEEPS)).abs().max())
-    require(err16 <= KEY_ATOL, f"B2's global route within {KEY_ATOL} at DoorKey-16x16")
-    print(f"[key_vi 16x16] {KEY16_B} layouts, {KEY16_SWEEPS} sweeps: max|kernel - plain| {err16:.3g}", flush=True)
-    del l16, kv16
-    # The global route's row is timed at the 8x8 shape, beside the cluster
-    # route; its launches are those of the 16x16 part of the main path.
+    (l16d2, kv16d2), counts16d2 = drive("key-domain VI, DoorKey-16x16, max_doors=2", key16d2_path)
+    require(counts16d2["key_vi"] == 1 and counts16d2["key_vi_global"] == 1,
+            "B2 launched once, on the global route, at DoorKey-16x16 with two door slots")
+    err16d2 = float((kv16d2 - TK.key_vi_values(l16d2, GAMMA, KEY16_SWEEPS)).abs().max())
+    require(err16d2 <= KEY_ATOL, f"B2's global route within {KEY_ATOL} at two door slots")
+    m16d2 = cuda_vi.key_vi_masks(l16d2)
     kernel_row(
-        "key_vi_global", f"{CSRC}/key_vi.cu", f"{PALLAS_VI}:452", counts16["key_vi"], err_global,
-        lambda: cuda_vi._key_vi_kernel_global(cuda_vi.key_vi_masks(key_layouts), GAMMA, KEY_SWEEPS, kv.shape),
-        lambda: cuda_vi._key_vi_kernel_global(key_masks, GAMMA, KEY_SWEEPS, kv.shape),
-        lambda: TK.key_vi_values(key_layouts, GAMMA, KEY_SWEEPS),
-        key_work, reps=5,
+        "key_vi_global", f"{CSRC}/key_vi.cu", f"{PALLAS_VI}:452", counts16d2["key_vi"], err16d2,
+        lambda: cuda_vi.cuda_key_value_iteration(l16d2, GAMMA, KEY16_SWEEPS),
+        lambda: cuda_vi._key_vi_kernel(m16d2, GAMMA, KEY16_SWEEPS, kv16d2.shape),
+        lambda: TK.key_vi_values(l16d2, GAMMA, KEY16_SWEEPS),
+        cuda_vi.key_vi_work(l16d2, KEY16_SWEEPS), reps=5,
         design="V double-buffered in device memory, one block per layout",
         kernel_route="global",
-        route_launches={r: counts16[f"key_vi_{r}"] for r in cuda_vi.ROUTES},
-        launches_on=f"{KEY16_ENV}, {KEY16_B} layouts, {KEY16_SWEEPS} sweeps (max|diff| {err16})",
+        route_launches={r: counts16d2[f"key_vi_{r}"] for r in cuda_vi.ROUTES},
+        shape=f"{KEY16_B} layouts 16x16, {KEY16_SWEEPS} sweeps, max_doors 2 (K={K16}, C={kv16d2.shape[2]})",
+        checked_at_8x8=err_global,
         cluster=None, active_clusters=None,
-        shared_bytes=(C + 2) * 4 * h * w,
+        shared_bytes=(kv16d2.shape[2] + 2) * 4 * h16 * w16,
         compiled=compiled(ptxas, "key_vi_global_kernel"),
     )
-    del kv
+    del kv, l16, l16d2, kv16d2, m16d2, l16_states
 
     # 5. The greedy policy of the max_doors=1 solve, stepped on the card.
     states, layouts, v, policy = solved[1]

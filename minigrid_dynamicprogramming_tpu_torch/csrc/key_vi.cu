@@ -10,12 +10,12 @@
 // What bounds it on an H100: where V lives.  V per DoorKey-8x8 layout is
 // K*C*4*HW floats = 133 KB, so a double buffer does not fit the 227 KB of
 // shared memory one block may use, and 512 layouts' buffers (136 MB) do
-// not fit the 50 MB L2 either.  Two routes, chosen from the shape alone
+// not fit the 50 MB L2 either.  Three routes, chosen from the shape alone
 // (dp/cuda_vi.py:key_vi_route):
 //
-// * cluster (key_vi_cluster_kernel): one thread-block cluster of n CTAs
-//   per layout.  The K key-location rows of both V buffers are split over
-//   the CTAs (the first K % n take one row more), so V stays in shared
+// * cluster (key_vi_cluster_kernel): one thread-block cluster of n <= 8
+//   CTAs per layout.  The K key-location rows of both V buffers are split
+//   over the CTAs (the first K % n take one row more), so V stays in shared
 //   memory for the whole run and goes to device memory once, at the end.
 //   Each thread owns one cell, with all four directions, and a fixed
 //   share of the CTA's (config, row) items, those of its group g; its
@@ -30,14 +30,57 @@
 //   threads facing one run.  The grid's size is a template parameter for
 //   the DoorKey sizes, so the offsets to the states a thread reads are
 //   immediates.  One cluster barrier per sweep; the last one also ends
-//   every remote read before any CTA exits.
-// * global (key_vi_global_kernel): V too large for a cluster of 8, e.g.
-//   DoorKey-16x16 (2.1 MB per layout).  The double buffer lives in device
-//   memory (out and a scratch buffer the wrapper allocates), one block per
-//   layout with a barrier between sweeps.
+//   every remote read before any CTA exits.  Three CTAs an SM.
+// * wide (key_vi_wide_kernel): V too large for a cluster of 8 but not for
+//   one of 16 (above the portable limit, so the kernel allows a
+//   non-portable cluster size), e.g. KeyCorridorS3R2 at six door slots
+//   (1.29 MB a layout) and DoorKey-16x16 (2.11 MB).  One CTA an SM, so a
+//   CTA takes up to 1024 threads, G groups of HW, to keep warps in flight
+//   through the shared-memory latency.  Scattered 4-byte remote
+//   (distributed shared memory) loads proved slow at this size: they queue
+//   at the one SM that holds the CARRIED row, and the thread waits for
+//   each.  So this route reads nothing remotely; all it sends are stores,
+//   which do not stall the thread:
+//   - the HW rows other than CARRIED are split over the first n - 1 CTAs
+//     (the first HW % (n - 1) take one more); the last CTA, the hub, holds
+//     the CARRIED row alone, in one of its buffers' row slots;
+//   - pickup: the hub sends each new V(CARRIED, c, d, cell) (two configs
+//     in one store) to the CTA that owns row front(cell, d), into a table
+//     of 4 * C values per row, read there in the next sweep;
+//   - drop: a CTA sends each new V(k, c, d, cell) whose cell faces k and
+//     may take the key to the hub's drop table (another of its row slots),
+//     read there in the next sweep;
+//   both tables are double-buffered by sweep parity.  A CTA walks its
+//   (row, config) items config-major, item i = c * rows + j, in rounds of
+//   G: group g takes item r * G + g in round r.  A round's common path
+//   is stay, turns and forward; the rare candidates (the key in front,
+//   taken from the pickup table, and a closed door in front) and the drop
+//   store sit behind one bit test of the thread's key rows and one mask
+//   test of the config's flags.  Where the double buffer
+//   fits (KeyCorridorS3R2) each round writes the next buffer.  Where it
+//   does not (DoorKey-16x16), V is swept in place, and that is still the
+//   Jacobi update: every read sees the previous sweep's value, because
+//   - the hub's CARRIED row and drop table each take two row slots,
+//     swapped every sweep, and the hub reads only its own slots;
+//   - a round holds its G items' new values in registers, then a CTA
+//     barrier, then writes them.  An item reads its own slab (stay,
+//     turns, forward), its CTA's pickup table and, for a closed door,
+//     slab (k, c | bit) of the same row, whose index is never below its
+//     own.  So a round reads no slab that an earlier round wrote, and its
+//     own reads end at its barrier before its writes;
+//   - one cluster barrier ends the sweep: the tables sent in a sweep are
+//     complete before the next reads them, and a table is written again
+//     only after the sweep that read it has ended.
+//   dp/cuda_vi.py mirrors this plan and tests/test_torch_cuda_vi.py checks
+//   that no read sees a value written in the same sweep.
+// * global (key_vi_global_kernel): V too large for a cluster of 16, e.g.
+//   KeyCorridorS3R3 at seven door slots (5.0 MB a layout) or DoorKey-16x16
+//   at two (4.2 MB).  The double buffer lives in device memory (out and a
+//   scratch buffer the wrapper allocates), one block per layout with a
+//   barrier between sweeps.
 //
-// Both compute the TPU kernel's dense (4, K, HW) one-hot key-front and
-// drop masks as index predicates, and take its f32 masks as bytes.
+// All three compute the TPU kernel's dense (4, K, HW) one-hot key-front
+// and drop masks as index predicates, and take its f32 masks as bytes.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -60,8 +103,13 @@ constexpr uint8_t kUnlockFront = 4;  // faces a locked door the key opens
 constexpr int kGlobalThreads = 512;
 constexpr int kCtaThreads = 256;  // threads of a cluster CTA, at most
 constexpr int kCtasPerSm = 3;     // resident CTAs the registers must allow
+constexpr int kWideThreads = 1024;  // threads of a wide CTA, at most
+constexpr int kWideCluster = 16;    // CTAs of a wide cluster, at most
+constexpr int kWideRows = 32;       // rows of a wide CTA, at most (a bit each)
+constexpr uint32_t kClosedAnyDir = kClosedFront * 0x01010101u;
 
-// The cluster route's row split: the first K % n CTAs take one row more.
+// The row split of the cluster route (K rows over n CTAs) and of the wide
+// route (HW rows over n - 1): the first K % n CTAs take one row more.
 __device__ int row_begin(int rank, int K, int n) {
   return rank * (K / n) + (rank < K % n ? rank : K % n);
 }
@@ -76,6 +124,19 @@ size_t cluster_shared_bytes(int C, int HW, int n) {
   const size_t rows = (K + n - 1) / n;
   return 2 * rows * C * 4 * HW * sizeof(float) + C * HW * sizeof(uint32_t);
 }
+// The wide route: ceil(HW / (n - 1)) row slots (at least 2, in place 4,
+// for the hub's CARRIED row and drop table), twice or, in place, once;
+// the packed flags; two pickup tables of 4 * C floats a row.
+__host__ __device__ int wide_slots(int HW, int n, bool in_place) {
+  const int rows = (HW + n - 2) / (n - 1);
+  return rows > (in_place ? 4 : 2) ? rows : (in_place ? 4 : 2);
+}
+size_t wide_shared_bytes(int C, int HW, int n, bool in_place) {
+  const size_t rows = (HW + n - 2) / (n - 1);
+  return (in_place ? 1 : 2) * static_cast<size_t>(wide_slots(HW, n, in_place)) * C * 4 * HW *
+             sizeof(float) +
+         C * HW * sizeof(uint32_t) + 2 * rows * 4 * C * sizeof(float);
+}
 
 // A float of CTA `rank`'s shared memory, at the address `addr` has in this
 // CTA's (distributed shared memory: mapa, then ld.shared::cluster, with
@@ -89,6 +150,13 @@ __device__ __forceinline__ float load_cluster(uint32_t remote) {
   float v;
   asm volatile("ld.shared::cluster.f32 %0, [%1];" : "=f"(v) : "r"(remote) : "memory");
   return v;
+}
+__device__ __forceinline__ void store_cluster(uint32_t remote, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;" :: "r"(remote), "f"(v) : "memory");
+}
+__device__ __forceinline__ void store_cluster2(uint32_t remote, float a, float b) {
+  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};" :: "r"(remote), "f"(a), "f"(b)
+               : "memory");
 }
 __device__ __forceinline__ uint32_t shared_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -284,6 +352,235 @@ key_vi_cluster_kernel(const uint8_t* __restrict__ cell_flags,  // (B, 4, HW)
   for (int i = threadIdx.x; i < nrows * kslab; i += blockDim.x) out[i] = fin[i];
 }
 
+// The config bit of the door in direction d, byte d of `bits`.
+__device__ __forceinline__ int door(uint32_t bits, int d) {
+  return static_cast<int>((bits >> (8 * d)) & 0xffu);
+}
+
+// The front cell of `cell` in direction d, or -1 off the grid.
+__device__ __forceinline__ int front_cell(int cell, int d, int H, int W) {
+  const int x = cell % W + (d == 0 ? 1 : d == 2 ? -1 : 0);
+  const int y = cell / W + (d == 1 ? 1 : d == 3 ? -1 : 0);
+  return (x >= 0 && x < W && y >= 0 && y < H) ? y * W + x : -1;
+}
+
+// One CTA of a cluster of n <= 16 per layout, G * HW threads: (group g,
+// cell) = divmod(thread, HW); sizes given at run time.  kInPlace: one V
+// buffer swept in place; else two.  See the top of the file.
+template <bool kInPlace>
+__global__ void __launch_bounds__(kWideThreads, 1)
+key_vi_wide_kernel(const uint8_t* __restrict__ cell_flags,  // (B, 4, HW)
+                   const uint8_t* __restrict__ cfg_flags,   // (B, C, 4, HW)
+                   const uint8_t* __restrict__ door_bit,    // (B, 4, HW)
+                   float* __restrict__ v_out,  // (B, K, C, 4, HW)
+                   int C, int H, int W, float gamma, int n_sweeps) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int n = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const size_t b = blockIdx.x / n;
+  const int HW = H * W;
+  const int K = HW + 1;
+  const int slab = 4 * HW;     // states per (k, c)
+  const int kslab = C * slab;  // states per k
+  const int m = n - 1;         // CTAs of the rows other than CARRIED
+  const bool hub = rank == m;  // the CARRIED row's CTA
+  const int row0 = hub ? HW : row_begin(rank, HW, m);
+  const int ngen = hub ? 0 : row_begin(rank + 1, HW, m) - row0;
+  const int mrows = (HW + m - 1) / m;  // rows of the largest CTA
+  const int slots = wide_slots(HW, n, kInPlace);
+  const int ptab = mrows * 4 * C;  // floats of a pickup table
+  float* buf0 = reinterpret_cast<float*>(smem);
+  float* buf1 = buf0 + slots * kslab;  // double-buffered only
+  uint32_t* s_cfg = reinterpret_cast<uint32_t*>(buf0 + (kInPlace ? 1 : 2) * slots * kslab);
+  float* s_pick = reinterpret_cast<float*>(s_cfg + C * HW);  // 2 x (mrows, 4, C)
+
+  const int G = blockDim.x / HW;
+  const int g = threadIdx.x / HW;
+  const int cell = threadIdx.x - g * HW;
+  const int step[4] = {1, W, -1, -W};
+
+  for (int i = threadIdx.x; i < C * HW; i += blockDim.x) {
+    const int c = i / HW;
+    const uint8_t* p = cfg_flags + b * kslab + c * slab + (i - c * HW);
+    s_cfg[i] = p[0] | p[HW] << 8 | p[2 * HW] << 16 | static_cast<uint32_t>(p[3 * HW]) << 24;
+  }
+  // V, the hub's tables and the pickup tables start at 0.
+  for (int i = threadIdx.x; i < (kInPlace ? 1 : 2) * slots * kslab; i += blockDim.x) buf0[i] = 0.f;
+  for (int i = threadIdx.x; i < 2 * ptab; i += blockDim.x) s_pick[i] = 0.f;
+
+  // Per-direction data of the cell, packed: byte d of `bits` is the door
+  // bit in front; bit d of `goal`, `term` and `drop` the flags.
+  int fj[4];  // the front cell's local row here, or -1 (also off the grid)
+  uint32_t key_rows = 0;  // bit j: the cell faces local row j's cell
+  uint32_t bits = 0, goal = 0, term = 0, drop = 0;
+  uint32_t no_lava = ~0u;  // clears a direction's walk bit where lava is in front
+#pragma unroll
+  for (int d = 0; d < 4; ++d) {
+    const int fr = front_cell(cell, d, H, W);
+    fj[d] = fr >= row0 && fr < row0 + ngen ? fr - row0 : -1;
+    if (fj[d] >= 0) key_rows |= 1u << fj[d];
+    const uint8_t f = cell_flags[b * slab + d * HW + cell];
+    bits |= static_cast<uint32_t>(door_bit[b * slab + d * HW + cell]) << (8 * d);
+    goal |= (f & kGoalFront ? 1u : 0u) << d;
+    term |= (f & (kGoalFront | kTargetFront) ? 1u : 0u) << d;
+    drop |= ((f & kDropFront) && fr >= 0 ? 1u : 0u) << d;
+    if (f & kLavaFront) no_lava &= ~(static_cast<uint32_t>(kWalkFront) << (8 * d));
+  }
+  // The group's first item g = c0 * ngen + j0, and the stride G = dc *
+  // ngen + dj: divisions here only, never in a sweep.
+  const int rounds = (ngen * C + G - 1) / G;
+  const int dc = ngen ? G / ngen : 0;
+  const int dj = G - dc * ngen;
+  const int c0 = ngen ? g / ngen : C;
+  const int j0 = g - c0 * ngen;
+  cluster.sync();  // zeroed V and tables, and the packed flags, in every CTA
+
+  for (int sweep = 0; sweep < n_sweeps; ++sweep) {
+    const int odd = sweep & 1;
+    float* cur = kInPlace || !odd ? buf0 : buf1;
+    float* nxt = kInPlace || odd ? buf0 : buf1;
+    // The hub's CARRIED row and drop table, current and next: slots 0 and
+    // 1 of each buffer, or in place slots 0-1 and 2-3, swapped each sweep.
+    float* car_cur = kInPlace ? buf0 + odd * kslab : cur;
+    float* car_nxt = kInPlace ? buf0 + (1 - odd) * kslab : nxt;
+    const float* dt_cur = kInPlace ? buf0 + (2 + odd) * kslab : cur + kslab;
+    float* dt_nxt = kInPlace ? buf0 + (3 - odd) * kslab : nxt + kslab;
+    const float* pick_cur = s_pick + odd * ptab;
+    float* pick_nxt = s_pick + (1 - odd) * ptab;
+    if (hub) {
+      // The CARRIED row: no pickup and no target; drop (from the drop
+      // table) and unlock.  Each new value goes to the pickup table of
+      // the CTA that owns row front(cell, d), two configs in one store.
+      uint32_t pick_at[4];  // where V(CARRIED, 0, d, cell) goes
+      uint32_t on_grid = 0;  // bit d: the front cell is on the grid
+#pragma unroll
+      for (int d = 0; d < 4; ++d) {
+        const int fr = front_cell(cell, d, H, W);
+        on_grid |= (fr >= 0 ? 1u : 0u) << d;
+        const int owner = row_owner(fr < 0 ? 0 : fr, HW, m);
+        const int j = (fr < 0 ? 0 : fr) - row_begin(owner, HW, m);
+        pick_at[d] = map_rank(shared_addr(pick_nxt + (j * 4 + d) * C), owner);
+      }
+      for (int c = 2 * g; c < C; c += 2 * G) {
+        const bool pair = c + 1 < C;
+        float out[2][4];
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+          if (t == 1 && !pair) break;
+          const int cc = c + t;
+          const uint32_t gc = s_cfg[cc * HW + cell] & no_lava;
+          const float* pv = car_cur + cc * slab + cell;
+          float v[4];
+#pragma unroll
+          for (int d = 0; d < 4; ++d) v[d] = pv[d * HW];
+#pragma unroll
+          for (int d = 0; d < 4; ++d) {
+            const uint32_t gd = gc >> (8 * d);
+            float q = fmaxf(v[d], fmaxf(v[(d + 3) & 3], v[(d + 1) & 3]));
+            if (gd & kWalkFront) q = fmaxf(q, pv[d * HW + step[d]]);
+            if (gd & (kClosedFront | kUnlockFront)) {
+              q = fmaxf(q, pv[((cc | door(bits, d)) - cc) * slab + d * HW]);
+            }
+            // drop: the carried key lands on the front cell, row `front`.
+            if ((drop >> d) & 1) q = fmaxf(q, dt_cur[cc * slab + d * HW + cell]);
+            out[t][d] = (goal >> d) & 1 ? 1.f : gamma * q;
+            car_nxt[cc * slab + d * HW + cell] = out[t][d];
+          }
+        }
+#pragma unroll
+        for (int d = 0; d < 4; ++d) {
+          if (!((on_grid >> d) & 1)) continue;
+          if (pair) {
+            store_cluster2(pick_at[d] + 4 * c, out[0][d], out[1][d]);
+          } else {
+            store_cluster(pick_at[d] + 4 * c, out[0][d]);
+          }
+        }
+      }
+    }
+    // The other rows, config-major, in rounds of G items: stay, turns,
+    // forward or pickup (from this CTA's pickup table), and the toggle of
+    // a closed door.  A state whose cell faces its key row k and may drop
+    // the key there goes to the hub's drop table too.
+    const uint32_t dt_at = map_rank(shared_addr(dt_nxt + cell), m);
+    int j = j0, c = c0;
+    for (int r = 0; r < rounds; ++r) {
+      const bool active = c < C;
+      float out[4];
+      if (active) {
+        const uint32_t gc = s_cfg[c * HW + cell] & no_lava;
+        const float* pv = cur + j * kslab + c * slab + cell;  // V(k, c, 0, cell)
+        float v[4], q[4];
+#pragma unroll
+        for (int d = 0; d < 4; ++d) v[d] = pv[d * HW];
+        // stay (done, failed actions), left/right and forward.
+#pragma unroll
+        for (int d = 0; d < 4; ++d) {
+          q[d] = fmaxf(v[d], fmaxf(v[(d + 3) & 3], v[(d + 1) & 3]));
+          if ((gc >> (8 * d)) & kWalkFront) q[d] = fmaxf(q[d], pv[d * HW + step[d]]);
+        }
+        // The rare cases, off the common path: the key lies in front
+        // (pickup in place of forward), a closed door lies in front.
+        const bool key_here = (key_rows >> j) & 1;
+        if (key_here) {
+#pragma unroll
+          for (int d = 0; d < 4; ++d) {
+            if (j == fj[d]) {
+              q[d] = fmaxf(fmaxf(v[d], fmaxf(v[(d + 3) & 3], v[(d + 1) & 3])),
+                           pick_cur[(j * 4 + d) * C + c]);
+            }
+          }
+        }
+        if (gc & kClosedAnyDir) {
+#pragma unroll
+          for (int d = 0; d < 4; ++d) {
+            if ((gc >> (8 * d)) & kClosedFront) {
+              q[d] = fmaxf(q[d], pv[((c | door(bits, d)) - c) * slab + d * HW]);
+            }
+          }
+        }
+        // terminals: stepping onto the goal, picking up the target.
+#pragma unroll
+        for (int d = 0; d < 4; ++d) out[d] = (term >> d) & 1 ? 1.f : gamma * q[d];
+        if (key_here) {
+#pragma unroll
+          for (int d = 0; d < 4; ++d) {
+            if (j == fj[d] && (drop >> d) & 1) store_cluster(dt_at + 4 * (c * slab + d * HW), out[d]);
+          }
+        }
+      }
+      // In place, the round's reads end before its writes.
+      if (kInPlace) __syncthreads();
+      if (active) {
+        float* pn = nxt + j * kslab + c * slab + cell;
+#pragma unroll
+        for (int d = 0; d < 4; ++d) pn[d * HW] = out[d];
+      }
+      j += dj;
+      c += dc;
+      if (j >= ngen) {
+        j -= ngen;
+        ++c;
+      }
+    }
+    // Every table sent in this sweep is complete before the next reads
+    // it; the last barrier also ends every remote store before any CTA
+    // exits.
+    cluster.sync();
+  }
+  const int odd = n_sweeps & 1;
+  const float* fin = kInPlace || !odd ? buf0 : buf1;
+  if (hub) {
+    const float* car_fin = kInPlace ? buf0 + odd * kslab : fin;
+    float* out = v_out + (b * K + HW) * kslab;
+    for (int i = threadIdx.x; i < kslab; i += blockDim.x) out[i] = car_fin[i];
+  } else {
+    float* out = v_out + (b * K + row0) * kslab;
+    for (int i = threadIdx.x; i < ngen * kslab; i += blockDim.x) out[i] = fin[i];
+  }
+}
+
 __global__ void __launch_bounds__(kGlobalThreads)
 key_vi_global_kernel(const uint8_t* __restrict__ cell_flags,  // (B, 4, HW)
                      const uint8_t* __restrict__ cfg_flags,   // (B, C, 4, HW)
@@ -369,6 +666,21 @@ ClusterKernel cluster_kernel(int H, int W) {
   return key_vi_cluster_kernel<0, 0>;
 }
 
+using WideKernel = ClusterKernel;
+WideKernel wide_kernel(bool in_place) {
+  return in_place ? key_vi_wide_kernel<true> : key_vi_wide_kernel<false>;
+}
+
+// A cluster of 16 is above the portable limit: allow it, then the shared
+// memory, in that order.
+cudaError_t wide_attributes(WideKernel kernel, size_t smem) {
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
 cudaLaunchConfig_t cluster_config(int B, int HW, int n, int G, size_t smem,
                                   cudaStream_t stream,
                                   cudaLaunchAttribute* attr) {
@@ -427,6 +739,53 @@ extern "C" int key_vi_cluster_launch(const void* cell_flags,
   const cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (B == 0) return 0;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(
+      B, HW, n, G, smem, static_cast<cudaStream_t>(stream), &attr);
+  return static_cast<int>(cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const uint8_t*>(cell_flags),
+      static_cast<const uint8_t*>(cfg_flags),
+      static_cast<const uint8_t*>(door_bit), static_cast<float*>(v_out), C, H,
+      W, gamma, n_sweeps));
+}
+
+// --- wide route ------------------------------------------------------------
+
+extern "C" size_t key_vi_wide_shared_bytes(int C, int HW, int n, int in_place) {
+  return wide_shared_bytes(C, HW, n, in_place != 0);
+}
+
+// How many clusters of n CTAs of G * H * W threads can be resident at once
+// (cudaOccupancyMaxActiveClusters); a negative cudaError_t on failure.
+extern "C" int key_vi_wide_occupancy(int C, int H, int W, int n, int G, int in_place) {
+  const size_t smem = wide_shared_bytes(C, H * W, n, in_place != 0);
+  const auto kernel = wide_kernel(in_place != 0);
+  cudaError_t e = wide_attributes(kernel, smem);
+  if (e != cudaSuccess) return -static_cast<int>(e);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(n, H * W, n, G, smem, 0, &attr);
+  int clusters = 0;
+  e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  return e == cudaSuccess ? clusters : -static_cast<int>(e);
+}
+
+// Launches on `stream` with clusters of n CTAs (2 <= n <= 16, n <= K, at
+// most 32 rows a CTA) of G * H * W <= 1024 threads, V in place where in_place is nonzero; returns
+// the cudaError_t of the launch (0 = ok).
+extern "C" int key_vi_wide_launch(const void* cell_flags, const void* cfg_flags,
+                                  const void* door_bit, void* v_out, int B, int C,
+                                  int H, int W, int n, int G, int in_place,
+                                  float gamma, int n_sweeps, void* stream) {
+  const int HW = H * W;
+  if (n < 2 || n > kWideCluster || n > HW + 1 || (HW + n - 2) / (n - 1) > kWideRows || G < 1 ||
+      G * HW > kWideThreads) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = wide_shared_bytes(C, HW, n, in_place != 0);
+  const auto kernel = wide_kernel(in_place != 0);
+  const cudaError_t e = wide_attributes(kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (B == 0) return 0;
   cudaLaunchAttribute attr;

@@ -8,10 +8,19 @@ versions.
 * :func:`cuda_key_value_iteration` (``csrc/key_vi.cu``) replaces
   ``pallas_vi.py:_key_vi_kernel`` (launched by
   ``pallas_key_value_iteration``).  Plain version:
-  ``tabular_key.key_vi_values``, ``key_value_iteration``'s V.  It has two
-  routes, which :func:`key_vi_route` picks from the shape alone: V in the
-  shared memory of a thread-block cluster, or, where V is too large for a
-  cluster of 8, V in device memory.
+  ``tabular_key.key_vi_values``, ``key_value_iteration``'s V.  It has
+  three routes, which :func:`key_vi_route` picks from the shape alone:
+  ``cluster``, V split by key row over the shared memory of a thread-block
+  cluster of up to 8 CTAs, three CTAs an SM (DoorKey up to 8x8,
+  ObstructedMaze-1Dl); ``wide``, a cluster of 16 CTAs, one CTA an SM with
+  up to 1024 threads: the rows other than CARRIED split over 15 of them,
+  the CARRIED row alone on the last, which sends each CTA its pickup
+  values and takes their drop values (remote stores only), V
+  double-buffered where that fits (KeyCorridorS3R2 at six door slots) and
+  else swept in place (DoorKey-16x16); ``global``, V double-buffered in
+  device memory, where even one buffer is too large for 16 CTAs
+  (KeyCorridorS3R3 at seven door slots, DoorKey-16x16 at two, 19x19
+  grids).
 
 What bounds each kernel on an H100, and what its design does about it, is
 noted at the top of its ``.cu`` file.  A wrapper checks its inputs, then
@@ -318,7 +327,10 @@ def key_vi_work(layouts: KeyTabularLayout, n_sweeps: int) -> Tuple[int, int]:
 KEY_CTA_THREADS = 256  # threads of a cluster CTA, at most (csrc/key_vi.cu:kCtaThreads)
 KEY_CTAS_PER_SM = 3  # CTAs an SM should hold, so that one's barrier wait overlaps the others' work
 KEY_MAX_CLUSTER = 8  # the portable limit of a thread-block cluster
-ROUTES = ("cluster", "global")
+KEY_WIDE_THREADS = 1024  # threads of a wide CTA, at most (csrc/key_vi.cu:kWideThreads)
+KEY_WIDE_CLUSTER = 16  # CTAs of a wide cluster, above the portable limit (kWideCluster)
+KEY_WIDE_ROWS = 32  # rows of a wide CTA, at most (kWideRows: a bit each in a register)
+ROUTES = ("cluster", "wide", "global")
 
 
 def key_vi_groups(hw: int) -> int:
@@ -342,23 +354,58 @@ def key_vi_cluster_shared_bytes(C: int, hw: int, n: int) -> int:
     return 2 * -(-K // n) * C * 4 * hw * 4 + C * hw * 4
 
 
+def key_vi_wide_groups(hw: int) -> int:
+    """Thread groups G of a wide CTA: G * HW <= KEY_WIDE_THREADS threads,
+    (group, cell) = divmod(thread, HW)."""
+    return max(1, KEY_WIDE_THREADS // hw)
+
+
+def key_vi_wide_slots(hw: int, n: int, in_place: bool) -> int:
+    """Row slots of each V buffer of a wide CTA: the HW rows other than
+    CARRIED split over n - 1 CTAs, at least 2 (the hub's CARRIED row and
+    drop table), in place 4 (each of them twice)."""
+    return max(-(-hw // (n - 1)), 4 if in_place else 2)
+
+
+def key_vi_wide_shared_bytes(C: int, hw: int, n: int, in_place: bool) -> int:
+    """A wide CTA's shared memory: its row slots of V twice, or in place
+    once; the per-(config, cell) flags; two pickup tables of 4 * C values
+    for each row of the largest CTA."""
+    rows = -(-hw // (n - 1))
+    slots = key_vi_wide_slots(hw, n, in_place)
+    return (1 if in_place else 2) * slots * C * 4 * hw * 4 + C * hw * 4 + 2 * rows * 4 * C * 4
+
+
+def key_vi_wide_in_place(C: int, hw: int, n: int = KEY_WIDE_CLUSTER) -> bool:
+    """Whether the wide route sweeps V in place: where the double buffer
+    does not fit a CTA."""
+    return key_vi_wide_shared_bytes(C, hw, n, False) > SMEM_PER_BLOCK
+
+
 def key_vi_route(K: int, C: int, hw: int) -> Tuple[str, int]:
     """The kernel for V of (K, C, 4, HW) per layout: ``("cluster", n)``,
     the smallest power-of-two cluster whose CTAs' share of V lets an SM
     hold KEY_CTAS_PER_SM of them, else the smallest whose share fits at
-    all; or ``("global", 0)`` where even a cluster of 8 cannot hold V (or
-    a CTA cannot give each cell its thread).  The shape alone decides."""
+    all; where even a cluster of 8 cannot hold V (or a CTA cannot give
+    each cell its thread), ``("wide", 16)`` if 16 CTAs can hold it, in
+    place if need be, with a thread for each cell and at most
+    KEY_WIDE_ROWS rows a CTA; else ``("global", 0)``.  The shape alone
+    decides."""
     fits = [
         n for n in (1, 2, 4, KEY_MAX_CLUSTER)
         if n <= K and key_vi_cluster_shared_bytes(C, hw, n) <= SMEM_PER_BLOCK
     ]
-    if hw > KEY_CTA_THREADS or not fits:
-        return "global", 0
-    for n in fits:
-        per_sm = SMEM_PER_SM // (key_vi_cluster_shared_bytes(C, hw, n) + 1024)
-        if per_sm >= KEY_CTAS_PER_SM:
-            return "cluster", n
-    return "cluster", fits[0]
+    if hw <= KEY_CTA_THREADS and fits:
+        for n in fits:
+            per_sm = SMEM_PER_SM // (key_vi_cluster_shared_bytes(C, hw, n) + 1024)
+            if per_sm >= KEY_CTAS_PER_SM:
+                return "cluster", n
+        return "cluster", fits[0]
+    n = KEY_WIDE_CLUSTER
+    if (hw <= KEY_WIDE_THREADS and n <= hw + 1 and -(-hw // (n - 1)) <= KEY_WIDE_ROWS
+            and key_vi_wide_shared_bytes(C, hw, n, True) <= SMEM_PER_BLOCK):
+        return "wide", n
+    return "global", 0
 
 
 def key_vi_active_clusters(C: int, h: int, w: int, n: int) -> int:
@@ -368,6 +415,16 @@ def key_vi_active_clusters(C: int, h: int, w: int, n: int) -> int:
     got = fn(C, h, w, n, key_vi_groups(h * w))
     if got < 0:
         raise RuntimeError(f"key_vi_cluster_occupancy failed: CUDA error {-got}")
+    return got
+
+
+def key_vi_wide_active_clusters(C: int, h: int, w: int, n: int = KEY_WIDE_CLUSTER) -> int:
+    """Clusters of ``n`` CTAs of the wide kernel that the current card can
+    hold at once (``cudaOccupancyMaxActiveClusters``)."""
+    fn = _lib_fn("key_vi", "key_vi_wide_occupancy", [_I] * 6)
+    got = fn(C, h, w, n, key_vi_wide_groups(h * w), int(key_vi_wide_in_place(C, h * w, n)))
+    if got < 0:
+        raise RuntimeError(f"key_vi_wide_occupancy failed: CUDA error {-got}")
     return got
 
 
@@ -400,6 +457,30 @@ def _key_vi_kernel_cluster(masks, gamma: float, n_sweeps: int, shape, n: int) ->
     return v
 
 
+def _key_vi_kernel_wide(masks, gamma: float, n_sweeps: int, shape,
+                        n: int = KEY_WIDE_CLUSTER) -> torch.Tensor:
+    """Launch the wide route of ``csrc/key_vi.cu`` with clusters of ``n``
+    CTAs of :func:`key_vi_wide_groups` groups, in place where
+    :func:`key_vi_wide_in_place` says: V of ``shape`` (B, K, C, 4, H, W)
+    f32."""
+    _check_key_masks(masks, shape)
+    b, K, C, _, h, w = shape
+    G = key_vi_wide_groups(h * w)
+    in_place = key_vi_wide_in_place(C, h * w, n)
+    smem = key_vi_wide_shared_bytes(C, h * w, n, in_place)
+    if not (2 <= n <= min(KEY_WIDE_CLUSTER, K) and G * h * w <= KEY_WIDE_THREADS
+            and -(-h * w // (n - 1)) <= KEY_WIDE_ROWS and smem <= SMEM_PER_BLOCK):
+        raise ValueError(f"no wide cluster of {n} CTAs of {G} groups for K={K}, C={C}, H*W={h * w}")
+    dev = masks[0].device
+    v = torch.empty(shape, dtype=torch.float32, device=dev)
+    fn = _lib_fn("key_vi", "key_vi_wide_launch", [_P] * 4 + [_I] * 7 + [_F, _I, _P])
+    _launch(
+        dev, fn, *(m.data_ptr() for m in masks), v.data_ptr(), b, C, h, w, n, G,
+        int(in_place), gamma, n_sweeps,
+    )
+    return v
+
+
 def _key_vi_kernel_global(masks, gamma: float, n_sweeps: int, shape) -> torch.Tensor:
     """Launch the global route of ``csrc/key_vi.cu`` (V double-buffered in
     device memory): V of ``shape`` (B, K, C, 4, H, W) f32."""
@@ -423,6 +504,8 @@ def _key_vi_kernel(masks, gamma: float, n_sweeps: int, shape) -> torch.Tensor:
     route, n = key_vi_route(K, C, h * w)
     if route == "cluster":
         v = _key_vi_kernel_cluster(masks, gamma, n_sweeps, shape, n)
+    elif route == "wide":
+        v = _key_vi_kernel_wide(masks, gamma, n_sweeps, shape, n)
     else:
         v = _key_vi_kernel_global(masks, gamma, n_sweeps, shape)
     cuda_key_value_iteration.launches += 1

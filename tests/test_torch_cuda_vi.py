@@ -10,14 +10,18 @@ The kernels themselves run only on a card (``tests/test_torch_on_card.py``);
 what can be checked here is the contract between a wrapper and its kernel.
 The ``*_plan`` helpers mirror how each ``.cu`` file splits the states over
 its threads and CTAs, from the plan the wrapper hands the kernel
-(``cuda_vi.vi_plan``, ``key_vi_groups``, ``key_vi_rows``): which thread
-owns which states, and where each candidate's read lands (for the key
-domain: which CTA of the cluster, at which offset of its shared memory;
-for the restricted domain: which toggle-table entry a door-facing thread
-reads).
-``_run_vi_plan`` and ``_run_key_vi_plan`` replay each kernel's arithmetic
-over the byte masks the wrapper builds, thread by thread and item by item
-through those plans, and must reproduce the plain values.
+(``cuda_vi.vi_plan``, ``key_vi_groups``, ``key_vi_wide_groups``,
+``key_vi_rows``): which thread owns which states, and where each
+candidate's read lands (for the key domain: which CTA of the cluster, at
+which offset of its shared memory; for the restricted domain: which
+toggle-table entry a door-facing thread reads).
+``_run_vi_plan``, ``_run_key_vi_plan`` and ``_run_key_vi_wide_plan``
+replay each kernel's arithmetic over the byte masks the wrapper builds,
+thread by thread and item by item through those plans, and must reproduce
+the plain values.  The wide route's replay also runs its rounds in the
+kernel's order against one shared-memory image per CTA, and checks that
+no read sees a value written in the same sweep, which is what makes its
+in-place sweep exact.
 """
 
 from __future__ import annotations
@@ -431,20 +435,308 @@ def test_key_vi_kernel_contract_reproduces_plain(env_id, n, closed):
     (6, 6, 1, ("cluster", 2)),
     (8, 8, 1, ("cluster", 4)),
     (8, 8, 2, ("cluster", 8)),
-    (16, 16, 1, ("global", 0)),
+    (16, 16, 1, ("wide", 16)),
     (16, 16, 2, ("global", 0)),
+    (6, 11, 1, ("cluster", 4)),
+    (5, 7, 6, ("wide", 16)),
+    (7, 7, 7, ("global", 0)),
+    (19, 19, 1, ("global", 0)),
 ])
 def test_key_vi_route(h, w, D, want):
-    """The smallest cluster whose CTAs fit three to an SM; 16x16 needs more
-    than a cluster of 8 can hold."""
+    """The smallest cluster whose CTAs fit three to an SM; where a cluster
+    of 8 cannot hold V, a cluster of 16 (DoorKey-16x16 in place,
+    KeyCorridorS3R2 at six door slots double-buffered); else device
+    memory (DoorKey-16x16 at two door slots: 4.2 MB, KeyCorridorS3R3 at
+    seven: 5.0 MB, 19x19: 4.2 MB)."""
     hw = h * w
-    assert cuda_vi.key_vi_route(hw + 1, 1 << D, hw) == want
+    C = 1 << D
+    assert cuda_vi.key_vi_route(hw + 1, C, hw) == want
     route, n = want
     if route == "cluster":
-        smem = cuda_vi.key_vi_cluster_shared_bytes(1 << D, hw, n)
+        smem = cuda_vi.key_vi_cluster_shared_bytes(C, hw, n)
         assert cuda_vi.SMEM_PER_SM // (smem + 1024) >= cuda_vi.KEY_CTAS_PER_SM
         if n > 1:
-            smaller = cuda_vi.key_vi_cluster_shared_bytes(1 << D, hw, n // 2)
+            smaller = cuda_vi.key_vi_cluster_shared_bytes(C, hw, n // 2)
             assert cuda_vi.SMEM_PER_SM // (smaller + 1024) < cuda_vi.KEY_CTAS_PER_SM
+        return
+    assert cuda_vi.key_vi_cluster_shared_bytes(C, hw, 8) > cuda_vi.SMEM_PER_BLOCK
+    in_place = cuda_vi.key_vi_wide_shared_bytes(C, hw, 16, True)
+    if route == "wide":
+        assert in_place <= cuda_vi.SMEM_PER_BLOCK
+        assert cuda_vi.key_vi_wide_in_place(C, hw) == (hw == 256)
+        assert cuda_vi.key_vi_wide_groups(hw) * hw <= cuda_vi.KEY_WIDE_THREADS
     else:
-        assert cuda_vi.key_vi_cluster_shared_bytes(1 << D, hw, 8) > cuda_vi.SMEM_PER_BLOCK
+        assert in_place > cuda_vi.SMEM_PER_BLOCK
+
+
+# --- The wide route: a cluster of 16, in place where V does not fit twice ----
+
+
+def _key_vi_wide_plan(h: int, w: int, C: int, n: int, reverse: bool = False):
+    """``key_vi_wide_kernel``'s walk: (rank, round, group g, local row j,
+    config c) of each item other than CARRIED, on the first n - 1 CTAs,
+    from the group's first item g and the stride G = dc * ngen + dj, as
+    the kernel steps them; then (group, first config) of the hub's items,
+    config pairs 2g, 2g + 2G, ...  ``reverse`` walks each CTA's items in
+    the opposite order (not the kernel's: the test of the order uses it);
+    and G."""
+    hw = h * w
+    G = cuda_vi.key_vi_wide_groups(hw)
+    items = []
+    for rank, (_, ngen) in enumerate(cuda_vi.key_vi_rows(hw, n - 1)):
+        rounds = -(-ngen * C // G)
+        dc, dj = divmod(G, ngen)
+        for g in range(G):
+            c, j = divmod(g, ngen)
+            for r in range(rounds):
+                if c < C:
+                    if reverse:
+                        c_, j_ = divmod(ngen * C - 1 - (c * ngen + j), ngen)
+                        items.append((rank, r, g, j_, c_))
+                    else:
+                        items.append((rank, r, g, j, c))
+                j, c = j + dj, c + dc
+                if j >= ngen:
+                    j, c = j - ngen, c + 1
+    hub = [(g, c) for g in range(G) for c in range(2 * g, C, 2 * G)]
+    return torch.tensor(items), torch.tensor(hub), G
+
+
+def _wide_front_rows(h: int, w: int):
+    """(HW, 4) front cell per (cell, direction), -1 off the grid."""
+    cell = torch.arange(h * w)
+    x, y = cell % w, cell // w
+    fx = torch.stack([x + 1, x, x - 1, x], 1)
+    fy = torch.stack([y, y + 1, y, y - 1], 1)
+    return torch.where((fx >= 0) & (fx < w) & (fy >= 0) & (fy < h), fy * w + fx, -1)
+
+
+@pytest.mark.parametrize("h,w,C", [(16, 16, 2), (16, 16, 4), (5, 7, 64), (8, 8, 16), (5, 7, 1)])
+def test_key_vi_wide_plan_writes_every_state_once(h, w, C):
+    """Each state other than CARRIED's is one (rank, group, cell) thread's
+    item once per sweep, on the first 15 CTAs; every group has at most the
+    CTA's rounds of items and takes one in each of its rounds; the hub's
+    groups split the CARRIED row's configs, two at a time."""
+    n = cuda_vi.KEY_WIDE_CLUSTER
+    hw = h * w
+    items, hub, G = _key_vi_wide_plan(h, w, C, n)
+    rows = cuda_vi.key_vi_rows(hw, n - 1)
+    assert sum(nr for _, nr in rows) == hw and max(nr for _, nr in rows) - min(nr for _, nr in rows) <= 1
+    starts = torch.tensor([r0 for r0, _ in rows])
+    k = starts[items[:, 0]] + items[:, 3]
+    kc = torch.sort(k * C + items[:, 4]).values
+    assert torch.equal(kc, torch.arange(hw * C))
+    hub_cfg = torch.cat([hub[:, 1], hub[hub[:, 1] + 1 < C, 1] + 1])
+    assert torch.equal(torch.sort(hub_cfg).values, torch.arange(C))
+    # Items of one (rank, round) belong to distinct groups, and a group's
+    # items are in rounds 0, 1, ... with no gap.
+    key = (items[:, 0] * 10_000 + items[:, 1]) * G + items[:, 2]
+    assert len(torch.unique(key)) == len(items)
+    for rank in range(n - 1):
+        mine = items[items[:, 0] == rank]
+        per_round = torch.bincount(mine[:, 1])
+        assert (per_round[:-1] == G).all() and per_round[-1] <= G
+    assert G * hw <= cuda_vi.KEY_WIDE_THREADS
+
+
+def _run_key_vi_wide_plan(layouts, gamma: float, n_sweeps: int, in_place=None,
+                          reverse: bool = False) -> torch.Tensor:
+    """``key_vi_wide_kernel``'s arithmetic over its plan, on one image of
+    each CTA's shared memory, (B, n, floats): its V row slots (once in
+    place, else twice), then its two pickup tables.  Each sweep runs the
+    hub's CARRIED items, then the other CTAs' items round by round, every
+    item of a round at once (reads, then writes), with the stores the
+    kernel sends to other CTAs: each new CARRIED value to the pickup table
+    of the CTA that owns row front(cell, d), and each new value a drop
+    reads to the hub's drop table.  Every read is checked against the
+    values written in the sweep so far, so no read may see one; and, since
+    the hub and the other CTAs do not wait for each other within a sweep,
+    no state read in a sweep may be written in it, but for a CTA's own rows
+    in place, which its round barriers order.  Every state is written once
+    a sweep, as is every table entry that is read.  ``in_place`` defaults
+    to the route's choice."""
+    cell_flags, cfg_flags, door_bit = cuda_vi.key_vi_masks(layouts)
+    B, C, _, hw = cfg_flags.shape
+    h, w = layouts.base_walk.shape[1:]
+    n = cuda_vi.KEY_WIDE_CLUSTER
+    m = n - 1
+    if in_place is None:
+        in_place = cuda_vi.key_vi_wide_in_place(C, hw, n)
+    K, slab, kslab = hw + 1, 4 * hw, C * 4 * hw
+    rows = cuda_vi.key_vi_rows(hw, m)
+    starts = torch.tensor([r0 for r0, _ in rows] + [hw])
+    ngen = torch.tensor([nr for _, nr in rows] + [0])
+    mrows = -(-hw // m)
+    slots = cuda_vi.key_vi_wide_slots(hw, n, in_place)
+    ptab = mrows * 4 * C
+    P0 = (1 if in_place else 2) * slots * kslab  # the pickup tables
+    size = P0 + 2 * ptab
+    assert size * 4 + C * hw * 4 == cuda_vi.key_vi_wide_shared_bytes(C, hw, n, in_place)
+    items, hub, G = _key_vi_wide_plan(h, w, C, n, reverse)
+    fr = _wide_front_rows(h, w)  # (HW, 4)
+    safe = fr.clamp(min=0)
+    q_, rem = divmod(hw, m)
+    owner = torch.where(safe < rem * (q_ + 1), safe // (q_ + 1), rem + (safe - rem * (q_ + 1)) // q_)
+    d = torch.arange(4)
+    cell = torch.arange(hw)[:, None]
+    step = torch.tensor(_STEP(w))
+    f = cell_flags[:, d, cell].long()  # (B, HW, 4)
+    bit = door_bit[:, d, cell].long()[:, None]  # (B, 1, HW, 4)
+    lava = ((f & 2) != 0)[:, None]
+    goal, term = ((f & 1) != 0)[:, None], ((f & 5) != 0)[:, None]
+    drop_ok = ((f & 8) != 0)[:, None] & (fr >= 0)
+    on_grid = (fr >= 0).expand(B, 1, hw, 4)
+    own_rows = torch.zeros(n, size, dtype=torch.bool)  # a CTA's own rows, in place
+    if in_place:
+        for rank in range(m):
+            own_rows[rank, : int(ngen[rank]) * kslab] = True
+    mem = torch.zeros(B, n, size)
+
+    def flags(c):  # (B, I, HW, 4) walk, closed, unlock for each item's config
+        g = cfg_flags[:, :, d, cell][:, c].long()
+        return ((g & 1) != 0) & ~lava, (g & 2) != 0, (g & 4) != 0
+
+    def sweep_once(sweep: int, odd: int):
+        stamp = torch.zeros(B, n, size, dtype=torch.bool)  # written in this sweep
+        seen = torch.zeros(B, n, size, dtype=torch.bool)  # read in this sweep
+        count = torch.zeros(B, n, size, dtype=torch.int64)
+
+        def index(rank, off, where):
+            rank, off = torch.broadcast_tensors(rank, off)
+            rank, off = rank.expand_as(where), off.expand_as(where)
+            assert (off[where] >= 0).all() and (off[where] < size).all()
+            b = torch.arange(B).reshape(-1, *[1] * (where.dim() - 1)).expand_as(where)
+            return b, rank, off.clamp(0, size - 1)
+
+        def read(rank, off, where):
+            b, rank, off = index(rank, off, where)
+            hit = where & stamp[b, rank, off]
+            assert not hit.any(), f"sweep {sweep}: a read sees a value written in this sweep"
+            seen[b[where], rank[where], off[where]] = True
+            return mem[b, rank, off]
+
+        def write(rank, off, val, where):
+            b, rank, off = index(rank, off, where)
+            return b[where], rank[where], off[where], val.expand_as(where)[where]
+
+        def apply(writes):
+            for b, rank, off, val in writes:
+                mem[b, rank, off] = val
+                stamp[b, rank, off] = True
+                count[b, rank, off] += 1
+
+        cur = 0
+        nxt = 0 if in_place else slots * kslab
+        if odd and not in_place:
+            cur, nxt = nxt, cur
+        car_cur = odd * kslab if in_place else cur
+        car_nxt = (1 - odd) * kslab if in_place else nxt
+        dt_cur = (2 + odd) * kslab if in_place else cur + kslab
+        dt_nxt = (3 - odd) * kslab if in_place else nxt + kslab
+        pick_cur, pick_nxt = P0 + odd * ptab, P0 + (1 - odd) * ptab
+        hub_rank = torch.tensor(m)
+        # The hub: the CARRIED row's items, both configs of each pair.
+        pairs = torch.cat([hub[:, 1], hub[hub[:, 1] + 1 < C, 1] + 1])
+        c = pairs[:, None, None]
+        walk, closed, unlock = flags(pairs)
+        base = car_cur + c * slab + d * hw + cell
+        every = torch.ones(B, len(pairs), hw, 4, dtype=torch.bool)
+        vv = read(hub_rank, base, every)
+        q = torch.maximum(vv, torch.maximum(vv[..., (d + 3) % 4], vv[..., (d + 1) % 4]))
+        q = torch.where(walk, torch.maximum(q, read(hub_rank, base + step, walk)), q)
+        tog = closed | unlock
+        q = torch.where(tog, torch.maximum(q, read(hub_rank, base + ((c | bit) - c) * slab, tog)), q)
+        dk = drop_ok.expand_as(every)
+        q = torch.where(dk, torch.maximum(q, read(hub_rank, dt_cur + c * slab + d * hw + cell, dk)), q)
+        out = torch.where(goal, 1.0, gamma * q)
+        j_fr = safe - starts[owner]
+        sends = [write(hub_rank, car_nxt + c * slab + d * hw + cell, out, every),
+                 write(owner, pick_nxt + (j_fr * 4 + d) * C + c, out, on_grid.expand_as(every))]
+        # The other CTAs, round by round: all reads of a round, then its
+        # writes; the hub's stores land in between.
+        for r in range(int(items[:, 1].max()) + 1):
+            it = items[items[:, 1] == r]
+            rank = it[:, 0, None, None]
+            j, c = it[:, 3, None, None], it[:, 4, None, None]
+            walk, closed, _ = flags(it[:, 4])
+            row0 = starts[rank]
+            fj = torch.where((fr >= row0) & (fr < row0 + ngen[rank]), fr - row0, -1)
+            every = torch.ones(B, len(it), hw, 4, dtype=torch.bool)
+            kf = (j == fj).expand_as(every)
+            base = cur + j * kslab + c * slab + d * hw + cell
+            vv = read(rank, base, every)
+            q = torch.maximum(vv, torch.maximum(vv[..., (d + 3) % 4], vv[..., (d + 1) % 4]))
+            pick = read(rank, pick_cur + (j * 4 + d) * C + c, kf)
+            fwd = walk & ~kf
+            ahead = read(rank, base + step, fwd)
+            q = torch.where(kf, torch.maximum(q, pick), torch.where(fwd, torch.maximum(q, ahead), q))
+            q = torch.where(closed, torch.maximum(q, read(rank, base + ((c | bit) - c) * slab, closed)), q)
+            out = torch.where(term, 1.0, gamma * q)
+            if r == 0:
+                apply(sends)
+            apply([write(rank, nxt + j * kslab + c * slab + d * hw + cell, out, every),
+                   write(hub_rank, dt_nxt + c * slab + d * hw + cell, out, kf & drop_ok)])
+        # Each state written once (the rows' K * C * 4 * HW), and each
+        # pickup and drop entry once.
+        v_writes = count.clone()
+        v_writes[:, :, P0:] = 0
+        v_writes[:, m, dt_nxt: dt_nxt + kslab] = 0
+        assert (v_writes.sum(dim=(1, 2)) == K * kslab).all() and int(count.max()) == 1
+        assert (count[:, m, dt_nxt: dt_nxt + kslab].reshape(B, C, 4, hw).sum(1)
+                == C * drop_ok[:, 0].transpose(1, 2)).all()
+        if not (seen & stamp & ~own_rows).any():
+            return
+        raise AssertionError(f"sweep {sweep}: a state read in this sweep is written in it")
+
+    for sweep in range(n_sweeps):
+        sweep_once(sweep, sweep & 1)
+    odd = n_sweeps & 1
+    fin = slots * kslab if odd and not in_place else 0
+    car_fin = odd * kslab if in_place else fin
+    out = [mem[:, rank, fin: fin + int(ngen[rank]) * kslab] for rank in range(m)]
+    out.append(mem[:, m, car_fin: car_fin + kslab])
+    return torch.cat(out, 1).reshape(B, K, C, 4, h, w)
+
+
+def _wide_layouts(env_id: str, max_doors: int, closed: bool):
+    """Two layouts from the port's own generator (the target from aux slots
+    0-1 where the family names one)."""
+    import minigrid_dynamicprogramming_tpu_torch as port
+
+    env = port.make(env_id)
+    states = env.generate(torch.Generator().manual_seed(11), env.params, 2, "cpu")
+    if "KeyCorridor" in env_id:
+        layouts = tkey.extract_key_layout(states, max_doors, states.aux[:, 0], states.aux[:, 1])
+    else:
+        layouts = tkey.extract_key_layout(states, max_doors)
+    return _closed_doors(layouts) if closed else layouts
+
+
+@pytest.mark.parametrize("env_id,max_doors,closed,in_place", [
+    ("MiniGrid-DoorKey-16x16-v0", 1, False, None),
+    ("MiniGrid-DoorKey-16x16-v0", 1, True, None),
+    ("MiniGrid-KeyCorridorS3R2-v0", 6, False, None),
+    ("MiniGrid-KeyCorridorS3R2-v0", 6, False, True),
+])
+def test_key_vi_wide_kernel_contract_reproduces_plain(env_id, max_doors, closed, in_place):
+    """DoorKey-16x16 swept in place (closed doors make every key row
+    toggle, so the order of the configs matters), KeyCorridorS3R2 at six
+    door slots double-buffered as the route runs it, and in place as a
+    second check of the order at 64 configs."""
+    layouts = _wide_layouts(env_id, max_doors, closed)
+    hw = layouts.base_walk.shape[1] * layouts.base_walk.shape[2]
+    assert cuda_vi.key_vi_route(hw + 1, 1 << max_doors, hw) == ("wide", 16)
+    sweeps = 24
+    want = tkey.key_value_iteration(layouts, GAMMA, sweeps)[0]
+    assert (want > 0).any()
+    got = _run_key_vi_wide_plan(layouts, GAMMA, sweeps, in_place)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+
+
+def test_key_vi_wide_in_place_order_matters():
+    """The mirror's check catches an order that is not exact: walking the
+    items from the last config down, a closed door's toggle reads a slab
+    the sweep has already overwritten."""
+    layouts = _wide_layouts("MiniGrid-DoorKey-16x16-v0", 1, True)
+    with pytest.raises(AssertionError, match="written in this sweep"):
+        _run_key_vi_wide_plan(layouts, GAMMA, 4, True, reverse=True)

@@ -10,10 +10,13 @@ PyTorch; from the repository root:
 the main path's full sizes.  The restricted-domain kernel is held here at
 each way it keeps walkability: a 32-bit mask (one and two door slots), a
 64-bit one (three) and bytes in shared memory (four).  The key-domain
-kernel has two routes, chosen from the shape (``cuda_vi.key_vi_route``):
+kernel has three routes, chosen from the shape (``cuda_vi.key_vi_route``):
 the cluster route is held here at DoorKey-6x6 (a cluster of 2) and
 DoorKey-8x8 (clusters of 4 and 8, and every cluster size the kernel
-takes), the global route at DoorKey-16x16; each case checks which route's
+takes), the wide route (a cluster of 16) at DoorKey-16x16 in place, with
+open and closed doors and after an even and an odd number of sweeps, and
+double-buffered at DoorKey-8x8, the global route at DoorKey-16x16 at two
+door slots and, launched directly, at one; each case checks which route's
 launch count moved.  The restricted-domain kernel's instance for grid
 sizes given at run time (and its lava flag) is held on LavaGapS7 (7x7),
 LavaCrossingS9N2 (9x9) and FourRooms (19x19, 361 threads a block; at two
@@ -21,7 +24,7 @@ door slots 208,080 bytes of shared memory), and a hook-free and a
 post-step family roll out equal on the card and on the CPU, as do two
 RoomGrid families and MultiRoom.  The key-domain kernel also runs on the
 layouts it was written for: KeyCorridorS3R2 at six door slots (C = 64, the
-global route) and ObstructedMaze-1Dl (11 wide and 6 high, the cluster
+wide route) and ObstructedMaze-1Dl (11 wide and 6 high, the cluster
 route's instance for sizes given at run time).  Three BabyAI ids roll out
 equal on the card and on the CPU, the verifier included, and the two-key
 domain (plain PyTorch, no kernel) gives the same V on both.
@@ -181,15 +184,40 @@ def test_key_vi_cluster_route_8x8(card, max_doors, n, closed):
 
 @pytest.mark.cuda
 def test_key_vi_global_route_16x16(card):
-    layouts = tkey.extract_key_layout(_states(card, "MiniGrid-DoorKey-16x16-v0", 3, seed=4), 1)
-    got = _key_vi_on_route(layouts, 12, ("global", 0))
+    """DoorKey-16x16 takes the wide route in place at one door slot; the
+    global route, launched directly on the same layouts, and taken by the
+    wrapper at two door slots (4.2 MB of V a layout), agrees too."""
+    states = _states(card, "MiniGrid-DoorKey-16x16-v0", 3, seed=4)
+    layouts = tkey.extract_key_layout(states, 1)
+    got = _key_vi_on_route(layouts, 12, ("wide", 16))
     want = tkey.key_value_iteration(layouts, GAMMA, 12)[0]
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+    direct = cuda_vi._key_vi_kernel_global(cuda_vi.key_vi_masks(layouts), GAMMA, 12, want.shape)
+    torch.testing.assert_close(direct, want, rtol=0, atol=1e-6)
+    layouts2 = tkey.extract_key_layout(states, 2)
+    got = _key_vi_on_route(layouts2, 12, ("global", 0))
+    torch.testing.assert_close(got, tkey.key_vi_values(layouts2, GAMMA, 12), rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_sweeps,closed", [(0, False), (1, False), (31, False), (30, True), (31, True)])
+def test_key_vi_wide_route_in_place(card, n_sweeps, closed):
+    """The in-place sweep at DoorKey-16x16: the hub's CARRIED row ends in
+    its second slot after an odd number of sweeps; closed doors make every
+    key row toggle, so the configs' order within a sweep matters."""
+    layouts = tkey.extract_key_layout(_states(card, "MiniGrid-DoorKey-16x16-v0", 5, seed=6), 1)
+    if closed:
+        layouts = dataclasses.replace(layouts, door_init=torch.ones_like(layouts.door_init))
+    assert cuda_vi.key_vi_wide_in_place(2, 256)
+    got = _key_vi_on_route(layouts, n_sweeps, ("wide", 16))
+    want = tkey.key_vi_values(layouts, GAMMA, n_sweeps)
+    assert n_sweeps < 30 or (want > 0).any()
     torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("env_id,max_doors,route", [
-    ("MiniGrid-KeyCorridorS3R2-v0", 6, ("global", 0)),
+    ("MiniGrid-KeyCorridorS3R2-v0", 6, ("wide", 16)),
     ("MiniGrid-ObstructedMaze-1Dl-v0", 1, ("cluster", 4)),
 ])
 def test_key_vi_families_equal_plain(card, env_id, max_doors, route):
@@ -205,7 +233,8 @@ def test_key_vi_families_equal_plain(card, env_id, max_doors, route):
 
 @pytest.mark.cuda
 def test_key_vi_every_cluster_size_agrees(card):
-    """Clusters of 2, 4 and 8 CTAs, and the global route, each match the
+    """Clusters of 2, 4 and 8 CTAs, the wide route's cluster of 16
+    (double-buffered at this shape) and the global route each match the
     plain version at DoorKey-8x8: the row split and the remote reads do
     not change the result."""
     layouts = tkey.extract_key_layout(_states(card, "MiniGrid-DoorKey-8x8-v0", 9, seed=5), 1)
@@ -218,6 +247,12 @@ def test_key_vi_every_cluster_size_agrees(card):
         got = cuda_vi._key_vi_kernel_cluster(masks, GAMMA, 33, shape, n)
         torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
         assert cuda_vi.key_vi_active_clusters(2, 8, 8, n) > 0
+    assert not cuda_vi.key_vi_wide_in_place(2, 64)
+    got = cuda_vi._key_vi_kernel_wide(masks, GAMMA, 33, shape)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+    assert cuda_vi.key_vi_wide_active_clusters(2, 8, 8) > 0
+    assert cuda_vi.key_vi_wide_active_clusters(2, 16, 16) > 0  # in place
+    assert cuda_vi.key_vi_wide_active_clusters(64, 5, 7) > 0
 
 
 @pytest.mark.cuda
@@ -229,7 +264,7 @@ def test_launch_plans_match_the_c_side(card):
     from minigrid_dynamicprogramming_tpu_torch import _kernels
 
     vi, key = _kernels.library("vi"), _kernels.library("key_vi")
-    for f in (vi.vi_shared_bytes, key.key_vi_cluster_shared_bytes):
+    for f in (vi.vi_shared_bytes, key.key_vi_cluster_shared_bytes, key.key_vi_wide_shared_bytes):
         f.restype = ctypes.c_size_t
     for hw in (25, 36, 64, 256, 1024):
         for C, D in ((2, 0), (6, 1), (18, 2), (54, 3), (162, 4)):
@@ -241,6 +276,11 @@ def test_launch_plans_match_the_c_side(card):
                 assert key.key_vi_cluster_shared_bytes(C, hw, n) == (
                     cuda_vi.key_vi_cluster_shared_bytes(C, hw, n)
                 )
+    for hw, C in ((64, 2), (256, 2), (256, 4), (35, 64), (49, 128), (361, 2)):
+        for in_place in (False, True):
+            assert key.key_vi_wide_shared_bytes(C, hw, 16, int(in_place)) == (
+                cuda_vi.key_vi_wide_shared_bytes(C, hw, 16, in_place)
+            )
 
 
 @pytest.mark.cuda
