@@ -24,14 +24,18 @@ Phases (any failure raises, exits nonzero and prints no "ok" line):
    4) and two (a cluster of 8); then on 32 DoorKey-16x16 layouts, 24
    sweeps, on the wide route (V in the shared memory of a cluster of 16,
    swept in place), the route for V too large for a cluster of 8; the
-   global route (V in device memory), launched directly on the same
-   layouts, within 1e-6 of the plain version too, and timed beside the
-   wide route in turns (global, wide, wide, global), as it is on 512
-   DoorKey-16x16 layouts at 96 sweeps, the B2 bench's size (wide against
-   global there, within 1e-6).  Then the same 32 layouts at two door
-   slots, where V (4.2 MB a layout) is too large for 16 CTAs: the global
-   route, through the wrapper.  The global route is also checked at the
-   8x8 shape.
+   global kernel (V in device memory, one block a layout; no route takes
+   it any more), launched directly on the same layouts, within 1e-6 of
+   the plain version too, and timed beside the wide route in turns
+   (global, wide, wide, global), as it is on 512 DoorKey-16x16 layouts at
+   96 sweeps, the B2 bench's size (wide against global there, within
+   1e-6).  Then the same 32 layouts at two door slots, where V (4.2 MB a
+   layout) is too large for 16 CTAs: the grid route through the wrapper
+   (groups of 20 CTAs, V resident in their shared memory), and the global
+   kernel beside it in turns.  Then 64 DoorKey-8x8 layouts at the default
+   max_doors of ``extract_key_layout`` (seven: V 8.5 MB a layout), the
+   grid route.  The global kernel is also checked at the 8x8 shape; no
+   part of the main path launches it.
 5. greedy solve: the max_doors=1 policy of phase 3, stepped by the port's
    ``step_lanes`` on the card, reaches the goal in every layout in exactly
    ``steps_to_go`` steps with the closed-form return.
@@ -66,10 +70,14 @@ Phases (any failure raises, exits nonzero and prints no "ok" line):
    in at least as many attempts as it has layouts to give.
 9. B2 on the families' layouts: ``cuda_key_value_iteration`` (128 sweeps)
    on 512 KeyCorridorS3R2 layouts at six door slots (C = 64, the wide
-   route, double-buffered; the global route timed beside it in turns on
-   the same layouts) and 512 ObstructedMaze-1Dl layouts at one (11 wide
-   and 6 high, the cluster route), the target named by aux slots 0-1;
-   every layout has at most that many doors.  V within 1e-6 of the plain version; the
+   route, double-buffered; the global kernel timed beside it in turns on
+   the same layouts), 512 ObstructedMaze-1Dl layouts at one (11 wide and
+   6 high, the cluster route), the target named by aux slots 0-1, the
+   KeyCorridorS3R3 layouts of 512 that have at most seven doors (C = 128,
+   the grid route, resident; the global kernel beside it in turns), and 4
+   LockedRoom layouts at six door slots (19x19, V 134 MB a layout, the
+   grid route streamed; the global kernel once, for its time); every
+   other family's layouts have at most that many doors.  V within 1e-6 of the plain version; the
    greedy policy, stepped by ``step_lanes_env`` with the family's hook,
    picks up the target in exactly ``key_steps_to_go`` steps with the
    closed-form return on every layout whose start has V > 0 and
@@ -164,6 +172,7 @@ The last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import multiprocessing
 import statistics
@@ -216,10 +225,21 @@ ROOMGRID_RUNS = {
     "MiniGrid-MultiRoom-N6-v0": (16384, 256, 2),
     "MiniGrid-ObstructedMaze-Full-v1": (16384, 256, 2),
 }
-# B2 on the families' layouts (phase 9): (env, max_doors), at the JAX key
-# bench's batch (bench.py:141).
-KEY_FAMILIES = (("MiniGrid-KeyCorridorS3R2-v0", 6), ("MiniGrid-ObstructedMaze-1Dl-v0", 1))
-KEY_FAMILY_B, KEY_FAMILY_SWEEPS = 512, 128
+# B2 on the families' layouts (phase 9): (env, max_doors, layouts, whether
+# the generator may place more doors than that), at the JAX key bench's
+# batch (bench.py:141); LockedRoom (six doors in every layout, V 134 MB a
+# layout) at 4.  KeyCorridorS3R3 places up to eight doors, one more than the
+# domain's seven slots: the phase keeps the layouts with at most seven.
+KEY_FAMILIES = (
+    ("MiniGrid-KeyCorridorS3R2-v0", 6, 512, False),
+    ("MiniGrid-ObstructedMaze-1Dl-v0", 1, 512, False),
+    ("MiniGrid-KeyCorridorS3R3-v0", 7, 512, True),
+    ("MiniGrid-LockedRoom-v0", 6, 4, False),
+)
+KEY_FAMILY_SWEEPS = 128
+# DoorKey-8x8 at extract_key_layout's default max_doors (7), as a caller who
+# keeps the default solves it: V 8.5 MB a layout, the grid route.
+KEY_DEFAULT_B = 64
 # The obstructed domain (phase 10), one door slot; V is 9.77 MB a layout at
 # 11x6, so 64 layouts hold 625 MB.  Card against CPU on the first layouts.
 OBSTRUCTED = ("MiniGrid-BlockedUnlockPickup-v0", "MiniGrid-ObstructedMaze-1Dlhb-v0")
@@ -302,6 +322,10 @@ HASH_IDS, HASH_B = ("MiniGrid-DoorKey-8x8-v0", "BabyAI-GoToLocal-v0"), 16
 REWARD_RTOL = 1e-6
 
 PALLAS_VI = "minigrid_dynamicprogramming_tpu/dp/pallas_vi.py"
+GRID_DESIGN = (
+    "a cooperative, persistent launch: the resident CTAs form groups of n, one CTA an SM, each "
+    "group a layout at a time, one barrier a sweep over the group through a counter in device memory"
+)
 WIDE_DESIGN = (
     "V in a cluster of 16 CTAs' shared memory, one CTA an SM: the rows other than CARRIED "
     "split over 15, the CARRIED row alone on the last, which sends their pickup values and "
@@ -396,6 +420,65 @@ def global_against_wide(name: str, masks, shape, sweeps: int, reps: int) -> dict
     print(f"[key_vi global against wide] {name}: global {ms[0]:.4f} / {ms[3]:.4f} ms, "
           f"wide {ms[1]:.4f} / {ms[2]:.4f} ms, max|wide - global| {diff:.3g}", flush=True)
     return out
+
+
+def grid_against_global(name: str, masks, shape, sweeps: int, reps: int) -> dict:
+    """The global kernel (the route these shapes took before the grid
+    route) and the grid route on the same masks, each launched directly and
+    timed in turns: global, grid, grid, global (``reps`` = 0: the global
+    kernel once, then the grid route twice).  Their V must agree within
+    KEY_ATOL.  Returns the times and the difference."""
+    from minigrid_dynamicprogramming_tpu_torch.dp import cuda_vi
+
+    n = cuda_vi.key_vi_route(*shape[1:3], shape[4] * shape[5])[1]
+
+    def run_global():
+        return cuda_vi._key_vi_kernel_global(masks, GAMMA, sweeps, shape)
+
+    def run_grid():
+        return cuda_vi._key_vi_kernel_grid(masks, GAMMA, sweeps, shape, n)
+
+    if reps:
+        diff = float((run_grid() - run_global()).abs().max())
+        ms = [cuda_ms(f, reps) for f in (run_global, run_grid, run_grid, run_global)]
+        glob, grid = [ms[0], ms[3]], [ms[1], ms[2]]
+    else:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        v_global = run_global()
+        end.record()
+        end.synchronize()
+        glob = [start.elapsed_time(end)]
+        diff = float((run_grid() - v_global).abs().max())
+        del v_global
+        grid = [cuda_ms(run_grid, 1, warmup=0), cuda_ms(run_grid, 1, warmup=0)]
+    require(diff <= KEY_ATOL, f"{name}: the grid and global routes within {KEY_ATOL}")
+    out = {"shape": name, "global_ms": glob, "grid_ms": grid, "max_abs_grid_minus_global": diff}
+    print(f"[key_vi global against grid] {name}: global {' / '.join(f'{t:.4f}' for t in glob)} ms, "
+          f"grid {grid[0]:.4f} / {grid[1]:.4f} ms, max|grid - global| {diff:.3g}", flush=True)
+    return out
+
+
+def grid_design(C: int, h: int, w: int, n: int, ptxas) -> dict:
+    """The grid route's plan at this shape, for a kernels-line row: mode,
+    CTAs a layout, groups the card holds, threads, shared memory, and the
+    compiler's registers and spills."""
+    from minigrid_dynamicprogramming_tpu_torch.dp import cuda_vi
+
+    hw = h * w
+    resident = cuda_vi.key_vi_grid_resident(hw + 1, C, hw)
+    mode = "resident" if resident else "streamed"
+    return dict(
+        design=GRID_DESIGN + ("; resident: the key rows in the group's shared memory, swept in "
+                              "place, pickups and drops through two tables in device memory"
+                              if resident else "; streamed: V double-buffered in device memory, "
+                              "each layout's (row, config) slabs split over the group"),
+        mode=mode, ctas_per_layout=n, rows_per_cta=-(-(hw + 1) // n) if resident else None,
+        groups_resident=cuda_vi.key_vi_grid_active_groups(C, h, w, n, resident),
+        threads_per_cta=cuda_vi.key_vi_grid_threads(hw),
+        shared_bytes=cuda_vi.key_vi_grid_shared_bytes(C, hw, n, resident),
+        compiled=compiled(ptxas, f"key_vi_grid_{mode}_kernel"),
+    )
 
 
 def check_doorkey_pool(pool, h: int, w: int) -> int:
@@ -627,20 +710,24 @@ def key_families(make, drive, kernel_row, ptxas) -> list:
     from minigrid_dynamicprogramming_tpu_torch.parallel import lanes as L
 
     out = []
-    for seed, (env_id, doors) in enumerate(KEY_FAMILIES):
+    for seed, (env_id, doors, batch, more_doors) in enumerate(KEY_FAMILIES):
         fam = make(env_id)
 
         def path():
-            states = fam.generate(gen(7 + seed), fam.params, KEY_FAMILY_B, device=DEVICE)
-            most = int((states.grid_obj == OBJ_DOOR).sum(dim=(1, 2)).max())
-            require(most <= doors, f"{env_id}: every layout has at most {doors} doors ({most})")
-            layouts = TK.extract_key_layout(states, doors, states.aux[:, 0], states.aux[:, 1])
+            states = fam.generate(gen(7 + seed), fam.params, batch, device=DEVICE)
+            fits = (states.grid_obj == OBJ_DOOR).sum(dim=(1, 2)) <= doors
+            require(more_doors or bool(fits.all()), f"{env_id}: every layout has at most {doors} doors")
+            states = dataclasses.replace(states, **{k: t[fits] for k, t in states.__dict__.items()})
+            # The families' hooks name the target in aux slots 0-1; LockedRoom's is its goal.
+            target = (-1, -1) if "LockedRoom" in env_id else (states.aux[:, 0], states.aux[:, 1])
+            layouts = TK.extract_key_layout(states, doors, *target)
             return states, layouts, cuda_vi.cuda_key_value_iteration(
                 layouts, GAMMA, KEY_FAMILY_SWEEPS
             )
 
         (states, layouts, v), counts = drive(f"key-domain VI, {env_id}, max_doors={doors}", path)
-        _, K, C, _, h, w = v.shape
+        b, K, C, _, h, w = v.shape
+        print(f"[key_families] {env_id}: {b} of {batch} layouts have at most {doors} doors", flush=True)
         route, n = cuda_vi.key_vi_route(K, C, h * w)
         require(counts["key_vi"] == 1 and counts[f"key_vi_{route}"] == 1,
                 f"{env_id}: B2 launched once, on the {route} route")
@@ -652,15 +739,15 @@ def key_families(make, drive, kernel_row, ptxas) -> list:
             fam, states, vals, TK.key_steps_to_go(vals, GAMMA),
             lambda s: TK.key_greedy_action(policy, layouts, s), T, L,
         )
-        entry = {"env": env_id, "max_doors": doors, "K": K, "C": C, "grid": f"{w}x{h}",
-                 "route": route, "cluster": n, "max_abs_err": err, **greedy}
+        entry = {"env": env_id, "max_doors": doors, "layouts": b, "generated": batch, "K": K, "C": C,
+                 "grid": f"{w}x{h}", "route": route, "cluster": n, "max_abs_err": err, **greedy}
         print(f"[key_families] {entry}", flush=True)
         out.append(entry)
         del policy
         masks = cuda_vi.key_vi_masks(layouts)
         if route == "wide":
             entry["global_against_wide"] = global_against_wide(
-                f"{env_id} {KEY_FAMILY_B} layouts, {KEY_FAMILY_SWEEPS} sweeps", masks, v.shape,
+                f"{env_id} {b} layouts, {KEY_FAMILY_SWEEPS} sweeps", masks, v.shape,
                 KEY_FAMILY_SWEEPS, reps=3,
             )
             in_place = cuda_vi.key_vi_wide_in_place(C, h * w, n)
@@ -684,20 +771,24 @@ def key_families(make, drive, kernel_row, ptxas) -> list:
                 compiled=compiled(ptxas, "key_vi_cluster_kernelILi0ELi0E"),
             )
         else:
-            design = dict(
-                design="V double-buffered in device memory, one block per layout",
-                cluster=None, active_clusters=None, shared_bytes=(C + 2) * 4 * h * w,
-                compiled=compiled(ptxas, "key_vi_global_kernel"),
+            # The grid route; the global kernel, in turns with the grid route; at LockedRoom
+            # (V 134 MB a layout) once, for its time.
+            pair = grid_against_global(
+                f"{env_id} {b} layouts, {KEY_FAMILY_SWEEPS} sweeps", masks, v.shape,
+                KEY_FAMILY_SWEEPS, reps=0 if "LockedRoom" in env_id else 3,
             )
+            entry["global_against_grid"] = pair
+            design = dict(grid_design(C, h, w, n, ptxas), global_yardstick_ms=pair["global_ms"],
+                          grid_in_turns_ms=pair["grid_ms"])
         kernel_row(
             f"key_vi_{env_id.removeprefix('MiniGrid-').removesuffix('-v0')}",
             f"{CSRC}/key_vi.cu", f"{PALLAS_VI}:452", counts["key_vi"], err,
             lambda: cuda_vi.cuda_key_value_iteration(layouts, GAMMA, KEY_FAMILY_SWEEPS),
             lambda: cuda_vi._key_vi_kernel(masks, GAMMA, KEY_FAMILY_SWEEPS, v.shape),
             lambda: TK.key_vi_values(layouts, GAMMA, KEY_FAMILY_SWEEPS),
-            cuda_vi.key_vi_work(layouts, KEY_FAMILY_SWEEPS), reps=5,
+            cuda_vi.key_vi_work(layouts, KEY_FAMILY_SWEEPS), reps=3 if route == "grid" else 5,
             kernel_route=route, route_launches={r: counts[f"key_vi_{r}"] for r in cuda_vi.ROUTES},
-            shape=f"{KEY_FAMILY_B} layouts {w}x{h}, {KEY_FAMILY_SWEEPS} sweeps, "
+            shape=f"{b} layouts {w}x{h}, {KEY_FAMILY_SWEEPS} sweeps, "
             f"max_doors {doors} (K={K}, C={C})",
             **design,
         )
@@ -1602,6 +1693,7 @@ def run(args, t_start: float, workers) -> int:
         counts = {name: c.launches for name, c in counters.items()}
         counts.update({f"key_vi_{r}": n for r, n in key_routes.items()})
         print(f"[main path] {part}: launches {counts}", flush=True)
+        require(not counts["key_vi_global"], f"{part}: no route launches the global kernel")
         return out, counts
 
     # 1. Card and build.
@@ -1866,33 +1958,69 @@ def run(args, t_start: float, workers) -> int:
     del bench16, mb16
 
     # The same 32 layouts at two door slots: V is 4.2 MB a layout, too large
-    # for 16 CTAs, so the wrapper takes the global route.
+    # for 16 CTAs, so the wrapper takes the grid route (resident).
     def key16d2_path():
         layouts = TK.extract_key_layout(l16_states, max_doors=2)
         return layouts, cuda_vi.cuda_key_value_iteration(layouts, GAMMA, KEY16_SWEEPS)
 
     (l16d2, kv16d2), counts16d2 = drive("key-domain VI, DoorKey-16x16, max_doors=2", key16d2_path)
-    require(counts16d2["key_vi"] == 1 and counts16d2["key_vi_global"] == 1,
-            "B2 launched once, on the global route, at DoorKey-16x16 with two door slots")
+    require(counts16d2["key_vi"] == 1 and counts16d2["key_vi_grid"] == 1,
+            "B2 launched once, on the grid route, at DoorKey-16x16 with two door slots")
     err16d2 = float((kv16d2 - TK.key_vi_values(l16d2, GAMMA, KEY16_SWEEPS)).abs().max())
-    require(err16d2 <= KEY_ATOL, f"B2's global route within {KEY_ATOL} at two door slots")
+    require(err16d2 <= KEY_ATOL, f"B2's grid route within {KEY_ATOL} at two door slots")
     m16d2 = cuda_vi.key_vi_masks(l16d2)
+    C16d2 = kv16d2.shape[2]
+    n16d2 = cuda_vi.key_vi_route(K16, C16d2, h16 * w16)[1]
+    pair = grid_against_global(
+        f"{KEY16_ENV} {KEY16_B} layouts, {KEY16_SWEEPS} sweeps, max_doors 2", m16d2, kv16d2.shape,
+        KEY16_SWEEPS, reps=5,
+    )
+    results["key_vi_global_against_grid"] = [pair]
     kernel_row(
-        "key_vi_global", f"{CSRC}/key_vi.cu", f"{PALLAS_VI}:452", counts16d2["key_vi"], err16d2,
+        "key_vi_grid", f"{CSRC}/key_vi.cu", f"{PALLAS_VI}:452", counts16d2["key_vi"], err16d2,
         lambda: cuda_vi.cuda_key_value_iteration(l16d2, GAMMA, KEY16_SWEEPS),
         lambda: cuda_vi._key_vi_kernel(m16d2, GAMMA, KEY16_SWEEPS, kv16d2.shape),
         lambda: TK.key_vi_values(l16d2, GAMMA, KEY16_SWEEPS),
         cuda_vi.key_vi_work(l16d2, KEY16_SWEEPS), reps=5,
-        design="V double-buffered in device memory, one block per layout",
-        kernel_route="global",
+        kernel_route="grid",
         route_launches={r: counts16d2[f"key_vi_{r}"] for r in cuda_vi.ROUTES},
-        shape=f"{KEY16_B} layouts 16x16, {KEY16_SWEEPS} sweeps, max_doors 2 (K={K16}, C={kv16d2.shape[2]})",
-        checked_at_8x8=err_global,
-        cluster=None, active_clusters=None,
-        shared_bytes=(kv16d2.shape[2] + 2) * 4 * h16 * w16,
-        compiled=compiled(ptxas, "key_vi_global_kernel"),
+        shape=f"{KEY16_B} layouts 16x16, {KEY16_SWEEPS} sweeps, max_doors 2 (K={K16}, C={C16d2})",
+        global_checked_at_8x8=err_global, global_yardstick_ms=pair["global_ms"],
+        grid_in_turns_ms=pair["grid_ms"],
+        **grid_design(C16d2, h16, w16, n16d2, ptxas),
     )
-    del kv, l16, l16d2, kv16d2, m16d2, l16_states
+    del kv16d2, m16d2
+
+    # DoorKey-8x8 at extract_key_layout's default max_doors (7): V 8.5 MB a
+    # layout, so even the main env's layouts take the grid route there.
+    def key_default_path():
+        states = env.generate(gen(3), env.params, KEY_DEFAULT_B, device=DEVICE)
+        layouts = TK.extract_key_layout(states)
+        return layouts, cuda_vi.cuda_key_value_iteration(layouts, GAMMA, KEY_SWEEPS)
+
+    (l8d7, kv8d7), counts8d7 = drive("key-domain VI, DoorKey-8x8, the default max_doors", key_default_path)
+    require(counts8d7["key_vi"] == 1 and counts8d7["key_vi_grid"] == 1,
+            "B2 launched once, on the grid route, at DoorKey-8x8 with the default max_doors")
+    err8d7 = float((kv8d7 - TK.key_vi_values(l8d7, GAMMA, KEY_SWEEPS)).abs().max())
+    require(err8d7 <= KEY_ATOL, f"B2's grid route within {KEY_ATOL} at the default max_doors")
+    require(bool((kv8d7 > 0).any()), "some state reaches the goal at the default max_doors")
+    m8d7 = cuda_vi.key_vi_masks(l8d7)
+    C8d7 = kv8d7.shape[2]
+    n8d7 = cuda_vi.key_vi_route(K, C8d7, h * w)[1]
+    kernel_row(
+        "key_vi_grid_DoorKey-8x8_max_doors7", f"{CSRC}/key_vi.cu", f"{PALLAS_VI}:452",
+        counts8d7["key_vi"], err8d7,
+        lambda: cuda_vi.cuda_key_value_iteration(l8d7, GAMMA, KEY_SWEEPS),
+        lambda: cuda_vi._key_vi_kernel(m8d7, GAMMA, KEY_SWEEPS, kv8d7.shape),
+        lambda: TK.key_vi_values(l8d7, GAMMA, KEY_SWEEPS),
+        cuda_vi.key_vi_work(l8d7, KEY_SWEEPS), reps=5,
+        kernel_route="grid",
+        route_launches={r: counts8d7[f"key_vi_{r}"] for r in cuda_vi.ROUTES},
+        shape=f"{KEY_DEFAULT_B} layouts 8x8, {KEY_SWEEPS} sweeps, max_doors 7 (K={K}, C={C8d7})",
+        **grid_design(C8d7, h, w, n8d7, ptxas),
+    )
+    del l8d7, kv8d7, m8d7
+    del kv, l16, l16d2, l16_states
 
     # 5. The greedy policy of the max_doors=1 solve, stepped on the card.
     states, layouts, v, policy = solved[1]

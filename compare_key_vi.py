@@ -18,8 +18,15 @@ are the same in both.  Shapes:
   layouts at 24 sweeps, as ``chip_smoke.py`` runs it, and 512 at 96, the
   B2 bench's size) and KeyCorridorS3R2 at six door slots (512 layouts, 128
   sweeps, as ``chip_smoke.py`` phase 9 runs it), against the other
-  checkout's wide route if it has one, else its global route; V within
-  1e-6 of each other.
+  checkout's wide route if it has one (then V equal bit for bit), else
+  its global route (V within 1e-6).
+* The shapes this checkout sends to its grid route, as ``chip_smoke.py``
+  runs them: DoorKey-16x16 at two door slots (32 layouts, 24 sweeps),
+  DoorKey-8x8 at seven (64 layouts, 96 sweeps), the KeyCorridorS3R3
+  layouts of 512 that have at most seven doors (128 sweeps) and LockedRoom
+  at six (4 layouts, 128 sweeps; streamed), against the other checkout's
+  grid route if it has one (bit for bit), else its global route (not at
+  LockedRoom, where it takes seconds).
 
 Prints one line per shape and, last, the card's name and power limit.
 """
@@ -28,6 +35,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import hashlib
 import json
 import os
@@ -47,6 +55,10 @@ SHAPES = (
     ("MiniGrid-DoorKey-16x16-v0", 1, 32, 24, "wide"),
     ("MiniGrid-DoorKey-16x16-v0", 1, 512, 96, "wide"),
     ("MiniGrid-KeyCorridorS3R2-v0", 6, 512, 128, "wide"),
+    ("MiniGrid-DoorKey-16x16-v0", 2, 32, 24, "grid"),
+    ("MiniGrid-DoorKey-8x8-v0", 7, 64, 96, "grid"),
+    ("MiniGrid-KeyCorridorS3R3-v0", 7, 512, 128, "grid"),
+    ("MiniGrid-LockedRoom-v0", 6, 4, 128, "grid"),
 )
 REPS = 3
 
@@ -68,7 +80,7 @@ def other_library(checkout: Path) -> ctypes.CDLL:
 
 
 def other_launch(lib, route: str, masks, shape, sweeps: int, n: int) -> torch.Tensor:
-    """V from the other checkout's cluster, wide or global route."""
+    """V from the other checkout's cluster, wide, grid or global route."""
     b, K, C, _, h, w = shape
     v = torch.empty(shape, dtype=torch.float32, device=masks[0].device)
     stream = torch.cuda.current_stream().cuda_stream
@@ -86,6 +98,21 @@ def other_launch(lib, route: str, masks, shape, sweeps: int, n: int) -> torch.Te
         fn.argtypes = [_P] * 4 + [_I] * 7 + [_F, _I, _P]
         err = fn(*ptrs, v.data_ptr(), b, C, h, w, n, key_vi_wide_groups(h * w),
                  int(key_vi_wide_in_place(C, h * w, n)), GAMMA, sweeps, stream)
+    elif route == "grid":
+        from minigrid_dynamicprogramming_tpu_torch.dp.cuda_vi import key_vi_grid_resident, key_vi_grid_threads
+
+        resident, threads = key_vi_grid_resident(K, C, h * w), key_vi_grid_threads(h * w)
+        occupancy = lib.key_vi_grid_occupancy
+        occupancy.argtypes = [_I] * 6
+        groups = min(b, occupancy(C, h, w, n, threads, int(resident)) // n)
+        require(groups >= 1, "the other checkout's grid route: a group fits the card")
+        scratch = torch.empty((groups, 4 if resident else K, C * 4 * h * w), dtype=torch.float32,
+                              device=v.device)
+        count = torch.zeros(groups, dtype=torch.int32, device=v.device)
+        fn = lib.key_vi_grid_launch
+        fn.argtypes = [_P] * 6 + [_I] * 8 + [_F, _I, _P]
+        err = fn(*ptrs, v.data_ptr(), scratch.data_ptr(), count.data_ptr(), b, C, h, w, n, threads,
+                 groups, int(resident), GAMMA, sweeps, stream)
     else:
         scratch = torch.empty_like(v)
         fn = lib.key_vi_global_launch
@@ -104,6 +131,7 @@ def main(argv=None) -> int:
         print("compare_key_vi: no CUDA card is available", file=sys.stderr)
         return 1
     import minigrid_dynamicprogramming_tpu_torch as port
+    from minigrid_dynamicprogramming_tpu_torch.core.constants import OBJ_DOOR
     from minigrid_dynamicprogramming_tpu_torch.dp import cuda_vi
     from minigrid_dynamicprogramming_tpu_torch.dp import tabular_key as TK
 
@@ -112,6 +140,10 @@ def main(argv=None) -> int:
     for seed, (env_id, doors, b, sweeps, route) in enumerate(SHAPES):
         env = port.make(env_id)
         states = env.generate(gen(20 + seed), env.params, b, device=DEVICE)
+        # The layouts the domain holds: at most `doors` doors.
+        fits = (states.grid_obj == OBJ_DOOR).sum(dim=(1, 2)) <= doors
+        states = dataclasses.replace(states, **{k: t[fits] for k, t in states.__dict__.items()})
+        b = int(fits.sum())
         if "KeyCorridor" in env_id:
             layouts = TK.extract_key_layout(states, doors, states.aux[:, 0], states.aux[:, 1])
         else:
@@ -121,7 +153,9 @@ def main(argv=None) -> int:
         shape = (b, K, C, 4, h, w)
         got_route, n = cuda_vi.key_vi_route(K, C, h * w)
         require(got_route == route, f"{env_id}: this checkout's route is {route}")
-        other_route = route if route == "cluster" or hasattr(lib, f"key_vi_{route}_launch") else "global"
+        other_route = route if hasattr(lib, f"key_vi_{route}_launch") else "global"
+        if other_route == "global" and "LockedRoom" in env_id:
+            continue
         masks = cuda_vi.key_vi_masks(layouts)
 
         def this():
@@ -131,8 +165,8 @@ def main(argv=None) -> int:
             return other_launch(lib, other_route, masks, shape, sweeps, n)
 
         diff = float((this() - other()).abs().max())
-        if route == "cluster":
-            require(diff == 0.0, f"{env_id}: the cluster route's V equal bit for bit")
+        if other_route == route:
+            require(diff == 0.0, f"{env_id}: the {route} route's V equal bit for bit")
         require(diff <= KEY_ATOL, f"{env_id}: V within {KEY_ATOL} of the other checkout's")
         ms = [cuda_ms(f, REPS) for f in (other, this, this, other)]
         bound_ms, bound_by = bound(*cuda_vi.key_vi_work(layouts, sweeps))

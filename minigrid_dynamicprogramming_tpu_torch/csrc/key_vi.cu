@@ -73,13 +73,65 @@
 //     only after the sweep that read it has ended.
 //   dp/cuda_vi.py mirrors this plan and tests/test_torch_cuda_vi.py checks
 //   that no read sees a value written in the same sweep.
-// * global (key_vi_global_kernel): V too large for a cluster of 16, e.g.
-//   KeyCorridorS3R3 at seven door slots (5.0 MB a layout) or DoorKey-16x16
-//   at two (4.2 MB).  The double buffer lives in device memory (out and a
-//   scratch buffer the wrapper allocates), one block per layout with a
-//   barrier between sweeps.
+// * grid (key_vi_grid_resident_kernel, key_vi_grid_streamed_kernel): V too
+//   large for a cluster of 16, e.g. DoorKey-16x16 at two door slots (4.2
+//   MB a layout), KeyCorridorS3R3 at seven (5.0 MB), DoorKey-8x8 at seven
+//   (8.5 MB), 19x19 grids, LockedRoom (134 MB).  A layout is split over n
+//   CTAs, one an SM, that are not a cluster: they exchange values through
+//   device memory.  The launch is persistent and cooperative: the resident
+//   CTAs form groups of n, and group q walks layouts q, q + groups, ...
+//   (a cooperative launch fails, rather than deadlocks, where the grid is
+//   more than the card can hold at once).  One barrier a sweep, over the
+//   group's n CTAs only: an arrival counter per group in device memory
+//   (the wrapper zeroes it for each launch); a CTA's threads meet at a CTA
+//   barrier, then one thread releases their writes with its arrival
+//   (fence.acq_rel.gpu, then a relaxed add) and spins on an acquire load
+//   until the counter reaches n times the barriers so far, as CUTLASS's
+//   GenericBarrier does, and the threads meet again.  So every write of a
+//   sweep is seen by every CTA of the group after the barrier; a value
+//   another CTA wrote is read with ld.global.cg besides (L2, never an L1
+//   line).  Two modes, from the shape alone:
+//   - resident, where a CTA can hold at least one key row (all C configs)
+//     and the packed flags, and the K rows need at most 128 CTAs: the rows
+//     are split over the n CTAs (the first K % n take one more; CARRIED is
+//     the last CTA's last row) and stay in its shared memory for every
+//     sweep of a layout, going to v_out once at the end.  A CTA walks its
+//     (row, config) items config-major in rounds of G, as the wide route
+//     does, the CARRIED row among them.  Pickups and drops go through two
+//     tables in device memory per group, each (C, 4, HW) floats and
+//     double-buffered by sweep parity, so they stay in L2: the CARRIED
+//     row's items write each new V(CARRIED, c, d, cell) to the pickup
+//     table, read in the next sweep by the item of row front(cell, d); an
+//     item of row k writes each new V(k, c, d, cell) whose cell faces k and
+//     may drop the key there to the drop table, read in the next sweep by
+//     the CARRIED row.  V is swept in place (a double buffer would halve
+//     the rows a CTA holds and about double n, so fewer layouts a wave),
+//     and that is still the Jacobi update, for the wide route's reason: an
+//     item reads its own slab, its own row's slab (k, c | bit) of no lower
+//     index, and the tables of the previous sweep; a round holds its new
+//     values in registers until a CTA barrier has ended its reads.  A
+//     thread loads the table values of its next round's item during the
+//     current round, so that their trip to L2 does not stall each round.
+//     The first sweep reads no table: V starts at 0, and 0 never wins the
+//     max.
+//   - streamed, where a row does not fit (KeyCorridorS4R3 and larger at
+//     seven door slots, LockedRoom): V double-buffered in device memory,
+//     v_out and one scratch layout per group, so that the last sweep lands
+//     in v_out; each layout's K * C (row, config) slabs split over the n
+//     CTAs.  Each thread keeps its cell's flags in registers, loops over
+//     its slabs and decodes each slab's (k, c) once: no division per state.
+//     A slab issues the loads of all its candidates before it uses any (a
+//     candidate the state lacks is 0), so it waits for one trip to memory;
+//     two slabs at a time would spill registers.  The first sweep reads
+//     nothing.
+//   dp/cuda_vi.py mirrors both plans and tests/test_torch_cuda_vi.py checks
+//   them, as for the wide route.
+// * global (key_vi_global_kernel): the first kernel of this file, kept as
+//   the yardstick the grid route is timed against; no route launches it.
+//   The double buffer lives in device memory (out and a scratch buffer the
+//   wrapper allocates), one block per layout with a barrier between sweeps.
 //
-// All three compute the TPU kernel's dense (4, K, HW) one-hot key-front
+// All of them compute the TPU kernel's dense (4, K, HW) one-hot key-front
 // and drop masks as index predicates, and take its f32 masks as bytes.
 
 #include <cooperative_groups.h>
@@ -106,6 +158,8 @@ constexpr int kCtasPerSm = 3;     // resident CTAs the registers must allow
 constexpr int kWideThreads = 1024;  // threads of a wide CTA, at most
 constexpr int kWideCluster = 16;    // CTAs of a wide cluster, at most
 constexpr int kWideRows = 32;       // rows of a wide CTA, at most (a bit each)
+constexpr int kGridThreads = 1024;  // threads of a grid CTA, at most
+constexpr int kGridRows = 32;       // rows of a resident grid CTA, at most (a bit each)
 constexpr uint32_t kClosedAnyDir = kClosedFront * 0x01010101u;
 
 // The row split of the cluster route (K rows over n CTAs) and of the wide
@@ -655,6 +709,356 @@ key_vi_global_kernel(const uint8_t* __restrict__ cell_flags,  // (B, 4, HW)
   }
 }
 
+// A resident grid CTA's shared memory: ceil(K / n) key rows of V, swept in
+// place, then the packed flags.
+size_t grid_shared_bytes(int C, int HW, int n) {
+  const size_t rows = (HW + 1 + n - 1) / n;
+  return rows * C * 4 * HW * sizeof(float) + C * HW * sizeof(uint32_t);
+}
+
+// The group barrier of the grid route: wait for the `target`-th arrival
+// of the group's n CTAs at `count` (target = n times the barriers so far).
+// The CTA's threads meet; one thread releases the CTA's writes with the
+// arrival (fence.acq_rel, then a relaxed add that returns nothing) and
+// acquires the others' by spinning on an acquire load, as CUTLASS's
+// GenericBarrier does; then the threads meet again.
+__device__ __forceinline__ void group_barrier(uint32_t* count, uint32_t target) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    asm volatile("fence.acq_rel.gpu;\n\tred.relaxed.gpu.global.add.u32 [%0], 1;" :: "l"(count)
+                 : "memory");
+    uint32_t seen;
+    do {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(seen) : "l"(count) : "memory");
+    } while (seen < target);
+  }
+  __syncthreads();
+}
+
+// cfg_flags of layout b packed per (c, cell), one byte per direction.
+__device__ __forceinline__ void pack_cfg(const uint8_t* cfg_flags, size_t b, int C, int HW,
+                                         uint32_t* s_cfg) {
+  const int slab = 4 * HW;
+  for (int i = threadIdx.x; i < C * HW; i += blockDim.x) {
+    const int c = i / HW;
+    const uint8_t* p = cfg_flags + (b * C + c) * slab + (i - c * HW);
+    s_cfg[i] = p[0] | p[HW] << 8 | p[2 * HW] << 16 | static_cast<uint32_t>(p[3 * HW]) << 24;
+  }
+}
+
+// The table values that item (j, c) of a resident grid CTA reads in a
+// sweep, one a direction, 0 where it reads none (0 never wins the max):
+// for a row other than CARRIED (j < ngen), the pickup where the cell faces
+// the row's cell; for the CARRIED row, the drops.  `at`: (c, 0, cell).
+__device__ __forceinline__ void table_reads(const float* pick_cur, const float* drop_cur, int at,
+                                            int HW, int j, int ngen, uint32_t key_rows,
+                                            const int (&fj)[4], uint32_t drop, float (&t)[4]) {
+  const bool car = j >= ngen;
+  const bool key_here = !car && ((key_rows >> j) & 1);
+#pragma unroll
+  for (int d = 0; d < 4; ++d) {
+    t[d] = 0.f;
+    if (car ? (drop >> d) & 1 : key_here && j == fj[d]) {
+      t[d] = __ldcg((car ? drop_cur : pick_cur) + at + d * HW);
+    }
+  }
+}
+
+// One CTA of a group of n per layout, resident mode, G * HW threads:
+// (group g, cell) = divmod(thread, HW); V of its rows in shared memory,
+// swept in place.  `tables`: per group, the pickup table twice, then the
+// drop table twice, each (C, 4, HW).  `count`: an arrival counter per
+// group, zero at launch.  See the top of the file.
+__global__ void __launch_bounds__(kGridThreads, 1)
+key_vi_grid_resident_kernel(const uint8_t* __restrict__ cell_flags,  // (B, 4, HW)
+                            const uint8_t* __restrict__ cfg_flags,   // (B, C, 4, HW)
+                            const uint8_t* __restrict__ door_bit,    // (B, 4, HW)
+                            float* __restrict__ v_out,  // (B, K, C, 4, HW)
+                            float* tables,              // (groups, 4, C, 4, HW)
+                            uint32_t* count,            // (groups,)
+                            int B, int C, int H, int W, int n, float gamma, int n_sweeps) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int rank = blockIdx.x % n;
+  const int grp = blockIdx.x / n;
+  const int groups = gridDim.x / n;
+  const int HW = H * W;
+  const int K = HW + 1;
+  const int slab = 4 * HW;     // states per (k, c)
+  const int kslab = C * slab;  // states per k
+  const int row0 = row_begin(rank, K, n);
+  const int nrows = row_begin(rank + 1, K, n) - row0;
+  const int ngen = row0 + nrows == K ? nrows - 1 : nrows;  // rows other than CARRIED
+  const int mrows = (K + n - 1) / n;
+  float* sv = reinterpret_cast<float*>(smem);  // (mrows, C, 4, HW)
+  uint32_t* s_cfg = reinterpret_cast<uint32_t*>(sv + mrows * kslab);
+  float* pick = tables + static_cast<size_t>(grp) * 4 * kslab;  // 2 x (C, 4, HW)
+  float* drop_tab = pick + 2 * kslab;                           // 2 x (C, 4, HW)
+  uint32_t* my_count = count + grp;
+
+  const int G = blockDim.x / HW;
+  const int g = threadIdx.x / HW;
+  const int cell = threadIdx.x - g * HW;
+  const int step[4] = {1, W, -1, -W};
+  // The rows the cell faces, from the geometry alone.
+  int fj[4];              // the front cell's local row here, or -1 (also off the grid)
+  uint32_t key_rows = 0;  // bit j: the cell faces local row j's cell
+#pragma unroll
+  for (int d = 0; d < 4; ++d) {
+    const int fr = front_cell(cell, d, H, W);
+    fj[d] = fr >= row0 && fr < row0 + ngen ? fr - row0 : -1;
+    if (fj[d] >= 0) key_rows |= 1u << fj[d];
+  }
+  // The group's first item g = c0 * nrows + j0, and the stride G = dc *
+  // nrows + dj: divisions here only, never in a sweep.
+  const int rounds = (nrows * C + G - 1) / G;
+  const int dc = G / nrows;
+  const int dj = G - dc * nrows;
+  const int c0 = g / nrows;
+  const int j0 = g - c0 * nrows;
+  uint32_t barriers = 0;
+
+  for (int b = grp; b < B; b += groups) {
+    pack_cfg(cfg_flags, b, C, HW, s_cfg);
+    for (int i = threadIdx.x; i < nrows * kslab; i += blockDim.x) sv[i] = 0.f;
+    // Per-direction data of the cell, packed: byte d of `bits` is the door
+    // bit in front; bit d of `goal`, `term` and `drop` the flags.
+    uint32_t bits = 0, goal = 0, term = 0, drop = 0;
+    uint32_t no_lava = ~0u;  // clears a direction's walk bit where lava is in front
+#pragma unroll
+    for (int d = 0; d < 4; ++d) {
+      const uint8_t f = cell_flags[b * slab + d * HW + cell];
+      bits |= static_cast<uint32_t>(door_bit[b * slab + d * HW + cell]) << (8 * d);
+      goal |= (f & kGoalFront ? 1u : 0u) << d;
+      term |= (f & (kGoalFront | kTargetFront) ? 1u : 0u) << d;
+      drop |= ((f & kDropFront) && front_cell(cell, d, H, W) >= 0 ? 1u : 0u) << d;
+      if (f & kLavaFront) no_lava &= ~(static_cast<uint32_t>(kWalkFront) << (8 * d));
+    }
+    __syncthreads();  // zeroed V and the packed flags
+
+    for (int sweep = 0; sweep < n_sweeps; ++sweep) {
+      const int odd = sweep & 1;
+      const bool first = sweep == 0;  // V is 0: no table is read
+      const float* pick_cur = pick + odd * kslab;
+      float* pick_nxt = pick + (1 - odd) * kslab;
+      const float* drop_cur = drop_tab + odd * kslab;
+      float* drop_nxt = drop_tab + (1 - odd) * kslab;
+      int j = j0, c = c0;
+      // The table values of the thread's item, each loaded a round ahead so
+      // that its latency hides behind the round before.
+      float tab[4] = {0.f, 0.f, 0.f, 0.f};
+      if (!first && c < C) {
+        table_reads(pick_cur, drop_cur, c * slab + cell, HW, j, ngen, key_rows, fj, drop, tab);
+      }
+      for (int r = 0; r < rounds; ++r) {
+        const bool active = c < C;
+        // The next round's item.
+        int jn = j + dj, cn = c + dc;
+        if (jn >= nrows) {
+          jn -= nrows;
+          ++cn;
+        }
+        float out[4];
+        if (active) {
+          const uint32_t gc = s_cfg[c * HW + cell] & no_lava;
+          float* pv = sv + j * kslab + c * slab + cell;  // V(k, c, 0, cell)
+          const int at = c * slab + cell;  // (c, 0, cell) in a table
+          float v[4], q[4];
+#pragma unroll
+          for (int d = 0; d < 4; ++d) v[d] = pv[d * HW];
+          // stay (done, failed actions), left/right and forward.
+#pragma unroll
+          for (int d = 0; d < 4; ++d) {
+            q[d] = fmaxf(v[d], fmaxf(v[(d + 3) & 3], v[(d + 1) & 3]));
+            if ((gc >> (8 * d)) & kWalkFront) q[d] = fmaxf(q[d], pv[d * HW + step[d]]);
+          }
+          if (j < ngen) {
+            // The rare cases, off the common path: the key lies in front
+            // (pickup in place of forward), a closed door lies in front.
+            const bool key_here = (key_rows >> j) & 1;
+            if (key_here) {
+#pragma unroll
+              for (int d = 0; d < 4; ++d) {
+                if (j == fj[d]) q[d] = fmaxf(fmaxf(v[d], fmaxf(v[(d + 3) & 3], v[(d + 1) & 3])), tab[d]);
+              }
+            }
+            if (gc & kClosedAnyDir) {
+#pragma unroll
+              for (int d = 0; d < 4; ++d) {
+                if ((gc >> (8 * d)) & kClosedFront) {
+                  q[d] = fmaxf(q[d], pv[((c | door(bits, d)) - c) * slab + d * HW]);
+                }
+              }
+            }
+            // terminals: stepping onto the goal, picking up the target.
+#pragma unroll
+            for (int d = 0; d < 4; ++d) out[d] = (term >> d) & 1 ? 1.f : gamma * q[d];
+            if (key_here) {
+#pragma unroll
+              for (int d = 0; d < 4; ++d) {
+                if (j == fj[d] && (drop >> d) & 1) __stcg(drop_nxt + at + d * HW, out[d]);
+              }
+            }
+          } else {
+            // The CARRIED row: no pickup and no target; unlock, and drop
+            // (the carried key lands on the front cell, row `front`).
+#pragma unroll
+            for (int d = 0; d < 4; ++d) {
+              if ((gc >> (8 * d)) & (kClosedFront | kUnlockFront)) {
+                q[d] = fmaxf(q[d], pv[((c | door(bits, d)) - c) * slab + d * HW]);
+              }
+              q[d] = fmaxf(q[d], tab[d]);
+              out[d] = (goal >> d) & 1 ? 1.f : gamma * q[d];
+              __stcg(pick_nxt + at + d * HW, out[d]);
+            }
+          }
+        }
+        if (!first && cn < C) {
+          table_reads(pick_cur, drop_cur, cn * slab + cell, HW, jn, ngen, key_rows, fj, drop, tab);
+        }
+        // The round's reads end before its writes.
+        __syncthreads();
+        if (active) {
+          float* pn = sv + j * kslab + c * slab + cell;
+#pragma unroll
+          for (int d = 0; d < 4; ++d) pn[d * HW] = out[d];
+        }
+        j = jn;
+        c = cn;
+      }
+      // The tables written in this sweep are complete before the next reads
+      // them, and a table is written again only after the sweep that read
+      // it has ended, in every CTA of the group.
+      barriers += n;
+      group_barrier(my_count, barriers);
+    }
+    float* out = v_out + (b * K + row0) * static_cast<size_t>(kslab);
+    for (int i = threadIdx.x; i < nrows * kslab; i += blockDim.x) out[i] = sv[i];
+    __syncthreads();  // before the next layout overwrites V
+  }
+}
+
+// One CTA of a group of n per layout, streamed mode: G groups of T =
+// min(HW, kGridThreads) threads, (group g, first cell) = divmod(thread, T);
+// a thread takes cells cell0, cell0 + T, ... and, for each, the CTA's slabs
+// g, g + G, ...  V double-buffered in device memory: sweep s writes v_out
+// where n_sweeps - 1 - s is even, else the group's scratch layout.
+__global__ void __launch_bounds__(kGridThreads, 1)
+key_vi_grid_streamed_kernel(const uint8_t* __restrict__ cell_flags,  // (B, 4, HW)
+                            const uint8_t* __restrict__ cfg_flags,   // (B, C, 4, HW)
+                            const uint8_t* __restrict__ door_bit,    // (B, 4, HW)
+                            float* v_out,      // (B, K, C, 4, HW)
+                            float* v_scratch,  // (groups, K, C, 4, HW)
+                            uint32_t* count,   // (groups,)
+                            int B, int C, int H, int W, int n, float gamma, int n_sweeps) {
+  const int rank = blockIdx.x % n;
+  const int grp = blockIdx.x / n;
+  const int groups = gridDim.x / n;
+  const int HW = H * W;
+  const int K = HW + 1;
+  const int CARRIED = HW;
+  const int slab = 4 * HW;     // states per (k, c)
+  const int kslab = C * slab;  // states per k
+  const size_t S = static_cast<size_t>(K) * kslab;
+  const int s0 = row_begin(rank, K * C, n);  // the CTA's slabs k * C + c
+  const int ns = row_begin(rank + 1, K * C, n) - s0;
+  const int T = HW < kGridThreads ? HW : kGridThreads;
+  const int G = blockDim.x / T;
+  const int g = threadIdx.x / T;
+  const int cell0 = threadIdx.x - g * T;
+  const int step[4] = {1, W, -1, -W};
+  // The group's first slab g = k0 * C + c0 after s0, and the stride G = dk
+  // * C + dc: divisions here only, never in a sweep.
+  const int k0 = (s0 + g) / C, c0 = (s0 + g) - k0 * C;
+  const int dk = G / C, dc = G - (G / C) * C;
+  float* scratch = v_scratch + grp * S;
+  uint32_t* my_count = count + grp;
+  uint32_t barriers = 0;
+
+  for (int b = grp; b < B; b += groups) {
+    float* out = v_out + b * S;
+    for (int sweep = 0; sweep < n_sweeps; ++sweep) {
+      const bool first = sweep == 0;  // V is 0: nothing is read
+      const float* cur = (n_sweeps - sweep) & 1 ? scratch : out;
+      float* nxt = (n_sweeps - 1 - sweep) & 1 ? scratch : out;
+      for (int cell = cell0; cell < HW; cell += T) {
+        int fr[4];  // the front cell, or -1 off the grid
+        uint32_t bits = 0, goal = 0, term = 0, drop = 0, no_lava = ~0u;
+#pragma unroll
+        for (int d = 0; d < 4; ++d) {
+          fr[d] = front_cell(cell, d, H, W);
+          const uint8_t f = cell_flags[b * slab + d * HW + cell];
+          bits |= static_cast<uint32_t>(door_bit[b * slab + d * HW + cell]) << (8 * d);
+          goal |= (f & kGoalFront ? 1u : 0u) << d;
+          term |= (f & (kGoalFront | kTargetFront) ? 1u : 0u) << d;
+          drop |= ((f & kDropFront) && fr[d] >= 0 ? 1u : 0u) << d;
+          if (f & kLavaFront) no_lava &= ~(static_cast<uint32_t>(kWalkFront) << (8 * d));
+        }
+        int k = k0, c = c0;
+        for (int i = g; i < ns; i += G) {
+          const size_t at = static_cast<size_t>(k) * kslab + c * slab + cell;  // (k, c, 0, cell)
+          const bool car = k == CARRIED;
+          float res[4];
+          if (first) {
+#pragma unroll
+            for (int d = 0; d < 4; ++d) res[d] = ((car ? goal : term) >> d) & 1 ? 1.f : 0.f;
+          } else {
+            const uint8_t* pc = cfg_flags + (b * C + c) * static_cast<size_t>(slab) + cell;
+            const uint32_t gc = (pc[0] | pc[HW] << 8 | pc[2 * HW] << 16 |
+                                 static_cast<uint32_t>(pc[3 * HW]) << 24) & no_lava;
+            // Every candidate's load goes out before any is used, so a slab
+            // waits for one round trip to memory, not one a candidate; a
+            // candidate the state lacks is 0, which never wins the max.
+            const float* pv = cur + at;
+            float v[4], ahead[4], tog[4], dropped[4];
+#pragma unroll
+            for (int d = 0; d < 4; ++d) {
+              const uint32_t gd = gc >> (8 * d);
+              v[d] = __ldcg(pv + d * HW);
+              // forward, or pickup (the CARRIED row's value) where the key
+              // lies in front.
+              ahead[d] = !car && k == fr[d]
+                             ? __ldcg(cur + static_cast<size_t>(CARRIED - k) * kslab + at + d * HW)
+                         : gd & kWalkFront ? __ldcg(pv + d * HW + step[d]) : 0.f;
+              // toggle: a closed door; in the CARRIED row a locked one too.
+              tog[d] = gd & (car ? kClosedFront | kUnlockFront : kClosedFront)
+                           ? __ldcg(pv + ((c | door(bits, d)) - c) * slab + d * HW) : 0.f;
+              // drop: from the CARRIED row onto row `front`.
+              dropped[d] = car && (drop >> d) & 1
+                               ? __ldcg(cur + static_cast<size_t>(fr[d]) * kslab + c * slab + d * HW + cell)
+                               : 0.f;
+            }
+#pragma unroll
+            for (int d = 0; d < 4; ++d) {
+              const float q = fmaxf(fmaxf(v[d], fmaxf(v[(d + 3) & 3], v[(d + 1) & 3])),
+                                    fmaxf(ahead[d], fmaxf(tog[d], dropped[d])));
+              res[d] = ((car ? goal : term) >> d) & 1 ? 1.f : gamma * q;
+            }
+          }
+#pragma unroll
+          for (int d = 0; d < 4; ++d) nxt[at + d * HW] = res[d];
+          c += dc;
+          k += dk;
+          if (c >= C) {
+            c -= C;
+            ++k;
+          }
+        }
+      }
+      // Every CTA's slabs of this sweep are written before any reads them,
+      // and a buffer is written again only after the sweep that read it has
+      // ended, in every CTA of the group.
+      barriers += n;
+      group_barrier(my_count, barriers);
+    }
+    if (n_sweeps == 0) {
+      for (int i = threadIdx.x; i < ns; i += blockDim.x) {
+        float* p = out + static_cast<size_t>(s0 + i) * slab;
+        for (int s = 0; s < slab; ++s) p[s] = 0.f;
+      }
+    }
+  }
+}
+
 // The DoorKey sizes that fit a cluster get their own instance; others take
 // sizes at run time.
 using ClusterKernel = void (*)(const uint8_t*, const uint8_t*, const uint8_t*,
@@ -796,6 +1200,86 @@ extern "C" int key_vi_wide_launch(const void* cell_flags, const void* cfg_flags,
       static_cast<const uint8_t*>(cfg_flags),
       static_cast<const uint8_t*>(door_bit), static_cast<float*>(v_out), C, H,
       W, gamma, n_sweeps));
+}
+
+// --- grid route ------------------------------------------------------------
+
+namespace {
+
+using GridKernel = void (*)(const uint8_t*, const uint8_t*, const uint8_t*, float*, float*,
+                            uint32_t*, int, int, int, int, int, float, int);
+
+GridKernel grid_kernel(bool resident) {
+  return resident ? key_vi_grid_resident_kernel : key_vi_grid_streamed_kernel;
+}
+
+size_t grid_smem(int C, int HW, int n, bool resident) {
+  return resident ? grid_shared_bytes(C, HW, n) : 0;
+}
+
+}  // namespace
+
+extern "C" size_t key_vi_grid_shared_bytes(int C, int HW, int n, int resident) {
+  return grid_smem(C, HW, n, resident != 0);
+}
+
+// How many CTAs of `threads` threads the current card holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor times its SMs); a negative
+// cudaError_t on failure.
+extern "C" int key_vi_grid_occupancy(int C, int H, int W, int n, int threads, int resident) {
+  const size_t smem = grid_smem(C, H * W, n, resident != 0);
+  const GridKernel kernel = grid_kernel(resident != 0);
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e != cudaSuccess) return -static_cast<int>(e);
+  int per_sm = 0, dev = 0, sms = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return e == cudaSuccess ? per_sm * sms : -static_cast<int>(e);
+}
+
+// Launches, cooperatively, `groups` groups of n CTAs of `threads` threads on
+// `stream`.  Resident (nonzero `resident`): 1 <= n <= K, at most 32 rows a
+// CTA, threads = G * H * W; `scratch` holds the group's pickup and drop
+// tables, (groups, 4, C, 4, HW) floats.  Streamed: 1 <= n <= K * C,
+// threads = G * min(H * W, 1024); `scratch` one layout of V per group.
+// `count`: groups zeroed arrival counters.  Returns the cudaError_t of the
+// launch (0 = ok); a grid the card cannot hold at once is refused
+// (cudaErrorCooperativeLaunchTooLarge), never run.
+extern "C" int key_vi_grid_launch(const void* cell_flags, const void* cfg_flags,
+                                  const void* door_bit, void* v_out, void* scratch, void* count,
+                                  int B, int C, int H, int W, int n, int threads, int groups,
+                                  int resident, float gamma, int n_sweeps, void* stream) {
+  const int HW = H * W;
+  const int K = HW + 1;
+  const int T = resident ? HW : (HW < kGridThreads ? HW : kGridThreads);
+  const bool ok = resident ? n >= 1 && n <= K && (K + n - 1) / n <= kGridRows
+                           : n >= 1 && n <= K * C;
+  if (!ok || groups < 1 || threads < T || threads > kGridThreads || threads % T != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = grid_smem(C, HW, n, resident != 0);
+  const GridKernel kernel = grid_kernel(resident != 0);
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (B == 0) return 0;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(groups * n);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeCooperative;
+  attr.val.cooperative = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const uint8_t*>(cell_flags),
+      static_cast<const uint8_t*>(cfg_flags), static_cast<const uint8_t*>(door_bit),
+      static_cast<float*>(v_out), static_cast<float*>(scratch), static_cast<uint32_t*>(count), B,
+      C, H, W, n, gamma, n_sweeps));
 }
 
 // --- global route ----------------------------------------------------------

@@ -11,16 +11,26 @@ versions.
   ``tabular_key.key_vi_values``, ``key_value_iteration``'s V.  It has
   three routes, which :func:`key_vi_route` picks from the shape alone:
   ``cluster``, V split by key row over the shared memory of a thread-block
-  cluster of up to 8 CTAs, three CTAs an SM (DoorKey up to 8x8,
-  ObstructedMaze-1Dl); ``wide``, a cluster of 16 CTAs, one CTA an SM with
-  up to 1024 threads: the rows other than CARRIED split over 15 of them,
-  the CARRIED row alone on the last, which sends each CTA its pickup
-  values and takes their drop values (remote stores only), V
+  cluster of up to 8 CTAs, three CTAs an SM (DoorKey up to 8x8 at one or
+  two door slots, ObstructedMaze-1Dl); ``wide``, a cluster of 16 CTAs, one
+  CTA an SM with up to 1024 threads: the rows other than CARRIED split
+  over 15 of them, the CARRIED row alone on the last, which sends each CTA
+  its pickup values and takes their drop values (remote stores only), V
   double-buffered where that fits (KeyCorridorS3R2 at six door slots) and
-  else swept in place (DoorKey-16x16); ``global``, V double-buffered in
-  device memory, where even one buffer is too large for 16 CTAs
-  (KeyCorridorS3R3 at seven door slots, DoorKey-16x16 at two, 19x19
-  grids).
+  else swept in place (DoorKey-16x16); ``grid``, where even one buffer of
+  V is too large for 16 CTAs: a cooperative, persistent launch whose
+  resident CTAs form groups of n, one group a layout at a time, with one
+  barrier a sweep over the group through a counter in device memory;
+  ``resident`` where a CTA holds at least one key row (the rows split over
+  the group's shared memory, swept in place, pickups and drops through two
+  small tables in device memory: DoorKey-16x16 at two door slots,
+  KeyCorridorS3R3 at seven, DoorKey-8x8 at seven, the default
+  ``max_doors`` of ``extract_key_layout``, 19x19 grids), else
+  ``streamed`` (V double-buffered in device memory, each layout's (row,
+  config) slabs split over the group: KeyCorridorS4R3 and larger at
+  seven door slots, LockedRoom).  The first kernel, ``global`` (one block a
+  layout, V double-buffered in device memory), stays as the yardstick the
+  grid route is timed against; no route launches it.
 
 What bounds each kernel on an H100, and what its design does about it, is
 noted at the top of its ``.cu`` file.  A wrapper checks its inputs, then
@@ -330,7 +340,12 @@ KEY_MAX_CLUSTER = 8  # the portable limit of a thread-block cluster
 KEY_WIDE_THREADS = 1024  # threads of a wide CTA, at most (csrc/key_vi.cu:kWideThreads)
 KEY_WIDE_CLUSTER = 16  # CTAs of a wide cluster, above the portable limit (kWideCluster)
 KEY_WIDE_ROWS = 32  # rows of a wide CTA, at most (kWideRows: a bit each in a register)
-ROUTES = ("cluster", "wide", "global")
+KEY_GRID_THREADS = 1024  # threads of a grid CTA, at most (kGridThreads)
+KEY_GRID_ROWS = 32  # rows of a resident grid CTA, at most (kGridRows: a bit each in a register)
+# CTAs of a layout on the grid route, at most: a group must be resident at
+# once, one CTA an SM, and an H100 SXM has 132 SMs.
+KEY_GRID_MAX_CTAS = 128
+ROUTES = ("cluster", "wide", "grid", "global")
 
 
 def key_vi_groups(hw: int) -> int:
@@ -382,6 +397,46 @@ def key_vi_wide_in_place(C: int, hw: int, n: int = KEY_WIDE_CLUSTER) -> bool:
     return key_vi_wide_shared_bytes(C, hw, n, False) > SMEM_PER_BLOCK
 
 
+def key_vi_grid_rows(C: int, hw: int) -> int:
+    """The most key rows (all C configs each) a resident grid CTA can hold
+    in place beside the packed flags, at most KEY_GRID_ROWS; 0 where not
+    one fits or a CTA cannot give each cell its thread."""
+    if hw > KEY_GRID_THREADS:
+        return 0
+    return max(0, min(KEY_GRID_ROWS, (SMEM_PER_BLOCK - C * hw * 4) // (C * 4 * hw * 4)))
+
+
+def key_vi_grid_resident(K: int, C: int, hw: int) -> bool:
+    """Whether the grid route keeps V resident in its CTAs' shared memory:
+    where a CTA holds at least one row and the K rows need at most
+    KEY_GRID_MAX_CTAS CTAs; else V is streamed from device memory."""
+    rows = key_vi_grid_rows(C, hw)
+    return rows > 0 and -(-K // rows) <= KEY_GRID_MAX_CTAS
+
+
+def key_vi_grid_ctas(K: int, C: int, hw: int) -> int:
+    """CTAs n of a layout on the grid route: resident, the fewest that hold
+    its K rows; streamed, its K * C (row, config) slabs over
+    KEY_GRID_MAX_CTAS CTAs (one layout fills the card)."""
+    if key_vi_grid_resident(K, C, hw):
+        return -(-K // key_vi_grid_rows(C, hw))
+    return min(K * C, KEY_GRID_MAX_CTAS)
+
+
+def key_vi_grid_threads(hw: int) -> int:
+    """Threads of a grid CTA: G groups of min(HW, KEY_GRID_THREADS), (group,
+    cell) = divmod(thread, HW); a thread of a larger grid (streamed only)
+    takes cells cell, cell + KEY_GRID_THREADS, ..."""
+    t = min(hw, KEY_GRID_THREADS)
+    return KEY_GRID_THREADS // t * t
+
+
+def key_vi_grid_shared_bytes(C: int, hw: int, n: int, resident: bool) -> int:
+    """A grid CTA's shared memory: resident, ceil(K / n) key rows of V (in
+    place), then the per-(config, cell) flags; streamed, none."""
+    return -(-(hw + 1) // n) * C * 4 * hw * 4 + C * hw * 4 if resident else 0
+
+
 def key_vi_route(K: int, C: int, hw: int) -> Tuple[str, int]:
     """The kernel for V of (K, C, 4, HW) per layout: ``("cluster", n)``,
     the smallest power-of-two cluster whose CTAs' share of V lets an SM
@@ -389,8 +444,8 @@ def key_vi_route(K: int, C: int, hw: int) -> Tuple[str, int]:
     all; where even a cluster of 8 cannot hold V (or a CTA cannot give
     each cell its thread), ``("wide", 16)`` if 16 CTAs can hold it, in
     place if need be, with a thread for each cell and at most
-    KEY_WIDE_ROWS rows a CTA; else ``("global", 0)``.  The shape alone
-    decides."""
+    KEY_WIDE_ROWS rows a CTA; else ``("grid", n)`` with n from
+    :func:`key_vi_grid_ctas`.  The shape alone decides."""
     fits = [
         n for n in (1, 2, 4, KEY_MAX_CLUSTER)
         if n <= K and key_vi_cluster_shared_bytes(C, hw, n) <= SMEM_PER_BLOCK
@@ -405,7 +460,7 @@ def key_vi_route(K: int, C: int, hw: int) -> Tuple[str, int]:
     if (hw <= KEY_WIDE_THREADS and n <= hw + 1 and -(-hw // (n - 1)) <= KEY_WIDE_ROWS
             and key_vi_wide_shared_bytes(C, hw, n, True) <= SMEM_PER_BLOCK):
         return "wide", n
-    return "global", 0
+    return "grid", key_vi_grid_ctas(K, C, hw)
 
 
 def key_vi_active_clusters(C: int, h: int, w: int, n: int) -> int:
@@ -426,6 +481,17 @@ def key_vi_wide_active_clusters(C: int, h: int, w: int, n: int = KEY_WIDE_CLUSTE
     if got < 0:
         raise RuntimeError(f"key_vi_wide_occupancy failed: CUDA error {-got}")
     return got
+
+
+def key_vi_grid_active_groups(C: int, h: int, w: int, n: int, resident: bool) -> int:
+    """Groups of ``n`` grid CTAs that the current card holds at once: the
+    CTAs it holds (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` times
+    its SMs) over n."""
+    fn = _lib_fn("key_vi", "key_vi_grid_occupancy", [_I] * 6)
+    got = fn(C, h, w, n, key_vi_grid_threads(h * w), int(resident))
+    if got < 0:
+        raise RuntimeError(f"key_vi_grid_occupancy failed: CUDA error {-got}")
+    return got // n
 
 
 def _check_key_masks(masks, shape) -> None:
@@ -481,9 +547,45 @@ def _key_vi_kernel_wide(masks, gamma: float, n_sweeps: int, shape,
     return v
 
 
+def _key_vi_kernel_grid(masks, gamma: float, n_sweeps: int, shape, n: int) -> torch.Tensor:
+    """Launch the grid route of ``csrc/key_vi.cu``, resident where
+    :func:`key_vi_grid_resident` says, else streamed: groups of ``n`` CTAs,
+    as many groups as the card holds at once and the batch has layouts, in
+    one cooperative launch.  V of ``shape`` (B, K, C, 4, H, W) f32."""
+    _check_key_masks(masks, shape)
+    b, K, C, _, h, w = shape
+    hw = h * w
+    resident = key_vi_grid_resident(K, C, hw)
+    smem = key_vi_grid_shared_bytes(C, hw, n, resident)
+    ok = (1 <= n <= K and -(-K // n) <= KEY_GRID_ROWS and hw <= KEY_GRID_THREADS
+          and smem <= SMEM_PER_BLOCK) if resident else 1 <= n <= K * C
+    if not ok:
+        raise ValueError(f"no grid of {n} CTAs a layout for K={K}, C={C}, H*W={hw}")
+    dev = masks[0].device
+    v = torch.empty(shape, dtype=torch.float32, device=dev)
+    if b == 0:
+        return v
+    with torch.cuda.device(dev):
+        groups = min(b, key_vi_grid_active_groups(C, h, w, n, resident))
+    if groups < 1:
+        raise RuntimeError(f"the card cannot hold a group of {n} grid CTAs at once")
+    # Resident: each group's pickup and drop tables, two of each; streamed:
+    # one layout of V a group, the double buffer's second half.
+    scratch = torch.empty((groups, 4 if resident else K, C * 4 * hw), dtype=torch.float32, device=dev)
+    count = torch.zeros(groups, dtype=torch.int32, device=dev)
+    fn = _lib_fn("key_vi", "key_vi_grid_launch", [_P] * 6 + [_I] * 8 + [_F, _I, _P])
+    _launch(
+        dev, fn, *(m.data_ptr() for m in masks), v.data_ptr(), scratch.data_ptr(),
+        count.data_ptr(), b, C, h, w, n, key_vi_grid_threads(hw), groups, int(resident),
+        gamma, n_sweeps,
+    )
+    return v
+
+
 def _key_vi_kernel_global(masks, gamma: float, n_sweeps: int, shape) -> torch.Tensor:
-    """Launch the global route of ``csrc/key_vi.cu`` (V double-buffered in
-    device memory): V of ``shape`` (B, K, C, 4, H, W) f32."""
+    """Launch the global kernel of ``csrc/key_vi.cu`` (one block a layout, V
+    double-buffered in device memory), the yardstick of the grid route; no
+    route takes it.  V of ``shape`` (B, K, C, 4, H, W) f32."""
     _check_key_masks(masks, shape)
     b, K, C, _, h, w = shape
     dev = masks[0].device
@@ -507,7 +609,7 @@ def _key_vi_kernel(masks, gamma: float, n_sweeps: int, shape) -> torch.Tensor:
     elif route == "wide":
         v = _key_vi_kernel_wide(masks, gamma, n_sweeps, shape, n)
     else:
-        v = _key_vi_kernel_global(masks, gamma, n_sweeps, shape)
+        v = _key_vi_kernel_grid(masks, gamma, n_sweeps, shape, n)
     cuda_key_value_iteration.launches += 1
     cuda_key_value_iteration.route_launches[route] += 1
     return v

@@ -436,22 +436,49 @@ def test_key_vi_kernel_contract_reproduces_plain(env_id, n, closed):
     (8, 8, 1, ("cluster", 4)),
     (8, 8, 2, ("cluster", 8)),
     (16, 16, 1, ("wide", 16)),
-    (16, 16, 2, ("global", 0)),
+    (16, 16, 2, ("grid", 20, "resident")),
     (6, 11, 1, ("cluster", 4)),
     (5, 7, 6, ("wide", 16)),
-    (7, 7, 7, ("global", 0)),
-    (19, 19, 1, ("global", 0)),
+    (7, 7, 7, ("grid", 25, "resident")),
+    (19, 19, 1, ("grid", 20, "resident")),
+    (8, 8, 7, ("grid", 65, "resident")),
+    (16, 16, 7, ("grid", 128, "streamed")),
+    (19, 19, 6, ("grid", 128, "streamed")),
 ])
 def test_key_vi_route(h, w, D, want):
     """The smallest cluster whose CTAs fit three to an SM; where a cluster
     of 8 cannot hold V, a cluster of 16 (DoorKey-16x16 in place,
-    KeyCorridorS3R2 at six door slots double-buffered); else device
-    memory (DoorKey-16x16 at two door slots: 4.2 MB, KeyCorridorS3R3 at
-    seven: 5.0 MB, 19x19: 4.2 MB)."""
+    KeyCorridorS3R2 at six door slots double-buffered); else the grid
+    route: resident, the fewest CTAs that hold the K key rows in place
+    (DoorKey-16x16 at two door slots: 4.2 MB, KeyCorridorS3R3 at seven: 5.0
+    MB, 19x19: 4.2 MB, DoorKey-8x8 at seven, the default max_doors: 8.5 MB,
+    one row a CTA), where a row fits a CTA; else streamed, a layout over
+    128 CTAs (a 16x16 grid at seven door slots: 524 KB a row; LockedRoom,
+    19x19 at six: 370 KB)."""
     hw = h * w
     C = 1 << D
-    assert cuda_vi.key_vi_route(hw + 1, C, hw) == want
-    route, n = want
+    K = hw + 1
+    assert cuda_vi.key_vi_route(K, C, hw) == want[:2]
+    route, n = want[:2]
+    if route == "grid":
+        assert cuda_vi.key_vi_cluster_shared_bytes(C, hw, 8) > cuda_vi.SMEM_PER_BLOCK
+        assert cuda_vi.key_vi_wide_shared_bytes(C, hw, 16, True) > cuda_vi.SMEM_PER_BLOCK
+        resident = want[2] == "resident"
+        assert cuda_vi.key_vi_grid_resident(K, C, hw) == resident
+        rows = cuda_vi.key_vi_grid_rows(C, hw)
+        if not resident:
+            assert n == cuda_vi.KEY_GRID_MAX_CTAS and cuda_vi.key_vi_grid_shared_bytes(C, hw, n, False) == 0
+            assert rows == 0
+            return
+        # The fewest CTAs: each holds ceil(K / n) <= rows rows, n - 1 could not.
+        assert -(-K // n) <= rows < -(-K // (n - 1))
+        assert cuda_vi.key_vi_grid_shared_bytes(C, hw, n, True) <= cuda_vi.SMEM_PER_BLOCK
+        assert cuda_vi.key_vi_grid_threads(hw) == cuda_vi.KEY_GRID_THREADS // hw * hw
+        # In place keeps more layouts a wave (of the 132 SMs) than a double
+        # buffer, which holds half the rows a CTA, would.
+        double = (cuda_vi.SMEM_PER_BLOCK - C * hw * 4) // (2 * C * 4 * hw * 4)
+        assert double == 0 or 132 // -(-K // double) < 132 // n
+        return
     if route == "cluster":
         smem = cuda_vi.key_vi_cluster_shared_bytes(C, hw, n)
         assert cuda_vi.SMEM_PER_SM // (smem + 1024) >= cuda_vi.KEY_CTAS_PER_SM
@@ -459,14 +486,11 @@ def test_key_vi_route(h, w, D, want):
             smaller = cuda_vi.key_vi_cluster_shared_bytes(C, hw, n // 2)
             assert cuda_vi.SMEM_PER_SM // (smaller + 1024) < cuda_vi.KEY_CTAS_PER_SM
         return
+    assert route == "wide"
     assert cuda_vi.key_vi_cluster_shared_bytes(C, hw, 8) > cuda_vi.SMEM_PER_BLOCK
-    in_place = cuda_vi.key_vi_wide_shared_bytes(C, hw, 16, True)
-    if route == "wide":
-        assert in_place <= cuda_vi.SMEM_PER_BLOCK
-        assert cuda_vi.key_vi_wide_in_place(C, hw) == (hw == 256)
-        assert cuda_vi.key_vi_wide_groups(hw) * hw <= cuda_vi.KEY_WIDE_THREADS
-    else:
-        assert in_place > cuda_vi.SMEM_PER_BLOCK
+    assert cuda_vi.key_vi_wide_shared_bytes(C, hw, 16, True) <= cuda_vi.SMEM_PER_BLOCK
+    assert cuda_vi.key_vi_wide_in_place(C, hw) == (hw == 256)
+    assert cuda_vi.key_vi_wide_groups(hw) * hw <= cuda_vi.KEY_WIDE_THREADS
 
 
 # --- The wide route: a cluster of 16, in place where V does not fit twice ----
@@ -740,3 +764,307 @@ def test_key_vi_wide_in_place_order_matters():
     layouts = _wide_layouts("MiniGrid-DoorKey-16x16-v0", 1, True)
     with pytest.raises(AssertionError, match="written in this sweep"):
         _run_key_vi_wide_plan(layouts, GAMMA, 4, True, reverse=True)
+
+
+# --- The grid route: groups of CTAs that meet through device memory ----------
+
+
+def _key_vi_grid_plan(hw: int, C: int, n: int, reverse: bool = False):
+    """``key_vi_grid_resident_kernel``'s walk: (rank, round, group g, local
+    row j, config c) of each item of each of the n CTAs, the CARRIED row
+    (the last CTA's last) among them, from the group's first item g and the
+    stride G = dc * nrows + dj, as the kernel steps them.  ``reverse`` walks
+    each CTA's items in the opposite order (not the kernel's: the test of
+    the order uses it).  Also G."""
+    G = cuda_vi.key_vi_grid_threads(hw) // hw
+    items = []
+    for rank, (_, nrows) in enumerate(cuda_vi.key_vi_rows(hw + 1, n)):
+        rounds = -(-nrows * C // G)
+        dc, dj = divmod(G, nrows)
+        for g in range(G):
+            c, j = divmod(g, nrows)
+            for r in range(rounds):
+                if c < C:
+                    if reverse:
+                        c_, j_ = divmod(nrows * C - 1 - (c * nrows + j), nrows)
+                        items.append((rank, r, g, j_, c_))
+                    else:
+                        items.append((rank, r, g, j, c))
+                j, c = j + dj, c + dc
+                if j >= nrows:
+                    j, c = j - nrows, c + 1
+    return torch.tensor(items), G
+
+
+def _key_vi_grid_stream_plan(hw: int, C: int, n: int):
+    """``key_vi_grid_streamed_kernel``'s walk: (rank, group g, k, c) of each
+    slab, a CTA's slabs k * C + c split over its groups, from the group's
+    first slab and the stride G = dk * C + dc, as the kernel steps them.
+    Also G."""
+    T = min(hw, cuda_vi.KEY_GRID_THREADS)
+    G = cuda_vi.key_vi_grid_threads(hw) // T
+    dk, dc = divmod(G, C)
+    slabs = []
+    for rank, (s0, ns) in enumerate(cuda_vi.key_vi_rows((hw + 1) * C, n)):
+        for g in range(G):
+            k, c = divmod(s0 + g, C)
+            for _ in range(g, ns, G):
+                slabs.append((rank, g, k, c))
+                k, c = k + dk, c + dc
+                if c >= C:
+                    k, c = k + 1, c - C
+    return torch.tensor(slabs), G
+
+
+@pytest.mark.parametrize("h,w,D", [(16, 16, 2), (7, 7, 7), (8, 8, 7), (19, 19, 1)])
+def test_key_vi_grid_plan_writes_every_state_once(h, w, D):
+    """Resident: each (key row, config) is one (rank, group) item once a
+    sweep, the CARRIED row's on the last CTA; a group takes one item in
+    each of its CTA's rounds, with no gap."""
+    hw, C = h * w, 1 << D
+    K = hw + 1
+    n = cuda_vi.key_vi_grid_ctas(K, C, hw)
+    assert cuda_vi.key_vi_grid_resident(K, C, hw)
+    items, G = _key_vi_grid_plan(hw, C, n)
+    rows = cuda_vi.key_vi_rows(K, n)
+    assert max(nr for _, nr in rows) <= min(cuda_vi.key_vi_grid_rows(C, hw), cuda_vi.KEY_GRID_ROWS)
+    starts = torch.tensor([r0 for r0, _ in rows])
+    k = starts[items[:, 0]] + items[:, 3]
+    assert torch.equal(torch.sort(k * C + items[:, 4]).values, torch.arange(K * C))
+    assert set(k[items[:, 0] == n - 1].tolist()) >= {hw}
+    key = (items[:, 0] * 10_000 + items[:, 1]) * G + items[:, 2]
+    assert len(torch.unique(key)) == len(items)
+    for rank in range(n):
+        per_round = torch.bincount(items[items[:, 0] == rank][:, 1])
+        assert (per_round[:-1] == G).all() and per_round[-1] <= G
+    assert G * hw <= cuda_vi.KEY_GRID_THREADS
+
+
+@pytest.mark.parametrize("h,w,D", [(16, 16, 7), (19, 19, 6), (8, 8, 2)])
+def test_key_vi_grid_stream_plan_writes_every_slab_once(h, w, D):
+    """Streamed: each (key row, config) slab is one (rank, group)'s once a
+    sweep; the groups of a CTA split its slabs within one."""
+    hw, C = h * w, 1 << D
+    K = hw + 1
+    n = min(K * C, cuda_vi.KEY_GRID_MAX_CTAS)
+    slabs, G = _key_vi_grid_stream_plan(hw, C, n)
+    assert torch.equal(torch.sort(slabs[:, 2] * C + slabs[:, 3]).values, torch.arange(K * C))
+    for rank in range(n):
+        per_group = torch.bincount(slabs[slabs[:, 0] == rank][:, 1], minlength=G)
+        assert int(per_group.max() - per_group.min()) <= 1
+    assert G * min(hw, cuda_vi.KEY_GRID_THREADS) == cuda_vi.key_vi_grid_threads(hw)
+
+
+def _run_key_vi_grid_plan(layouts, gamma: float, n_sweeps: int, resident=None,
+                          reverse: bool = False) -> torch.Tensor:
+    """The grid kernels' arithmetic over their plans, for one group (B
+    layouts, each as the group runs it), on an image of the memory they
+    use.  ``resident`` defaults to the route's choice.
+
+    Resident, (B, n + 1, floats): each CTA's rows of V (zeroed; in place),
+    then, as rank n, the device memory of the group's pickup table twice
+    and drop table twice (NaN until written).  Each sweep runs the CTAs'
+    rounds in order, all items of a round at once (reads, then writes),
+    the CARRIED row's items writing each new value to the pickup table and
+    the other rows' items each value a drop reads to the drop table; the
+    first sweep reads no table.  Every read is checked against the values
+    written in the sweep so far, so no read may see one; and, since the
+    CTAs meet only at the end of a sweep, no state read in a sweep may be
+    written in it, but for a CTA's own rows in place, which its round
+    barriers order.  Every state and every table entry read is written once
+    a sweep.
+
+    Streamed, (B, 2, floats): v_out and the scratch layout in device memory
+    (NaN until written); each sweep reads one and writes the other, so
+    that the last lands in v_out; all slabs of the plan at once, with the
+    same checks; the first sweep reads nothing."""
+    cell_flags, cfg_flags, door_bit = cuda_vi.key_vi_masks(layouts)
+    B, C, _, hw = cfg_flags.shape
+    h, w = layouts.base_walk.shape[1:]
+    K, slab, kslab = hw + 1, 4 * hw, C * 4 * hw
+    if resident is None:
+        resident = cuda_vi.key_vi_grid_resident(K, C, hw)
+    n = cuda_vi.key_vi_grid_ctas(K, C, hw) if resident else min(K * C, cuda_vi.KEY_GRID_MAX_CTAS)
+    fr = _wide_front_rows(h, w)  # (HW, 4)
+    d = torch.arange(4)
+    cell = torch.arange(hw)[:, None]
+    step = torch.tensor(_STEP(w))
+    f = cell_flags[:, d, cell].long()  # (B, HW, 4)
+    bit = door_bit[:, d, cell].long()[:, None]  # (B, 1, HW, 4)
+    lava = ((f & 2) != 0)[:, None]
+    goal, term = ((f & 1) != 0)[:, None], ((f & 5) != 0)[:, None]
+    drop_ok = ((f & 8) != 0)[:, None] & (fr >= 0)
+
+    def flags(c):  # (B, I, HW, 4) walk, closed, unlock for each item's config
+        g = cfg_flags[:, :, d, cell][:, c].long()
+        return ((g & 1) != 0) & ~lava, (g & 2) != 0, (g & 4) != 0
+
+    if resident:
+        rows = cuda_vi.key_vi_rows(K, n)
+        starts = torch.tensor([r0 for r0, _ in rows])
+        nrows = torch.tensor([nr for _, nr in rows])
+        ngen = nrows - (starts + nrows == K).long()  # rows other than CARRIED
+        mrows = -(-K // n)
+        assert mrows * kslab * 4 + C * hw * 4 == cuda_vi.key_vi_grid_shared_bytes(C, hw, n, True)
+        size = max(mrows, 4) * kslab
+        items, _ = _key_vi_grid_plan(hw, C, n, reverse)
+        rounds = int(items[:, 1].max()) + 1
+        own_rows = torch.zeros(n + 1, size, dtype=torch.bool)
+        for rank in range(n):
+            own_rows[rank, : int(nrows[rank]) * kslab] = True
+        mem = torch.full((B, n + 1, size), float("nan"))
+        mem[:, :n][:, own_rows[:n]] = 0.0
+    else:
+        slabs, _ = _key_vi_grid_stream_plan(hw, C, n)
+        size = K * kslab
+        own_rows = torch.zeros(2, size, dtype=torch.bool)
+        mem = torch.full((B, 2, size), float("nan"))
+    tab = torch.tensor(n)  # the rank of the resident route's tables
+
+    ranks = mem.shape[1]
+    flat_mem = mem.view(-1)
+
+    def sweep_once(sweep: int):
+        stamp = torch.zeros(mem.shape, dtype=torch.bool)  # written in this sweep
+        seen = torch.zeros(mem.shape, dtype=torch.bool)  # read in this sweep
+        count = torch.zeros(mem.shape, dtype=torch.int64)
+        first = sweep == 0
+
+        def index(rank, off, where):
+            """The flat index of (layout, rank, offset) in the image."""
+            assert not (where & ((off < 0) | (off >= size))).any()
+            b = torch.arange(B).reshape(-1, *[1] * (where.dim() - 1))
+            return ((b * ranks + rank) * size + off.clamp(0, size - 1)).expand_as(where)
+
+        def read(rank, off, where):
+            assert not (first and where.any()), "the first sweep reads nothing but V = 0"
+            at = index(rank, off, where)
+            hit = where & stamp.view(-1)[at]
+            assert not hit.any(), f"sweep {sweep}: a read sees a value written in this sweep"
+            seen.view(-1)[at[where]] = True
+            return flat_mem[at]
+
+        def write(rank, off, val, where):
+            return index(rank, off, where)[where], val.expand_as(where)[where]
+
+        def apply(writes):
+            for at, val in writes:
+                flat_mem[at] = val
+                stamp.view(-1)[at] = True
+                count.view(-1).index_add_(0, at, torch.ones_like(at))
+
+        def backup(rank, base, c, car, kf, pick_at, drop_at):
+            """The new V of the items at ``base`` (config c): stay, turns,
+            forward, and pickup (read at ``pick_at``) where the key lies in
+            front (``kf``); toggle; for the CARRIED row (``car``) unlock and
+            drop (read at ``drop_at``)."""
+            walk, closed, unlock = flags(c[:, 0, 0])
+            every = torch.ones(B, len(c), hw, 4, dtype=torch.bool)
+            if first:
+                return torch.where(car, goal, term).float().expand_as(every), every
+            vv = read(rank, base, every)
+            q = torch.maximum(vv, torch.maximum(vv[..., (d + 3) % 4], vv[..., (d + 1) % 4]))
+            kf = kf.expand_as(every)
+            fwd = walk & ~kf
+            q = torch.where(fwd, torch.maximum(q, read(rank, base + step, fwd)), q)
+            q = torch.where(kf, torch.maximum(q, read(*pick_at, kf)), q)
+            tog = torch.where(car, closed | unlock, closed)
+            q = torch.where(tog, torch.maximum(q, read(rank, base + ((c | bit) - c) * slab, tog)), q)
+            dr = drop_ok & car
+            q = torch.where(dr, torch.maximum(q, read(*drop_at, dr)), q)
+            return torch.where(torch.where(car, goal, term), 1.0, gamma * q), every
+
+        if resident:
+            odd = sweep & 1
+            pick_cur, pick_nxt = odd * kslab, (1 - odd) * kslab
+            drop_cur, drop_nxt = (2 + odd) * kslab, (3 - odd) * kslab
+            for r in range(rounds):
+                it = items[items[:, 1] == r]
+                rank = it[:, 0, None, None]
+                j, c = it[:, 3, None, None], it[:, 4, None, None]
+                row0 = starts[rank]
+                car = row0 + j == hw
+                fj = torch.where((fr >= row0) & (fr < row0 + ngen[rank]), fr - row0, -1)
+                kf = j == fj
+                base = j * kslab + c * slab + d * hw + cell
+                at = c * slab + d * hw + cell
+                out, every = backup(rank, base, c, car, kf, (tab, pick_cur + at), (tab, drop_cur + at))
+                apply([write(rank, base, out, every),
+                       write(tab, pick_nxt + at, out, car.expand_as(every)),
+                       write(tab, drop_nxt + at, out, kf & drop_ok)])
+            # Each state written once, and each pickup and drop entry.
+            v_writes = count * own_rows
+            assert (v_writes.sum(dim=(1, 2)) == K * kslab).all() and int(count.max()) == 1
+            assert (count[:, n, pick_nxt: pick_nxt + kslab] == 1).all()
+            assert (count[:, n, drop_nxt: drop_nxt + kslab].reshape(B, C, 4, hw).sum(1)
+                    == C * drop_ok[:, 0].transpose(1, 2)).all()
+        else:
+            cur, nxt = torch.tensor((n_sweeps - sweep) & 1), torch.tensor((n_sweeps - 1 - sweep) & 1)
+            k, c = slabs[:, 2, None, None], slabs[:, 3, None, None]
+            car = k == hw
+            kf = (k == fr) & (fr >= 0)
+            base = k * kslab + c * slab + d * hw + cell
+            at = c * slab + d * hw + cell
+            out, every = backup(cur, base, c, car, kf,
+                                (cur, hw * kslab + at), (cur, fr.clamp(min=0) * kslab + at))
+            apply([write(nxt, base, out, every)])
+            assert (count[:, int(nxt)] == 1).all() and int(count.max()) == 1
+        if (seen & stamp & ~own_rows).any():
+            raise AssertionError(f"sweep {sweep}: a state read in this sweep is written in it")
+
+    for sweep in range(n_sweeps):
+        sweep_once(sweep)
+    if resident:
+        out = [mem[:, rank, : int(nrows[rank]) * kslab] for rank in range(n)]
+        return torch.cat(out, 1).reshape(B, K, C, 4, h, w)
+    return mem[:, 0].reshape(B, K, C, 4, h, w)
+
+
+def _grid_layouts(env_id: str, max_doors: int, closed: bool):
+    """The first two layouts with at most ``max_doors`` doors from the port's
+    own generator (the target from aux slots 0-1 where the family names
+    one)."""
+    import minigrid_dynamicprogramming_tpu_torch as port
+    from minigrid_dynamicprogramming_tpu_torch.core.constants import OBJ_DOOR
+
+    env = port.make(env_id)
+    states = env.generate(torch.Generator().manual_seed(11), env.params, 8, "cpu")
+    keep = torch.nonzero((states.grid_obj == OBJ_DOOR).sum(dim=(1, 2)) <= max_doors)[:2, 0]
+    assert len(keep) == 2
+    states = EnvState(**{k: v[keep] for k, v in states.__dict__.items()})
+    if "KeyCorridor" in env_id:
+        layouts = tkey.extract_key_layout(states, max_doors, states.aux[:, 0], states.aux[:, 1])
+    else:
+        layouts = tkey.extract_key_layout(states, max_doors)
+    return _closed_doors(layouts) if closed else layouts
+
+
+@pytest.mark.parametrize("env_id,max_doors,closed,resident,sweeps", [
+    ("MiniGrid-DoorKey-16x16-v0", 2, True, None, 24),
+    ("MiniGrid-KeyCorridorS3R3-v0", 7, False, None, 12),
+    ("MiniGrid-DoorKey-8x8-v0", 2, True, False, 24),
+])
+def test_key_vi_grid_kernel_contract_reproduces_plain(env_id, max_doors, closed, resident, sweeps):
+    """Resident as the route runs it: DoorKey-16x16 at two door slots with
+    closed doors (every key row toggles, so the configs' order within a
+    sweep matters), and KeyCorridorS3R3 at seven (two rows a CTA, the
+    pickup and drop tables carrying the key between CTAs).  Streamed, at a
+    shape the route gives the cluster (DoorKey-8x8 at two door slots, 260
+    slabs over 128 CTAs)."""
+    layouts = _grid_layouts(env_id, max_doors, closed)
+    hw = layouts.base_walk.shape[1] * layouts.base_walk.shape[2]
+    if resident is None:
+        assert cuda_vi.key_vi_route(hw + 1, 1 << max_doors, hw)[0] == "grid"
+    want = tkey.key_value_iteration(layouts, GAMMA, sweeps)[0]
+    assert (want > 0).any()
+    got = _run_key_vi_grid_plan(layouts, GAMMA, sweeps, resident)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+
+
+def test_key_vi_grid_in_place_order_matters():
+    """The mirror's check catches an order that is not exact: walking the
+    items from the last config down, a closed door's toggle reads a slab
+    the sweep has already overwritten."""
+    layouts = _grid_layouts("MiniGrid-DoorKey-16x16-v0", 2, True)
+    with pytest.raises(AssertionError, match="written in this sweep"):
+        _run_key_vi_grid_plan(layouts, GAMMA, 4, True, reverse=True)

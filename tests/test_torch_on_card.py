@@ -15,9 +15,12 @@ the cluster route is held here at DoorKey-6x6 (a cluster of 2) and
 DoorKey-8x8 (clusters of 4 and 8, and every cluster size the kernel
 takes), the wide route (a cluster of 16) at DoorKey-16x16 in place, with
 open and closed doors and after an even and an odd number of sweeps, and
-double-buffered at DoorKey-8x8, the global route at DoorKey-16x16 at two
-door slots and, launched directly, at one; each case checks which route's
-launch count moved.  The restricted-domain kernel's instance for grid
+double-buffered at DoorKey-8x8, the grid route (groups of CTAs that meet
+through device memory) resident at DoorKey-16x16 at two door slots,
+KeyCorridorS3R3 and DoorKey-8x8 at seven, and streamed at LockedRoom and
+a 16x16 grid at seven, through the wrapper and launched directly; the
+global kernel, launched directly, at DoorKey-16x16 at one and two door
+slots; each case checks which route's launch count moved.  The restricted-domain kernel's instance for grid
 sizes given at run time (and its lava flag) is held on LavaGapS7 (7x7),
 LavaCrossingS9N2 (9x9) and FourRooms (19x19, 361 threads a block; at two
 door slots 208,080 bytes of shared memory), and a hook-free and a
@@ -184,9 +187,9 @@ def test_key_vi_cluster_route_8x8(card, max_doors, n, closed):
 
 @pytest.mark.cuda
 def test_key_vi_global_route_16x16(card):
-    """DoorKey-16x16 takes the wide route in place at one door slot; the
-    global route, launched directly on the same layouts, and taken by the
-    wrapper at two door slots (4.2 MB of V a layout), agrees too."""
+    """DoorKey-16x16 takes the wide route in place at one door slot and
+    the grid route at two (4.2 MB of V a layout); the global kernel,
+    launched directly on the same layouts, agrees with both."""
     states = _states(card, "MiniGrid-DoorKey-16x16-v0", 3, seed=4)
     layouts = tkey.extract_key_layout(states, 1)
     got = _key_vi_on_route(layouts, 12, ("wide", 16))
@@ -195,8 +198,51 @@ def test_key_vi_global_route_16x16(card):
     direct = cuda_vi._key_vi_kernel_global(cuda_vi.key_vi_masks(layouts), GAMMA, 12, want.shape)
     torch.testing.assert_close(direct, want, rtol=0, atol=1e-6)
     layouts2 = tkey.extract_key_layout(states, 2)
-    got = _key_vi_on_route(layouts2, 12, ("global", 0))
+    got = _key_vi_on_route(layouts2, 12, ("grid", 20))
     torch.testing.assert_close(got, tkey.key_vi_values(layouts2, GAMMA, 12), rtol=0, atol=1e-6)
+    direct = cuda_vi._key_vi_kernel_global(cuda_vi.key_vi_masks(layouts2), GAMMA, 12, got.shape)
+    torch.testing.assert_close(direct, got, rtol=0, atol=1e-6)
+
+
+def _at_most_doors(states, doors: int):
+    keep = (states.grid_obj == OBJ_DOOR).sum(dim=(1, 2)) <= doors
+    return dataclasses.replace(states, **{k: v[keep] for k, v in states.__dict__.items()})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env_id,max_doors,batch,n_sweeps,closed,route", [
+    ("MiniGrid-DoorKey-16x16-v0", 2, 13, 0, False, ("grid", 20)),
+    ("MiniGrid-DoorKey-16x16-v0", 2, 13, 1, False, ("grid", 20)),
+    ("MiniGrid-DoorKey-16x16-v0", 2, 13, 31, True, ("grid", 20)),
+    ("MiniGrid-KeyCorridorS3R3-v0", 7, 12, 40, False, ("grid", 25)),
+    ("MiniGrid-DoorKey-8x8-v0", 7, 5, 33, False, ("grid", 65)),
+    ("MiniGrid-LockedRoom-v0", 6, 2, 0, False, ("grid", 128)),
+    ("MiniGrid-LockedRoom-v0", 6, 2, 33, False, ("grid", 128)),
+    ("MiniGrid-DoorKey-16x16-v0", 7, 1, 12, True, ("grid", 128)),
+])
+def test_key_vi_grid_route(card, env_id, max_doors, batch, n_sweeps, closed, route):
+    """The grid route through the wrapper, resident (DoorKey-16x16 at two
+    door slots, 13 layouts over 6 groups, so a group runs several in
+    turn; KeyCorridorS3R3 at seven, the layouts of at most seven doors;
+    DoorKey-8x8 at seven, the default max_doors, one row a CTA) and
+    streamed (LockedRoom at six door slots, a 16x16 grid at seven), then
+    the same kernel launched directly on the same masks."""
+    states = _at_most_doors(_states(card, env_id, batch, seed=8), max_doors)
+    target = (states.aux[:, 0], states.aux[:, 1]) if "KeyCorridor" in env_id else (-1, -1)
+    layouts = tkey.extract_key_layout(states, max_doors, *target)
+    if closed:
+        layouts = dataclasses.replace(layouts, door_init=torch.ones_like(layouts.door_init))
+    hw = layouts.base_walk.shape[1] * layouts.base_walk.shape[2]
+    resident = cuda_vi.key_vi_grid_resident(hw + 1, 1 << max_doors, hw)
+    assert resident == (route[1] < cuda_vi.KEY_GRID_MAX_CTAS)
+    got = _key_vi_on_route(layouts, n_sweeps, route)
+    want = tkey.key_vi_values(layouts, GAMMA, n_sweeps)
+    assert n_sweeps < 30 or (want > 0).any()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+    direct = cuda_vi._key_vi_kernel_grid(cuda_vi.key_vi_masks(layouts), GAMMA, n_sweeps, got.shape, route[1])
+    torch.testing.assert_close(direct, want, rtol=0, atol=1e-6)
+    assert cuda_vi.key_vi_grid_active_groups(1 << max_doors, *layouts.base_walk.shape[1:], route[1],
+                                             resident) >= 1
 
 
 @pytest.mark.cuda
@@ -281,6 +327,13 @@ def test_launch_plans_match_the_c_side(card):
             assert key.key_vi_wide_shared_bytes(C, hw, 16, int(in_place)) == (
                 cuda_vi.key_vi_wide_shared_bytes(C, hw, 16, in_place)
             )
+    key.key_vi_grid_shared_bytes.restype = ctypes.c_size_t
+    for hw, C in ((256, 4), (49, 128), (64, 128), (361, 2), (361, 64), (256, 128)):
+        n = cuda_vi.key_vi_grid_ctas(hw + 1, C, hw)
+        resident = cuda_vi.key_vi_grid_resident(hw + 1, C, hw)
+        assert key.key_vi_grid_shared_bytes(C, hw, n, int(resident)) == (
+            cuda_vi.key_vi_grid_shared_bytes(C, hw, n, resident)
+        )
 
 
 @pytest.mark.cuda
