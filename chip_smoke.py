@@ -29,7 +29,7 @@ Phases (any failure raises, exits nonzero and prints no "ok" line):
    the plain version too, and timed beside the wide route in turns
    (global, wide, wide, global), as it is on 512 DoorKey-16x16 layouts at
    96 sweeps, the B2 bench's size (wide against global there, within
-   1e-6).  Then the same 32 layouts at two door slots, where V (4.2 MB a
+   1e-6; the user's call and the plain version timed too, V within 1e-6).  Then the same 32 layouts at two door slots, where V (4.2 MB a
    layout) is too large for 16 CTAs: the grid route through the wrapper
    (groups of 20 CTAs, V resident in their shared memory), and the global
    kernel beside it in turns.  Then 64 DoorKey-8x8 layouts at the default
@@ -104,10 +104,9 @@ Phases (any failure raises, exits nonzero and prints no "ok" line):
    within 1e-6 on the first two layouts at 8 sweeps.
 13. the environment API: ``reset``, ``step`` and ``observation`` at
    B=4096 on DoorKey-8x8, BabyAI-GoToLocal and MemoryS7 for 64 scripted
-   steps on the card, equal at every step (observation, state, flags;
-   the reward within 1e-5: the card divides by the step limit as a
-   multiply by its reciprocal) to the same calls on the CPU, run in
-   worker processes;
+   steps on the card, equal at every step (observation, state, flags,
+   reward, bit for bit) to the same calls on the CPU, run in worker
+   processes;
    DynamicObstacles' balls kept through ``step``; the same at B=1.
 14. PPO throughput at the JAX bench's configuration (BabyAI-GoToDoor,
    32768 envs, T=32, 2 epochs, 8 minibatches): two warm-up updates, then
@@ -127,7 +126,7 @@ Phases (any failure raises, exits nonzero and prints no "ok" line):
    BabyAI-GoToDoor at B=32768 for 32 steps of seeded random actions
    (env-steps/s, peak memory); each of the 15 wrappers at B=256 for 16
    steps, every deterministic one equal on card and CPU at every step
-   (rewards within 1e-5, "angle" within 1e-6), StochasticActionWrapper
+   ("angle" within 1e-6, all else bit for bit), StochasticActionWrapper
    (prob=1.0 is the bare step; at 0.5 the replaced share within 4 sigma,
    no replacement 6) and ReseedWrapper (its cycle) by their invariants.
 17. the BabyAI bot: four envs of each of the 92 solvable BabyAI ids, one
@@ -160,7 +159,13 @@ Phases (any failure raises, exits nonzero and prints no "ok" line):
    layouts from seed 7, two door slots, 128 sweeps); B1's V equal to the
    plain V exactly; the Chrome trace holds B1's kernel and the CLI's
    ``annotate`` ranges.
-21. the kernels line: for each kernel, its launches on the main path (each
+21. the headline bench: ``bench_torch.main`` in-process, its rollouts and
+   PPO at BENCH_SIZES, its DP rows at full size: one JSON line holding
+   every key, every rate finite and positive, B1 and B2's cluster route
+   launched (a warm-up and each timed run) and counted in its
+   ``launches``; B1 and B2 held against their plain versions on the
+   bench's layouts.
+22. the kernels line: for each kernel, its launches on the main path (each
    part of it driven with the counts set to 0 just before and read just
    after), its largest difference from the plain version, the times of
    kernel, plain version and bound, its design and route, and the
@@ -198,7 +203,6 @@ KEY16_BENCH_B, KEY16_BENCH_SWEEPS = 512, 96
 # walkability bytes in shared memory.
 VI_MANY_DOORS = (("MiniGrid-DoorKey-8x8-v0", 3), ("MiniGrid-DoorKey-5x5-v0", 4))
 KEY_ATOL = 1e-6
-RETURN_ATOL = 1e-5
 # Family rollouts, (B, T, pool rounds): BASELINE.json config 4 (LavaCrossing
 # and DynamicObstacles), the JAX bench's per-family sweep (Fetch, Memory),
 # BASELINE.json config 2 (Empty, FourRooms); every other id at FAMILY_OTHER.
@@ -320,6 +324,23 @@ TELEMETRY_N = 4096
 TELEMETRY_IDS = ("MiniGrid-DoorKey-8x8-v0", "MiniGrid-MultiRoom-N6-v0", "BabyAI-GoToLocal-v0")
 HASH_IDS, HASH_B = ("MiniGrid-DoorKey-8x8-v0", "BabyAI-GoToLocal-v0"), 16
 REWARD_RTOL = 1e-6
+# The headline bench (phase 21): bench_torch.FULL with its rollouts and PPO
+# cut to fit about a minute (the DoorKey horizon still past the step limit);
+# the DP rows at full size.
+BENCH_SIZES = {
+    "batch": 16384, "iters": 2, "family_batch": 4096, "family_horizon": 64,
+    "ppo_envs": 4096, "ppo_warmup": 1, "ppo_timed": 2,
+}
+BENCH_KEYS = {
+    *(f"{f}_steps_per_s" for f in (
+        "babyai_gotolocal", "dynamicobstacles_8x8", "obstructedmaze_full_v1", "keycorridor_s6r3",
+        "multiroom_n6", "memory_s17", "babyai_bosslevel", "fetch_8x8_n3",
+    )),
+    "vi_key_sweeps_per_s", "vi_key_cuda_sweeps_per_s", "vi_obstructed_sweeps_per_s",
+    "vi_twokey_sweeps_per_s", "vi_d1_plain_sweeps_per_s", "vi_d1_cuda_sweeps_per_s",
+    "ppo_steps_per_s", "ppo_rollout_s", "ppo_learner_s",
+    "git_rev", "timestamp_utc", "device", "spread", "launches",
+}
 
 PALLAS_VI = "minigrid_dynamicprogramming_tpu/dp/pallas_vi.py"
 GRID_DESIGN = (
@@ -691,7 +712,7 @@ def greedy_optimal(env, states, vals, dists, act, T, L) -> dict:
     require(torch.equal(steps[solvable], dists[solvable].to(steps.dtype)),
             f"{env.env_id}: each in exactly steps_to_go steps")
     r_err = float((rew - want_r)[solvable].abs().max())
-    require(r_err <= RETURN_ATOL, f"{env.env_id}: returns within {RETURN_ATOL} of env_return")
+    require(r_err == 0.0, f"{env.env_id}: returns equal to env_return")
     return {
         "layouts": b, "solved": int(solvable.sum()),
         "steps": [int(dists[solvable].min()), int(dists[solvable].max())],
@@ -796,22 +817,13 @@ def key_families(make, drive, kernel_row, ptxas) -> list:
     return out
 
 
-def box_target(states):
-    """(type, color) of each layout's first box in raster order, as the JAX
-    bench picks BlockedUnlockPickup's target (bench.py:197-203)."""
-    from minigrid_dynamicprogramming_tpu_torch.core.constants import OBJ_BOX
-
-    b = states.grid_obj.shape[0]
-    flat = (states.grid_obj == OBJ_BOX).reshape(b, -1).to(torch.int8).argmax(dim=1)
-    color = states.grid_color.reshape(b, -1).gather(1, flat[:, None])[:, 0]
-    return torch.full_like(color, OBJ_BOX, dtype=torch.int32), color.to(torch.int32)
-
-
 def obstructed_families(make) -> list:
     """Phase 10: the obstructed domain on the card, its greedy policy
     stepped, its V held against the CPU's on the first layouts."""
     import dataclasses
 
+    import bench_torch
+    from minigrid_dynamicprogramming_tpu_torch.core.constants import OBJ_BOX
     from minigrid_dynamicprogramming_tpu_torch.dp import tabular as T
     from minigrid_dynamicprogramming_tpu_torch.dp import tabular_obstructed as TO
     from minigrid_dynamicprogramming_tpu_torch.parallel import lanes as L
@@ -820,8 +832,8 @@ def obstructed_families(make) -> list:
     for seed, env_id in enumerate(OBSTRUCTED):
         fam = make(env_id)
         states = fam.generate(gen(9 + seed), fam.params, OBS_B, device=DEVICE)
-        if "BlockedUnlockPickup" in env_id:
-            t_type, t_color = box_target(states)
+        if "BlockedUnlockPickup" in env_id:  # the box, as the bench picks it
+            t_type, t_color = OBJ_BOX, bench_torch._first_object(states, OBJ_BOX)
         else:
             t_type, t_color = states.aux[:, 0], states.aux[:, 1]
         layouts = TO.extract_obstructed_layout(states, 1, t_type, t_color)
@@ -872,6 +884,7 @@ def twokey_domain(make) -> dict:
     its V held against the CPU's on the first layouts."""
     import dataclasses
 
+    import bench_torch
     from minigrid_dynamicprogramming_tpu_torch.core.constants import OBJ_BALL
     from minigrid_dynamicprogramming_tpu_torch.dp import tabular as T
     from minigrid_dynamicprogramming_tpu_torch.dp import tabular_twokey as TT
@@ -881,8 +894,7 @@ def twokey_domain(make) -> dict:
     states = env.generate(gen(11), env.params, TWOKEY_B, device=DEVICE)
     balls = (states.grid_obj == OBJ_BALL).reshape(TWOKEY_B, -1)
     require(bool((balls.sum(dim=1) == 1).all()), f"{TWOKEY_ENV}: one ball a layout")
-    color = states.grid_color.reshape(TWOKEY_B, -1).gather(1, balls.to(torch.int8).argmax(1, True))[:, 0]
-    layouts = TT.extract_twokey_layout(states, 2, OBJ_BALL, color)
+    layouts = TT.extract_twokey_layout(states, 2, OBJ_BALL, bench_torch._first_object(states, OBJ_BALL))
     hw = layouts.base_walk[0].numel()
     require(bool(((layouts.key0 >= 0) & (layouts.key0 < hw)).all()), "two keys on the grid")
     require(bool((layouts.door_unlockable.sum(dim=2) == 1).all()), "each key opens one door")
@@ -993,12 +1005,7 @@ def env_api(make, workers) -> dict:
         on_cpu = job.result()
         require(set(on_cpu) == set(on_card), f"{name}: card and CPU return the same fields")
         for field, want in on_cpu.items():
-            if field == "reward":
-                err = float(np.abs(on_card[field] - want).max())
-                out[name]["reward_card_vs_cpu_err"] = err
-                require(err <= RETURN_ATOL, f"{name}: card and CPU rewards within {RETURN_ATOL}")
-            else:
-                require(np.array_equal(on_card[field], want), f"{name}: card and CPU agree on {field}")
+            require(np.array_equal(on_card[field], want), f"{name}: card and CPU agree on {field}")
         print(f"[env_api] {name}, card equal to CPU: {out[name]}", flush=True)
 
     # DynamicObstacles: the hook draws from the generator passed to step.
@@ -1221,7 +1228,7 @@ class _Record:
 def wrapper_suite(make, card: str) -> dict:
     """Each of the 15 wrappers at WRAP_B for WRAP_T steps: the deterministic
     ones card against CPU at every step (observations, flags, states and
-    count tables bit for bit, rewards within RETURN_ATOL, "angle" of
+    count tables and rewards bit for bit, "angle" of
     DirectionObsWrapper within 1e-6 since arctan may differ in the last
     ulp); StochasticActionWrapper and ReseedWrapper by their invariants.
     Each prints the card's ms a step, env-steps/s and peak memory."""
@@ -1268,7 +1275,7 @@ def wrapper_suite(make, card: str) -> dict:
             on_card, cpu = c_out[1], p_out[1]
             what = f"{name} t={t}"
             tree_equal(c_out[0], p_out[0], f"{what} obs", close)
-            tree_equal(c_out[2], p_out[2], f"{what} reward", {"reward": RETURN_ATOL})
+            tree_equal(c_out[2], p_out[2], f"{what} reward")
             tree_equal(c_out[3], p_out[3], f"{what} terminated")
             tree_equal(c_out[4], p_out[4], f"{what} truncated")
             tree_equal(on_card, cpu, f"{what} state")
@@ -1650,6 +1657,34 @@ def cli_dp(card: str) -> tuple:
     return reports, {"vi_kernels": vi, "ranges": ranges, "events": len(events), "card": card}
 
 
+def bench_line(card: str) -> dict:
+    """Phase 21: ``bench_torch.main`` at BENCH_SIZES; its one JSON line,
+    every key present, every rate and time finite, every rate positive."""
+    import contextlib
+    import io
+    import math
+
+    import bench_torch
+
+    sizes = {**bench_torch.FULL, **BENCH_SIZES}
+    require(sizes["horizon"] > 640, "the bench's DoorKey horizon crosses the step limit")
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        line = bench_torch.main(sizes, device=DEVICE)
+    lines = printed.getvalue().splitlines()
+    require(len(lines) == 1 and json.loads(lines[0]) == line, "bench_torch printed one JSON line")
+    extra = line["extra"]
+    require(set(extra) == BENCH_KEYS, f"bench_torch's keys: {sorted(set(extra) ^ BENCH_KEYS)} differ")
+    numbers = {"value": line["value"], **{k: v for k, v in extra.items() if k.endswith("_s")}}
+    require(all(math.isfinite(v) for v in numbers.values()), f"finite bench numbers {numbers}")
+    require(all(v > 0 for k, v in numbers.items() if k != "ppo_learner_s"), f"positive rates {numbers}")
+    require(extra["device"]["name"] == torch.cuda.get_device_name(0), "the bench names the card")
+    require(set(extra["spread"]) >= {"env_steps_per_s", "vi_d1_cuda_sweeps_per_s", "vi_key_cuda_sweeps_per_s"},
+            "the bench reports the spread of its timed runs")
+    print(f"[bench_torch] at {BENCH_SIZES} ({card}): {lines[0]}", flush=True)
+    return {"sizes": sizes, "line": line}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write the results as JSON to this file")
@@ -1954,6 +1989,20 @@ def run(args, t_start: float, workers) -> int:
         KEY16_BENCH_SWEEPS, reps=3,
     )
     pair["bound_ms"], pair["bound_by"] = bound(*cuda_vi.key_vi_work(bench16, KEY16_BENCH_SWEEPS))
+    # The user's call (masks, then the wide route) and the plain version.
+    pair["wrapper_ms"] = cuda_ms(
+        lambda: cuda_vi.cuda_key_value_iteration(bench16, GAMMA, KEY16_BENCH_SWEEPS), 3
+    )
+    plain = {}
+    pair["plain_ms"] = cuda_ms(
+        lambda: plain.setdefault("v", TK.key_vi_values(bench16, GAMMA, KEY16_BENCH_SWEEPS)), 1, warmup=0
+    )
+    pair["max_abs_err"] = float(
+        (cuda_vi.cuda_key_value_iteration(bench16, GAMMA, KEY16_BENCH_SWEEPS) - plain.pop("v")).abs().max()
+    )
+    require(pair["max_abs_err"] <= KEY_ATOL, f"B2's wide route within {KEY_ATOL} at 512 DoorKey-16x16 layouts")
+    print(f"[key_vi 16x16, {KEY16_BENCH_B} layouts] wrapper {pair['wrapper_ms']:.4f} ms, plain "
+          f"{pair['plain_ms']:.2f} ms, max|kernel - plain| {pair['max_abs_err']:.3g}", flush=True)
     results["key_vi_global_against_wide"].append(pair)
     del bench16, mb16
 
@@ -2044,7 +2093,7 @@ def run(args, t_start: float, workers) -> int:
     require(bool((rew > 0).all()), "every env reached the goal")
     require(torch.equal(steps, dists.to(steps.dtype)), "each in exactly steps_to_go steps")
     r_err = float((rew - want_r).abs().max())
-    require(r_err <= RETURN_ATOL, f"returns within {RETURN_ATOL} of env_return")
+    require(r_err == 0.0, "returns equal to env_return")
     print(
         f"[greedy] {VI_B} layouts solved optimally: {int(dists.min())}..{int(dists.max())} "
         f"steps, max|return - env_return| {r_err:.3g}",
@@ -2219,10 +2268,59 @@ def run(args, t_start: float, workers) -> int:
     results["cli_dp"] = {"reports": reports, "trace": found}
     del layouts, v, masks
     phase_s["cli_dp"] = time.perf_counter() - t0
-    print(f"[phases 8-20] seconds {phase_s}", flush=True)
+
+    # 21. The headline bench, then B1 and B2 on its layouts.
+    t0 = time.perf_counter()
+    import bench_torch
+
+    results["bench_torch"], counts = drive("bench_torch", lambda: bench_line(card))
+    sizes = results["bench_torch"]["sizes"]
+    runs = 1 + sizes["dp_runs"]  # a warm-up and the timed runs
+    require(counts["vi"] == runs, f"the bench launched B1 {runs} times")
+    require(counts["key_vi"] == runs and counts["key_vi_cluster"] == runs,
+            f"the bench launched B2 {runs} times, on the cluster route")
+    require(results["bench_torch"]["line"]["extra"]["launches"]
+            == {"vi": counts["vi"], "key_vi": {r: counts[f"key_vi_{r}"] for r in cuda_vi.ROUTES}},
+            "the bench's launches are the counts")
+    states = bench_torch._doorkey_states(sizes["vi_batch"], torch.device(DEVICE))
+    layouts = T.extract_layout(states, max_doors=1)
+    n = sizes["vi_sweeps"]
+    v = cuda_vi.cuda_value_iteration(layouts, bench_torch.GAMMA, n)
+    err = float((v - T.vi_values(layouts, bench_torch.GAMMA, n)).abs().max())
+    require(err == 0.0, "B1 equals its plain version on the bench's layouts")
+    masks = cuda_vi.vi_masks(layouts)
+    kernel_row(
+        "vi_bench_torch", f"{CSRC}/vi.cu", f"{PALLAS_VI}:201", counts["vi"], err,
+        lambda: cuda_vi.cuda_value_iteration(layouts, bench_torch.GAMMA, n),
+        lambda: cuda_vi._vi_kernel(masks, bench_torch.GAMMA, n, v.shape),
+        lambda: T.vi_values(layouts, bench_torch.GAMMA, n),
+        cuda_vi.vi_work(layouts, n), reps=10,
+        kernel_route="shared", route_launches={"shared": counts["vi"]}, launcher="bench_torch.py",
+        shape=f"{sizes['vi_batch']} DoorKey-8x8 layouts (seed 11), {n} sweeps, max_doors 1",
+    )
+    states = bench_torch._doorkey_states(sizes["key_batch"], torch.device(DEVICE))
+    key_layouts = TK.extract_key_layout(states, max_doors=1)
+    n = sizes["key_sweeps"]
+    kv = cuda_vi.cuda_key_value_iteration(key_layouts, bench_torch.GAMMA, n)
+    err = float((kv - TK.key_vi_values(key_layouts, bench_torch.GAMMA, n)).abs().max())
+    require(err <= KEY_ATOL, f"B2 within {KEY_ATOL} of its plain version on the bench's layouts")
+    key_masks = cuda_vi.key_vi_masks(key_layouts)
+    kernel_row(
+        "key_vi_bench_torch", f"{CSRC}/key_vi.cu", f"{PALLAS_VI}:452", counts["key_vi"], err,
+        lambda: cuda_vi.cuda_key_value_iteration(key_layouts, bench_torch.GAMMA, n),
+        lambda: cuda_vi._key_vi_kernel(key_masks, bench_torch.GAMMA, n, kv.shape),
+        lambda: TK.key_vi_values(key_layouts, bench_torch.GAMMA, n),
+        cuda_vi.key_vi_work(key_layouts, n), reps=5,
+        kernel_route="cluster", route_launches={r: counts[f"key_vi_{r}"] for r in cuda_vi.ROUTES},
+        launcher="bench_torch.py",
+        shape=f"{sizes['key_batch']} DoorKey-8x8 layouts (seed 11), {n} sweeps, max_doors 1",
+    )
+    del states, layouts, v, masks, key_layouts, kv, key_masks
+    phase_s["bench_torch"] = time.perf_counter() - t0
+    print(f"[phases 8-21] seconds {phase_s}", flush=True)
     results["phase_s"] = phase_s
 
-    # 21. Kernels line, card, ok.
+    # 22. Kernels line, card, ok.
     results["kernels"] = kernels
     results["total_s"] = time.perf_counter() - t_start
     print(f"[chip_smoke] {results['total_s']:.1f} s in all, the build included", flush=True)

@@ -387,6 +387,9 @@ def env_return(v: torch.Tensor, gamma: float, step_count, max_steps: int):
     the optimal policy from a state with ``step_count`` steps taken; 0 if
     out of budget."""
     t_goal = step_count + steps_to_go(v, gamma)
+    if not isinstance(max_steps, torch.Tensor):
+        # A tensor on t_goal's device, as in ops/step.py:success_reward.
+        max_steps = torch.full_like(t_goal, max_steps)
     r = 1.0 - 0.9 * (t_goal / max_steps)
     return torch.where(t_goal <= max_steps, r, 0.0)
 

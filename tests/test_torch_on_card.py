@@ -36,7 +36,10 @@ updates on the card with finite metrics.  The renderer (tiles 8 and 32)
 and a wrapper stack with a count table give the same frames, observations
 and states on both.  A one-rank NCCL group's sharded rollout equals the
 ungrouped rollout from the same seed bit for bit, and a PPO train state
-on the card survives a checkpoint round trip.
+on the card survives a checkpoint round trip.  The success reward and the
+greedy return on the card equal the CPU's bit for bit at every step count
+of every registered step limit, and the headline bench (``bench_torch.py``)
+at a small size times both kernels, B2 on its cluster route.
 """
 
 from __future__ import annotations
@@ -446,8 +449,8 @@ def test_render_card_equals_cpu(card, env_id):
 @pytest.mark.cuda
 def test_wrapper_stack_card_equals_cpu(card):
     """NoDeath over PositionBonus under RGBImgPartialObs on
-    LavaCrossingS9N1: observations, states, count tables and flags equal on
-    the card and on the CPU at every step, rewards within 1e-5."""
+    LavaCrossingS9N1: observations, states, count tables, flags and rewards
+    equal on the card and on the CPU at every step."""
     from minigrid_dynamicprogramming_tpu_torch import wrappers as W
 
     env = W.RGBImgPartialObsWrapper(
@@ -465,7 +468,7 @@ def test_wrapper_stack_card_equals_cpu(card):
         assert torch.equal(state.data.cpu(), cpu.data)
         for f in dataclasses.fields(cpu.inner):
             assert torch.equal(getattr(state.inner, f.name).cpu(), getattr(cpu.inner, f.name)), f.name
-        torch.testing.assert_close(got[2].cpu(), want[2], rtol=0, atol=1e-5)
+        assert torch.equal(got[2].cpu(), want[2])
         assert torch.equal(got[3].cpu(), want[3]) and torch.equal(got[4].cpu(), want[4])
         core = cpu.inner
         pos = core.agent_pos.long()
@@ -527,3 +530,53 @@ def test_checkpoint_round_trip_on_card(card, tmp_path):
     assert torch.equal(got_ts.learner_generator.get_state(), ts.learner_generator.get_state())
     got = ppo._collect(got_ts)[3]
     assert torch.equal(got.actions, want.actions)
+
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    return x.cpu().view(torch.int32)
+
+
+@pytest.mark.cuda
+def test_success_reward_card_equals_cpu(card):
+    """``success_reward`` and ``env_return`` on the card equal the CPU's bit
+    for bit at every step count 0..m of every registered id's step limit m;
+    the old division by the Python number differs on the card."""
+    from minigrid_dynamicprogramming_tpu_torch.ops.step import success_reward
+
+    limits = sorted({port.make(i).params.max_steps for i in port.registered_ids()})
+    assert len(limits) == 44
+    for m in limits:
+        steps = torch.arange(m + 1, dtype=torch.int32)
+        want = success_reward(steps, m)
+        assert torch.equal(_bits(success_reward(steps.to(card), m)), _bits(want)), m
+        d = torch.arange(1, m + 6, dtype=torch.float64)
+        v = (GAMMA ** (d - 1)).to(torch.float32)
+        want_r = ttab.env_return(v, GAMMA, 0, m)
+        assert torch.equal(_bits(ttab.env_return(v.to(card), GAMMA, 0, m)), _bits(want_r)), m
+    steps = torch.arange(641, dtype=torch.int32)
+    old = 1.0 - 0.9 * (steps.to(card).to(torch.float32) / 640)
+    assert not torch.equal(_bits(old), _bits(success_reward(steps, 640)))
+
+
+@pytest.mark.cuda
+def test_bench_on_card_goes_through_the_kernels(card):
+    """``bench_torch.main`` at a small size on the card: both kernel rows,
+    B1 and B2 (on the cluster route) each launched for the warm-up and the
+    timed runs."""
+    import bench_torch
+
+    small = {
+        **bench_torch.FULL,
+        "batch": 1024, "horizon": 64, "pool_rounds": 2, "iters": 2,
+        "family_batch": 256, "family_horizon": 16,
+        "vi_batch": 64, "vi_sweeps": 16, "key_batch": 64, "key_sweeps": 16,
+        "obstructed_batch": 1, "obstructed_sweeps": 4, "twokey_batch": 1, "twokey_sweeps": 4,
+        "dp_runs": 2, "ppo_envs": 512, "ppo_len": 8, "ppo_warmup": 1, "ppo_timed": 2,
+    }
+    extra = bench_torch.main(small, device=card)["extra"]
+    assert extra["vi_d1_cuda_sweeps_per_s"] > 0 and extra["vi_key_cuda_sweeps_per_s"] > 0
+    assert extra["launches"] == {
+        "vi": 3, "key_vi": {r: 3 if r == "cluster" else 0 for r in cuda_vi.ROUTES},
+    }
+    assert extra["device"]["name"] == torch.cuda.get_device_name(0)
+    assert {"vi_d1_cuda_sweeps_per_s", "vi_key_cuda_sweeps_per_s"} <= set(extra["spread"])

@@ -38,6 +38,7 @@ import pkgutil, sys
 import minigrid_dynamicprogramming_tpu_torch as pkg
 for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     __import__(m.name)
+import bench_torch  # the repository root's bench, beside the package
 jax_pkg = "minigrid_dynamicprogramming_tpu"
 bad = sorted(
     n for n in sys.modules
@@ -45,7 +46,9 @@ bad = sorted(
     or n == jax_pkg or n.startswith(jax_pkg + ".")
 )
 print(" ".join(["imported"] + bad))
-print(" ".join(["modules"] + sorted(n for n in sys.modules if n.startswith(pkg.__name__))))
+print(" ".join(["modules"] + sorted(
+    n for n in sys.modules if n.startswith(pkg.__name__) or n == "bench_torch"
+)))
 """
 
 # Modules the fresh-process import must reach, with everything else.
@@ -72,6 +75,7 @@ MUST_IMPORT = [
     "minigrid_dynamicprogramming_tpu_torch.utils.profiling",
     "minigrid_dynamicprogramming_tpu_torch.manual_control",
     "minigrid_dynamicprogramming_tpu_torch.docs_gen",
+    "bench_torch",
 ] + [
     f"minigrid_dynamicprogramming_tpu_torch.envs.babyai.{m}"
     for m in ("core", "level", "goto", "open", "pickup", "unlock", "other", "levelgen")
