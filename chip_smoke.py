@@ -13,6 +13,13 @@ Phases (any failure raises, exits nonzero and prints no "ok" line):
 2. rollout: ``lane_rollout`` on DoorKey-8x8 at B=65536, T=768, four pool
    rounds, layouts generated on the card.  T is above max_steps=640, so
    every lane resets.  The pool's layouts must hold DoorKey's invariants.
+   The rollout must capture its step as one CUDA graph (it prints the
+   capture's ms and its memory pool's bytes).
+2a. graph against eager: one pool of that shape stepped T=768 times by
+   the graphed scan and by ``_lane_scan_eager`` (the same step in a Python
+   loop), in turns (graphed, eager, eager, graphed), from generators in
+   the same state: every result, and each generator's next draw, equal
+   bit for bit; ms a step of each run, capture ms, the pool's bytes.
 3. B1: ``tabular.solve`` on 1024 DoorKey-8x8 layouts, 128 sweeps, at
    max_doors 1 and 2; the kernel's V must equal the plain version's
    exactly.  Then the kernel's other two ways of holding walkability, also
@@ -46,6 +53,9 @@ Phases (any failure raises, exits nonzero and prints no "ok" line):
    limits are below T, so every lane resets); Fetch-8x8-N3 and
    MemoryS17Random at B=16384, T=256; Empty-8x8 and FourRooms at B=4096,
    T=256; every other id at B=4096, T=64.  Each prints its env-steps/s.
+   Each rollout equals ``_lane_scan_eager`` on the same pool from the same
+   generator state bit for bit, the generators' next draws too; each
+   prints the ms a step of both, its capture's ms and its pool's bytes.
    For every id whose hooks draw nothing, the rollout's first CPU_LANES
    lanes are replayed on the CPU (the path the CPU tests hold against
    JAX) from the same pool with the same actions, in worker processes
@@ -555,6 +565,67 @@ def check_dynamic_obstacles(ls, params, n_obs: int) -> torch.Tensor:
     return ok
 
 
+def rollouts_equal(L, a, b, what: str) -> None:
+    """Two rollout results equal bit for bit: every field of the final
+    state, the resets per lane and the summed scalars."""
+    for n in L._FIELDS:
+        require(torch.equal(getattr(a.final_state, n), getattr(b.final_state, n)),
+                f"{what}: final {n} equal")
+    require(torch.equal(a.resets_per_env, b.resets_per_env), f"{what}: resets per lane equal")
+    for n in ("total_reward", "episodes", "successes", "failures", "obs_checksum"):
+        require(torch.equal(getattr(a, n), getattr(b, n)), f"{what}: {n} equal")
+
+
+def next_draw(g: torch.Generator) -> torch.Tensor:
+    return torch.randint(0, 1 << 30, (16,), generator=g, device=DEVICE)
+
+
+def graph_against_eager(env, L, card: str) -> dict:
+    """Phase 2a: one pool of the headline's shape stepped ROLLOUT_T times
+    by ``_lane_scan`` (the step captured once as a CUDA graph, then
+    replayed) and by ``_lane_scan_eager`` (the same step in a Python
+    loop), in turns (graphed, eager, eager, graphed), each drawing its
+    actions from a generator in the same state: every result equals the
+    first eager one bit for bit, as does each generator's next draw.
+    Host seconds and ms a step of each run, the capture's ms and its
+    memory pool's bytes."""
+    dev = torch.device(DEVICE)
+    pool = L._lane_pool(env, gen(2), ROLLOUT_B, "pool", POOL_ROUNDS, dev)
+    start = gen(3).get_state()
+    runs = []
+    for graphed in (True, False, False, True):
+        g = torch.Generator(device=DEVICE).set_state(start)
+        scan = L._lane_scan if graphed else L._lane_scan_eager
+        captures = L._lane_scan.captures
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = scan(env, g, pool, ROLLOUT_B, ROLLOUT_T, "pool", POOL_ROUNDS)
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        require(L._lane_scan.captures == captures + graphed, "one capture a graphed scan")
+        run = {"graphed": graphed, "s": s, "ms_per_step": 1e3 * s / ROLLOUT_T}
+        if graphed:
+            run.update(capture_ms=L._lane_scan.capture_ms, graph_pool_bytes=L._lane_scan.pool_bytes)
+        runs.append((run, res, next_draw(g)))
+    _, want, want_next = runs[1]
+    for k, (run, res, nxt) in enumerate(runs):
+        rollouts_equal(L, res, want, f"graph against eager, run {k}")
+        require(torch.equal(nxt, want_next), f"run {k}: the generator's next draw equal")
+    require(int(want.resets_per_env.min()) >= 1, "every lane reset")
+    out = {"B": ROLLOUT_B, "T": ROLLOUT_T, "pool_rounds": POOL_ROUNDS, "card": card,
+           "runs": [run for run, _, _ in runs]}
+    print(
+        f"[graph] B={ROLLOUT_B} T={ROLLOUT_T}: graphed, eager, eager, graphed equal bit for bit, "
+        "generators too; ms a step "
+        + ", ".join(f"{run['ms_per_step']:.4f}" for run in out["runs"])
+        + "; capture ms "
+        + ", ".join(f"{run['capture_ms']:.3f}" for run in out["runs"] if run["graphed"])
+        + f"; graph pool {out['runs'][0]['graph_pool_bytes']} bytes ({card})",
+        flush=True,
+    )
+    return out
+
+
 def replay_summary(L, params, final, resets) -> dict:
     """What the card-against-CPU check compares, as numpy: the final state
     of some lanes, their observation and their resets."""
@@ -578,8 +649,12 @@ def cpu_replay(env_id: str, pool: dict, acts: np.ndarray, rounds: int) -> dict:
     return replay_summary(L, env.params, res.final_state, res.resets_per_env)
 
 
-def family_rollouts(make, L, card: str, ids, runs: dict, seed: int, workers) -> dict:
+def family_rollouts(make, L, card: str, ids, runs: dict, seed: int, workers,
+                    against_eager: bool = False) -> dict:
     """Phases 6, 8 and 11: each id at its ``runs`` size (else FAMILY_OTHER);
+    with ``against_eager`` (phase 6), the graphed rollout against
+    ``_lane_scan_eager`` on the same pool from the same generator state,
+    bit for bit, the generators' next draws too;
     the card-against-CPU check of each id whose hooks draw nothing: the
     rollout's first CPU_LANES lanes, replayed on the CPU from the same pool
     with the same actions by ``workers`` (a process pool) while the card
@@ -610,6 +685,8 @@ def family_rollouts(make, L, card: str, ids, runs: dict, seed: int, workers) -> 
             "failures": int(res.failures), "total_reward": float(res.total_reward),
             "card": card,
         }
+        captures, entry["capture_ms"] = L._lane_scan.captures, L._lane_scan.capture_ms
+        entry["graph_pool_bytes"] = L._lane_scan.pool_bytes
         # The same pool and the run's actions, drawn again from the
         # generator's state (hooks that draw nothing leave it alone).
         t0 = time.perf_counter()
@@ -624,6 +701,22 @@ def family_rollouts(make, L, card: str, ids, runs: dict, seed: int, workers) -> 
             del flat
         else:
             pool = L._lane_pool(env, g_again, B, "pool", R, dev)
+        if against_eager:
+            torch.cuda.synchronize()
+            pool_s = time.perf_counter() - t0
+            g_eager = torch.Generator(device=DEVICE).set_state(g_again.get_state())
+            t1 = time.perf_counter()
+            eager = L._lane_scan_eager(env, g_eager, pool, B, T, "pool", R)
+            torch.cuda.synchronize()
+            eager_s = time.perf_counter() - t1
+            require(L._lane_scan.captures == captures, f"{env_id}: the eager loop captures nothing")
+            rollouts_equal(L, res, eager, f"{env_id}: graphed against eager")
+            require(torch.equal(next_draw(g), next_draw(g_eager)),
+                    f"{env_id}: the generators' next draws equal")
+            entry["graphed_ms_per_step"] = 1e3 * (s - pool_s) / T
+            entry["eager_ms_per_step"] = 1e3 * eager_s / T
+            del eager
+            t0 = time.perf_counter()
         if hooked and env.hook_rng:
             n_obs = int((pool.grid_obj[0, :, 0] == OBJ_BALL).sum())
             require(bool(check_dynamic_obstacles(res.final_state, env.params, n_obs).all()),
@@ -648,7 +741,10 @@ def family_rollouts(make, L, card: str, ids, runs: dict, seed: int, workers) -> 
             + ("replayed" if "card_equals_cpu" in entry else f"dyn_obs {entry['dyn_obs']}")
             + (f"; {entry['accepted_attempts']} attempts accepted for {R * B} layouts"
                if "accepted_attempts" in entry else "")
-            + f"; replay queued in {entry['check_s']:.3f} s",
+            + f"; replay queued in {entry['check_s']:.3f} s"
+            + (f"; equal to the eager loop, ms a step graphed {entry['graphed_ms_per_step']:.4f} "
+               f"(capture {entry['capture_ms']:.3f} ms, pool {entry['graph_pool_bytes']} bytes), "
+               f"eager {entry['eager_ms_per_step']:.4f}" if against_eager else ""),
             flush=True,
         )
         out[env_id] = entry
@@ -1752,6 +1848,7 @@ def run(args, t_start: float, workers) -> int:
     torch.cuda.synchronize()
     g = gen(1)
     g_pool = torch.Generator(device=DEVICE).set_state(g.get_state())
+    captures = L._lane_scan.captures
     t0 = time.perf_counter()
     res, _ = drive(
         "rollout",
@@ -1760,6 +1857,8 @@ def run(args, t_start: float, workers) -> int:
         ),
     )
     rollout_s = time.perf_counter() - t0
+    require(L._lane_scan.captures == captures + 1, "the rollout captured its step as one CUDA graph")
+    capture_ms, graph_pool_bytes = L._lane_scan.capture_ms, L._lane_scan.pool_bytes
     # The same pool again, from the same generator state, timed and checked.
     t0 = time.perf_counter()
     pool = L._lane_pool(env, g_pool, ROLLOUT_B, "pool", POOL_ROUNDS, torch.device(DEVICE))
@@ -1775,7 +1874,9 @@ def run(args, t_start: float, workers) -> int:
         f"[rollout] B={ROLLOUT_B} T={ROLLOUT_T} pool={POOL_ROUNDS}: {rollout_s:.3f} s "
         f"({steps_per_s:.4g} env-steps/s incl. generating the pool, which alone takes "
         f"{pool_s:.3f} s); episodes {episodes}, total reward {float(res.total_reward):.1f}, "
-        f"resets per lane >= {int(res.resets_per_env.min())}, {n_layouts} pool layouts valid",
+        f"resets per lane >= {int(res.resets_per_env.min())}, {n_layouts} pool layouts valid; "
+        f"the step captured as one CUDA graph in {capture_ms:.3f} ms, its pool "
+        f"{graph_pool_bytes} bytes",
         flush=True,
     )
     results["rollout"] = {
@@ -1783,8 +1884,12 @@ def run(args, t_start: float, workers) -> int:
         "env_steps_per_s": steps_per_s, "pool_s": pool_s,
         "steps_per_s_after_pool": ROLLOUT_B * ROLLOUT_T / (rollout_s - pool_s),
         "episodes": episodes, "total_reward": float(res.total_reward),
+        "capture_ms": capture_ms, "graph_pool_bytes": graph_pool_bytes,
     }
     del res, pool
+
+    # 2a. The graphed step against the eager loop, on the headline's shape.
+    results["graph_against_eager"] = graph_against_eager(env, L, card)
 
     kernels = []
 
@@ -2106,7 +2211,8 @@ def run(args, t_start: float, workers) -> int:
            if i.startswith("MiniGrid-") and "DoorKey" not in i and not i.startswith(ROOMGRID_PREFIXES)]
     require(len(ids) == 45, f"45 MiniGrid ids of phase 6 ({len(ids)})")
     results["families"], counts = drive(
-        "family rollouts", lambda: family_rollouts(make, L, card, ids, FAMILY_RUNS, 100, workers)
+        "family rollouts",
+        lambda: family_rollouts(make, L, card, ids, FAMILY_RUNS, 100, workers, against_eager=True),
     )
     require(not any(counts.values()), "the family rollouts launch no VI kernel")
 

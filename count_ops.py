@@ -10,8 +10,10 @@ card.  Run from the repository root, on any machine:
 
 For each id (by default DoorKey-8x8, KeyCorridorS3R1, GoToLocal and
 BossLevel) it prints the operators of one step of the lane-major rollout
-loop and of its parts: the core transition, the id's post-step hook (the
-BabyAI verifier), the observation.  Then those of one sweep of the two-key
+(``lanes._Scan.step``, the step that the card captures as a CUDA graph,
+with its writes into the carry; a field's copy onto itself is counted
+but launches nothing) and of its parts: the core transition, the id's
+post-step hook (the BabyAI verifier), the observation.  Then those of one sweep of the two-key
 domain on an UnlockToUnlock layout, and how many of them write a full
 (N, K1, K2, Cd, H, W) block.  Views (reshape, select, expand and the like)
 launch no kernel and are not counted, but for the sweep's total with
@@ -71,8 +73,9 @@ def step_counts(env_id: str) -> dict:
     ls = L.LaneState(**{n: getattr(pool, n)[0] for n in L._FIELDS})
     act = torch.randint(0, env.action_dim, (64,), generator=g, dtype=torch.int32)
     new, reward, term = L.step_lanes(env.params, ls, act)
+    scan = L._Scan(env, g, pool, 64, 1, "pool", 2, None)
     out = {
-        "rollout step": count(lambda: L._lane_scan(env, g, pool, 64, 1, "pool", 2)).total,
+        "rollout step": count(lambda: scan.step(scan.carry)).total,
         "core transition": count(lambda: L.step_lanes(env.params, ls, act)).total,
         "observation": count(lambda: L.obs_lanes(env.params, ls)).total,
     }

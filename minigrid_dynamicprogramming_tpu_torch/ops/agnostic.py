@@ -72,11 +72,11 @@ def write_cell(params: EnvParams, ls: LaneState, x, y, do, **values) -> LaneStat
         if params.opt(flag, False):
             values = {k: v for k, v in values.items() if k not in fields}
     inside, idx = _cell(params, x, y, ls.grid_obj.device)
-    hit = inside & torch.as_tensor(do, device=idx.device)
+    hit = inside & do
     upd = {}
     for name, val in values.items():
         plane = getattr(ls, name)
-        new = torch.where(hit, torch.as_tensor(val, device=plane.device), _read(plane, idx))
+        new = torch.where(hit, val, _read(plane, idx))
         upd[name] = _write(plane, idx, new)
     return ls.replace(**upd)
 

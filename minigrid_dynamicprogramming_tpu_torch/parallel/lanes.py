@@ -16,11 +16,18 @@ the output is bit-identical to ``obs_image_lanes`` in JAX.
 Unsigned JAX dtypes are widened (see ``core/state.py``): marks are int32,
 and the observation checksum is an int64 sum reduced mod 2**32, which
 equals JAX's wrapping uint32 sum.
+
+JAX runs a rollout's horizon as one compiled ``lax.scan``.  Here one step
+of it (``_Scan.step``) reads and writes only tensors of fixed address,
+with its step index on the device, so that on a CUDA device
+``_lane_scan`` captures it once as a CUDA graph and replays it; on the
+CPU the same step runs in a Python loop (``_lane_scan_eager``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from dataclasses import dataclass
 from typing import NamedTuple, Optional, Tuple
 
@@ -382,7 +389,7 @@ def obs_lanes(params: EnvParams, ls: LaneState):
     color[agent_cell] = torch.where(
         ls.carrying_obj == OBJ_EMPTY, 0, ls.carrying_color
     ).to(_U8)
-    obj_state[agent_cell] = 0
+    obj_state[agent_cell].zero_()
     return obj, color, obj_state, vis
 
 
@@ -560,7 +567,8 @@ def lane_rollout(
     ``torch.Generator`` on ``device``); ``actions``, if given, is a
     ``(horizon, batch_size)`` integer tensor used instead of the draws.
     The observation encoder runs every step and is folded into
-    ``obs_checksum``, so the steps/s include observations.
+    ``obs_checksum``, so the steps/s include observations.  On a CUDA
+    device the step runs as one captured CUDA graph (``_lane_scan``).
 
     With a ``group`` (``parallel/sharding.py``) each rank runs its
     ``batch_size / N`` lanes on ``group.device`` (``device`` is not read),
@@ -631,6 +639,183 @@ def stack_rounds(flat: EnvState, batch_size: int, rounds: int) -> LaneState:
     )
 
 
+class _Carry(NamedTuple):
+    """The tensors that one step of the scan reads and writes, each at a
+    fixed address: the state and reset counts it carries, the step index
+    ``t`` on the device, and the per-step outputs that it writes at ``t``."""
+
+    ls: LaneState
+    reset_count: torch.Tensor  # (B,) i32
+    t: torch.Tensor  # () i64
+    rewards: torch.Tensor  # (T,) f32
+    dones: torch.Tensor  # (T,) i64
+    wins: torch.Tensor  # (T,) i64
+    ends: torch.Tensor  # (T,) i64
+    checksums: torch.Tensor  # (T,) i64
+
+    def clone(self) -> "_Carry":
+        return _Carry(_clone_lanes(self.ls), *(x.clone() for x in self[1:]))
+
+
+def _clone_lanes(ls: LaneState) -> LaneState:
+    return LaneState(**{name: getattr(ls, name).clone() for name in _FIELDS})
+
+
+class _Scan:
+    """One rollout's scan: ``_lane_scan``'s set-up, and its step, which
+    reads the pool, the given actions and the generator, and writes
+    nothing but a carry's tensors.  Its one host-side choice is the
+    step's own shape (the mode, the skipped fields, the hooks), so the
+    step can be captured once and replayed."""
+
+    def __init__(
+        self,
+        env: Environment,
+        generator: Optional[torch.Generator],
+        pool: LaneState,
+        batch_size: int,
+        horizon: int,
+        autoreset: str,
+        pool_rounds: int,
+        actions: Optional[torch.Tensor],
+    ):
+        self.rounds = _rounds(autoreset, pool_rounds)
+        self.device = dev = pool.grid_obj.device
+        if actions is None:
+            if generator is None:
+                raise ValueError("pass a generator or an actions tensor")
+        elif tuple(actions.shape) != (horizon, batch_size):
+            raise ValueError(
+                f"actions must be ({horizon}, {batch_size}), got {tuple(actions.shape)}"
+            )
+        hooked = env.pre_step_lanes is not None or env.post_step_lanes is not None
+        if hooked and env.hook_rng and generator is None:
+            raise ValueError(f"{env.env_id}: its hooks draw; pass a generator")
+        self.env, self.generator, self.pool = env, generator, pool
+        self.batch_size, self.horizon, self.autoreset = batch_size, horizon, autoreset
+        self.hook_gen = generator if hooked and env.hook_rng else None
+        self.actions = None if actions is None else actions.to(dev)
+        self.skip = _skip_fields(env.params)
+        self.init_ls = LaneState(**{name: getattr(pool, name)[0] for name in _FIELDS})
+
+        def empty(dtype):
+            return torch.empty(horizon, dtype=dtype, device=dev)
+
+        # The carried state is a copy: the step writes into it, and in
+        # "cached" mode it reads the pool's round 0 as its fresh layouts.
+        self.carry = _Carry(
+            ls=_clone_lanes(self.init_ls),
+            reset_count=torch.zeros(batch_size, dtype=torch.int32, device=dev),
+            t=torch.zeros((), dtype=torch.int64, device=dev),
+            rewards=empty(torch.float32),
+            dones=empty(torch.int64),
+            wins=empty(torch.int64),
+            ends=empty(torch.int64),
+            checksums=empty(torch.int64),
+        )
+
+    def step(self, c: _Carry) -> None:
+        """One step of JAX's scan body, in its order, on the carry ``c``."""
+        env = self.env
+        t = c.t.view(1)
+        if self.actions is None:
+            act = torch.randint(
+                0, env.action_dim, (self.batch_size,), generator=self.generator,
+                device=self.device, dtype=torch.int32,
+            )
+        else:
+            act = self.actions.index_select(0, t)[0]
+        ls, reward, term = step_lanes_env(env, c.ls, act, self.hook_gen)
+        done = term | ls.truncated
+        reset_count = c.reset_count + done.to(torch.int32)
+        if self.autoreset == "pool":
+            fresh = _select_pool(self.pool, reset_count % self.rounds, self.rounds, self.skip)
+        else:
+            fresh = self.init_ls
+        ls = _select_lanes(done, fresh, ls, self.skip)
+        obj, color, obj_state, vis = obs_lanes(env.params, ls)
+        seen = (obj.to(torch.int64) + color + obj_state) * vis
+        c.checksums.index_copy_(0, t, seen.sum().view(1))
+        c.rewards.index_copy_(0, t, reward.sum().view(1))
+        c.dones.index_copy_(0, t, done.sum().view(1))
+        c.wins.index_copy_(0, t, (term & (reward > 0)).sum().view(1))
+        c.ends.index_copy_(0, t, term.sum().view(1))
+        # A field the step left alone is the carry's own tensor: its copy
+        # onto itself does nothing.
+        for name in _FIELDS:
+            getattr(c.ls, name).copy_(getattr(ls, name))
+        c.reset_count.copy_(reset_count)
+        c.t.add_(1)
+
+    def run_eager(self) -> None:
+        for _ in range(self.horizon):
+            self.step(self.carry)
+
+    def capture(self) -> torch.cuda.CUDAGraph:
+        """``step`` on the carry, captured as a CUDA graph in a memory pool
+        of its own; each replay is one step.  The warm-up that comes
+        before a capture steps a copy of the carry, and the generator is
+        put back where it was, so the replays draw what the eager loop
+        would.  A failed capture raises."""
+        dev = self.device
+        draws = self.actions is None or self.hook_gen is not None
+        gen = self.generator if draws else None
+        saved = None if gen is None else gen.get_state()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self.step(self.carry.clone())
+        torch.cuda.current_stream(dev).wait_stream(side)
+        if gen is not None:
+            gen.set_state(saved)
+
+        graph = torch.cuda.CUDAGraph()
+        if gen is not None:
+            graph.register_generator_state(gen)
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        t0 = time.perf_counter()
+        with torch.cuda.graph(graph):
+            self.step(self.carry)
+        _lane_scan.capture_ms = 1e3 * (time.perf_counter() - t0)
+        _lane_scan.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        _lane_scan.captures += 1
+        return graph
+
+    def run_graph(self) -> None:
+        """The step captured once and replayed ``horizon`` times; the
+        graph and its pool are freed before the call returns.  A horizon
+        of 0 captures nothing (its outputs have no slot to write)."""
+        if not self.horizon:
+            return
+        graph = self.capture()
+        try:
+            for _ in range(self.horizon):
+                graph.replay()
+        finally:
+            graph.reset()
+
+    def result(self, group: Optional[EnvGroup]) -> LaneRolloutResult:
+        """The horizon's sums, over the group's ranks where there is one."""
+        c = self.carry
+        total_reward = all_reduce(c.rewards.sum(), group)
+        counts = all_reduce(
+            torch.stack([c.dones.sum(), c.wins.sum(), c.ends.sum(), c.checksums.sum()]), group
+        )
+        episodes, successes, terminations, checksum = counts.unbind()
+        return LaneRolloutResult(
+            final_state=c.ls,
+            total_reward=total_reward,
+            episodes=episodes,
+            steps=self.batch_size * self.horizon * (group.world_size if group is not None else 1),
+            obs_checksum=checksum % (1 << 32),
+            resets_per_env=c.reset_count,
+            successes=successes,
+            failures=terminations - successes,
+        )
+
+
 def _lane_scan(
     env: Environment,
     generator: Optional[torch.Generator],
@@ -646,68 +831,46 @@ def _lane_scan(
     The hooks draw from ``generator`` after each step's actions, and only
     where ``env.hook_rng``.
 
+    On a CUDA device the step is captured once as a CUDA graph and
+    replayed ``horizon`` times, as JAX compiles its scan into one program;
+    elsewhere it runs in a Python loop (``_lane_scan_eager``).  Both give
+    the same result bit for bit, and leave ``generator`` at the same
+    state.  ``_lane_scan.captures`` counts the captures, and
+    ``capture_ms`` and ``pool_bytes`` hold the last one's host time and
+    its memory pool's size.
+
     With a ``group``, ``pool`` and ``actions`` are this rank's
     ``batch_size`` lanes; ``total_reward``, ``episodes``, ``successes``,
     ``failures`` and the checksum (its int64 sum, before the modulus) are
     summed over the ranks, and ``steps`` counts every rank's.
     ``final_state`` and ``resets_per_env`` stay the rank's own."""
-    rounds = _rounds(autoreset, pool_rounds)
-    dev = pool.grid_obj.device
-    if actions is None:
-        if generator is None:
-            raise ValueError("pass a generator or an actions tensor")
-    elif tuple(actions.shape) != (horizon, batch_size):
-        raise ValueError(
-            f"actions must be ({horizon}, {batch_size}), got {tuple(actions.shape)}"
-        )
-    params = env.params
-    hooked = env.pre_step_lanes is not None or env.post_step_lanes is not None
-    hook_gen = generator if hooked and env.hook_rng else None
-    if hooked and env.hook_rng and generator is None:
-        raise ValueError(f"{env.env_id}: its hooks draw; pass a generator")
-    skip = _skip_fields(params)
-    init_ls = LaneState(**{name: getattr(pool, name)[0] for name in _FIELDS})
+    scan = _Scan(env, generator, pool, batch_size, horizon, autoreset, pool_rounds, actions)
+    if scan.device.type == "cuda":
+        scan.run_graph()
+    else:
+        scan.run_eager()
+    return scan.result(group)
 
-    ls = init_ls
-    reset_count = torch.zeros(batch_size, dtype=torch.int32, device=dev)
-    rewards = torch.empty(horizon, dtype=torch.float32, device=dev)
-    dones = torch.empty(horizon, dtype=torch.int64, device=dev)
-    wins = torch.empty(horizon, dtype=torch.int64, device=dev)
-    ends = torch.empty(horizon, dtype=torch.int64, device=dev)
-    checksums = torch.empty(horizon, dtype=torch.int64, device=dev)
-    for t in range(horizon):
-        if actions is None:
-            act = torch.randint(
-                0, env.action_dim, (batch_size,), generator=generator,
-                device=dev, dtype=torch.int32,
-            )
-        else:
-            act = actions[t].to(dev)
-        ls, reward, term = step_lanes_env(env, ls, act, hook_gen)
-        done = term | ls.truncated
-        reset_count = reset_count + done.to(torch.int32)
-        if autoreset == "pool":
-            fresh = _select_pool(pool, reset_count % rounds, rounds, skip)
-        else:
-            fresh = init_ls
-        ls = _select_lanes(done, fresh, ls, skip)
-        obj, color, obj_state, vis = obs_lanes(params, ls)
-        seen = (obj.to(torch.int64) + color + obj_state) * vis
-        checksums[t] = seen.sum()
-        rewards[t] = reward.sum()
-        dones[t] = done.sum()
-        wins[t] = (term & (reward > 0)).sum()
-        ends[t] = term.sum()
-    total_reward = all_reduce(rewards.sum(), group)
-    counts = all_reduce(torch.stack([dones.sum(), wins.sum(), ends.sum(), checksums.sum()]), group)
-    episodes, successes, terminations, checksum = counts.unbind()
-    return LaneRolloutResult(
-        final_state=ls,
-        total_reward=total_reward,
-        episodes=episodes,
-        steps=batch_size * horizon * (group.world_size if group is not None else 1),
-        obs_checksum=checksum % (1 << 32),
-        resets_per_env=reset_count,
-        successes=successes,
-        failures=terminations - successes,
-    )
+
+_lane_scan.captures = 0
+_lane_scan.capture_ms = 0.0
+_lane_scan.pool_bytes = 0
+
+
+def _lane_scan_eager(
+    env: Environment,
+    generator: Optional[torch.Generator],
+    pool: LaneState,
+    batch_size: int,
+    horizon: int,
+    autoreset: str,
+    pool_rounds: int,
+    actions: Optional[torch.Tensor] = None,
+    group: Optional[EnvGroup] = None,
+) -> LaneRolloutResult:
+    """:func:`_lane_scan` with its step run in a Python loop on any
+    device: the plain version that the graphed scan is held to on the
+    card."""
+    scan = _Scan(env, generator, pool, batch_size, horizon, autoreset, pool_rounds, actions)
+    scan.run_eager()
+    return scan.result(group)

@@ -12,10 +12,13 @@ the card's name and power limit, then:
 * the device time of each part of a rollout step (transition, autoreset
   select, observation and checksum), each timed alone with CUDA events on
   the same state, over 32 repetitions;
-* for 32 steps of the rollout loop: the wall time per step without the
-  profiler, and under ``torch.profiler`` the kernel time and kernels
-  launched per step and the ten kernels that take the most device time.
-  The device's busy share is the profiler's kernel time over the wall time
+* for 32 steps of the rollout loop, eager (``lanes._lane_scan_eager``) and
+  as the rollout runs on a card (the step captured once as a CUDA graph,
+  then replayed a step at a time): the wall time per step without the
+  profiler, and under ``torch.profiler`` the kernel time, kernels and
+  graph launches per step and the ten kernels that take the most device
+  time; and the capture's host time and its memory pool's bytes.  The
+  device's busy share is the profiler's kernel time over the wall time
   of the same loop run without the profiler.
 * for one PPO update at ``chip_smoke.py``'s throughput configuration
   (BabyAI-GoToDoor, 32768 envs, T=32, 2 epochs x 8 minibatches, bf16): the
@@ -81,18 +84,21 @@ def profiled(fn, label: str, per: int, results: dict) -> None:
     ]
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     launches = sum(e.count for e in kernels)
+    graphs = sum(e.count for e in prof.key_averages() if e.key == "cudaGraphLaunch")
     out = results[label] = dict(
         wall_ms=wall_ms / per,
         profiled_wall_ms=profiled_ms / per,
         device_ms=device_ms / per,
         busy_share=device_ms / wall_ms,
         kernels=launches / per,
+        graph_launches=graphs / per,
         top_kernels=[],
     )
     print(
         f"[{label}] {wall_ms / per:.4f} ms on the host clock ({profiled_ms / per:.4f} ms under "
         f"the profiler), {device_ms / per:.4f} ms of kernels, busy share "
-        f"{device_ms / wall_ms:.4f}, {launches / per:.1f} kernels",
+        f"{device_ms / wall_ms:.4f}, {launches / per:.1f} kernels, "
+        f"{graphs / per:.1f} graph launches",
         flush=True,
     )
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
@@ -210,10 +216,25 @@ def main(argv=None) -> int:
         results["parts_ms"][name] = ms
         print(f"[part] {name}: {ms:.4f} ms per step")
 
-    L._lane_scan(env, g, pool, b, 4, "pool", POOL_ROUNDS)  # warm-up
-    profiled(lambda: L._lane_scan(env, g, pool, b, steps, "pool", POOL_ROUNDS),
-             f"rollout loop, B={b}, per step", steps, results)
-    del pool, ls
+    L._lane_scan_eager(env, g, pool, b, 4, "pool", POOL_ROUNDS)  # warm-up
+    profiled(lambda: L._lane_scan_eager(env, g, pool, b, steps, "pool", POOL_ROUNDS),
+             f"eager rollout loop, B={b}, per step", steps, results)
+    # The step as the rollout runs it on the card: captured once, then
+    # replayed; profiled() replays it twice over ``steps`` steps.
+    scan = L._Scan(env, g, pool, b, 2 * steps, "pool", POOL_ROUNDS, None)
+    graph = scan.capture()
+    results["capture_ms"] = L._lane_scan.capture_ms
+    results["graph_pool_bytes"] = L._lane_scan.pool_bytes
+    print(f"[graph] captured in {L._lane_scan.capture_ms:.3f} ms, its memory pool "
+          f"{L._lane_scan.pool_bytes} bytes", flush=True)
+
+    def replay():
+        for _ in range(steps):
+            graph.replay()
+
+    profiled(replay, f"graphed rollout loop, B={b}, per step", steps, results)
+    graph.reset()
+    del pool, ls, scan, graph
     profile_ppo(results)
     profile_render(results)
     profile_render_rows(results)

@@ -39,7 +39,13 @@ ungrouped rollout from the same seed bit for bit, and a PPO train state
 on the card survives a checkpoint round trip.  The success reward and the
 greedy return on the card equal the CPU's bit for bit at every step count
 of every registered step limit, and the headline bench (``bench_torch.py``)
-at a small size times both kernels, B2 on its cluster route.
+at a small size times both kernels, B2 on its cluster route.  A rollout
+on the card captures its step as one CUDA graph and replays it: it equals
+the same step in a Python loop (``_lane_scan_eager``) bit for bit on
+DoorKey-8x8 (both autoreset modes, drawn and given actions),
+Dynamic-Obstacles-8x8 (ball moves drawn in the graph) and GoToLocal, and
+leaves its generator where the loop does; a second rollout in the same
+process, after another, gives the first one's result.
 """
 
 from __future__ import annotations
@@ -580,3 +586,90 @@ def test_bench_on_card_goes_through_the_kernels(card):
     }
     assert extra["device"]["name"] == torch.cuda.get_device_name(0)
     assert {"vi_d1_cuda_sweeps_per_s", "vi_key_cuda_sweeps_per_s"} <= set(extra["spread"])
+
+
+def _rollout_pair(card, env_id: str, autoreset: str, given: bool, seed: int):
+    """``lane_rollout`` (the step captured as a CUDA graph and replayed)
+    and the same rollout with its step in a Python loop
+    (``_lane_scan_eager``), each from a generator seeded alike; with each
+    generator's next draw.  The step limit is cut to 64, below the
+    horizon, so that lanes reset."""
+    env = port.make(env_id)
+    env.params = env.params.replace(max_steps=min(env.params.max_steps, 64))
+    b, horizon, rounds = 2048, 96, 3
+    acts = None
+    if given:
+        acts = torch.randint(0, env.action_dim, (horizon, b), dtype=torch.int32,
+                             generator=torch.Generator().manual_seed(seed))
+    runs = []
+    for graphed in (True, False):
+        g = torch.Generator(device=card).manual_seed(seed)
+        captures = tlanes._lane_scan.captures
+        if graphed:
+            res = tlanes.lane_rollout(env, g, b, horizon, autoreset, rounds, actions=acts,
+                                      device=card)
+        else:
+            pool = tlanes._lane_pool(env, g, b, autoreset, rounds, card)
+            res = tlanes._lane_scan_eager(env, g, pool, b, horizon, autoreset, rounds, acts)
+        assert tlanes._lane_scan.captures == captures + graphed
+        runs.append((res, torch.randint(0, 1 << 30, (16,), generator=g, device=card)))
+    return runs
+
+
+def _assert_rollouts_equal(a, b) -> None:
+    _assert_lanes_equal(a.final_state, b.final_state, "final state")
+    assert torch.equal(a.resets_per_env, b.resets_per_env)
+    for name in ("total_reward", "episodes", "successes", "failures", "obs_checksum"):
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+    assert a.steps == b.steps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env_id,autoreset,given", [
+    ("MiniGrid-DoorKey-8x8-v0", "pool", False),
+    ("MiniGrid-DoorKey-8x8-v0", "pool", True),
+    ("MiniGrid-DoorKey-8x8-v0", "cached", False),
+    ("MiniGrid-DoorKey-8x8-v0", "cached", True),
+    ("MiniGrid-Dynamic-Obstacles-8x8-v0", "pool", False),
+    ("BabyAI-GoToLocal-v0", "pool", False),
+])
+def test_graphed_rollout_equals_eager(card, env_id, autoreset, given):
+    """The graphed rollout equals the eager loop bit for bit, and leaves
+    its generator where the eager loop does: the replays draw the actions
+    and DynamicObstacles' ball moves from the caller's generator, and in
+    "cached" mode read the pool's round 0 without writing it."""
+    (graphed, g_next), (eager, e_next) = _rollout_pair(card, env_id, autoreset, given, seed=21)
+    _assert_rollouts_equal(graphed, eager)
+    assert torch.equal(g_next, e_next)
+    assert int(eager.episodes) > 0
+
+
+@pytest.mark.cuda
+def test_second_rollout_in_a_process_is_the_same(card):
+    """No graph or memory pool outlives a call: a rollout of another id and
+    size in between, then the first one again, gives the first's result."""
+    env = port.make("MiniGrid-DoorKey-8x8-v0")
+
+    def run(seed):
+        g = torch.Generator(device=card).manual_seed(seed)
+        return tlanes.lane_rollout(env, g, 4096, 700, "pool", 2, device=card)
+
+    first = run(5)
+    other = port.make("MiniGrid-Empty-5x5-v0")
+    tlanes.lane_rollout(other, torch.Generator(device=card).manual_seed(6), 1024, 50, "cached", 1,
+                        device=card)
+    _assert_rollouts_equal(run(5), first)
+    assert int(first.resets_per_env.min()) > 0
+
+
+@pytest.mark.cuda
+def test_zero_horizon_captures_nothing(card):
+    """A rollout of no steps has no step to capture: it returns its pool's
+    round 0 and counts nothing."""
+    env = port.make("MiniGrid-DoorKey-8x8-v0")
+    captures = tlanes._lane_scan.captures
+    res = tlanes.lane_rollout(env, torch.Generator(device=card).manual_seed(1), 256, 0,
+                              device=card)
+    assert tlanes._lane_scan.captures == captures
+    assert res.steps == 0 and int(res.episodes) == 0 and int(res.obs_checksum) == 0
+    assert int(res.final_state.step_count.max()) == 0
