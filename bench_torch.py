@@ -24,9 +24,12 @@ The line has bench.py's shape: ``metric``, ``value``, ``unit``,
 ``xla`` as ``plain``, plus ``git_rev``, ``timestamp_utc``, ``device`` (the
 card's name, power limit, clocks and power draw before and after the run),
 ``spread`` (``[min, max]`` over the timed runs of each rate timed more
-than once) and ``launches`` (the kernels' launches during the run, B2's by
-route).  ``main(sizes, device="cpu")`` runs on the CPU, without the kernel
-rows and ``launches``; a failure raises.
+than once), ``launches`` (the kernels' launches during the run, B2's by
+route) and ``ppo_graphs`` (the PPO rows' CUDA graphs: captures, capture
+ms and pool bytes of the collector and the learner, for the full and the
+zero-epoch update).  ``main(sizes, device="cpu")`` runs on the CPU,
+without the kernel rows, ``launches`` and ``ppo_graphs``; a failure
+raises.
 """
 
 from __future__ import annotations
@@ -201,8 +204,9 @@ def _vi_twokey(sizes, dev) -> list:
 def _ppo_steps_per_s(sizes, dev):
     """BabyAI-GoToDoor feeding the PPO learner: (env-steps/s of the full
     update, the rollout's mean seconds, the learner's, each full update's
-    env-steps/s).  The rollout is timed by a zero-epoch update (rollout and
-    GAE only)."""
+    env-steps/s, the graphs' captures, capture ms and pool bytes of the
+    full and the zero-epoch PPO).  The rollout is timed by a zero-epoch
+    update (rollout and GAE only)."""
     env = port.make("BabyAI-GoToDoor-v0")
     clock = _clock(dev)
 
@@ -220,12 +224,16 @@ def _ppo_steps_per_s(sizes, dev):
             t0 = clock()
             ts, _ = ppo.update(ts)
             times.append(clock() - t0)
+        graphs[f"epochs_{epochs}"] = {
+            "captures": ppo.captures, "capture_ms": ppo.capture_ms, "pool_bytes": ppo.pool_bytes,
+        }
         return times
 
+    graphs = {}
     full, roll = timed(2), timed(0)
     steps = sizes["ppo_envs"] * sizes["ppo_len"]
     f, r = statistics.mean(full), statistics.mean(roll)
-    return steps / f, r, max(f - r, 0.0), [steps / t for t in full]
+    return steps / f, r, max(f - r, 0.0), [steps / t for t in full], graphs
 
 
 def _ppo_learning_curve(env_id, threshold, sizes, dev, seed=0) -> dict:
@@ -330,7 +338,7 @@ def main(sizes: dict = FULL, device="cuda") -> dict:
     for key, rates in rows.items():
         extra[key] = round(statistics.median(rates), 1)
 
-    sps, t_roll, t_learn, spread["ppo_steps_per_s"] = _ppo_steps_per_s(sizes, dev)
+    sps, t_roll, t_learn, spread["ppo_steps_per_s"], ppo_graphs = _ppo_steps_per_s(sizes, dev)
     extra["ppo_steps_per_s"] = round(sps, 1)
     extra["ppo_rollout_s"] = round(t_roll, 3)
     extra["ppo_learner_s"] = round(t_learn, 3)
@@ -352,6 +360,7 @@ def main(sizes: dict = FULL, device="cuda") -> dict:
             "vi": after["vi"] - launches_before["vi"],
             "key_vi": {r: n - launches_before["key_vi"][r] for r, n in after["key_vi"].items()},
         }
+        extra["ppo_graphs"] = ppo_graphs
 
     line = {
         "metric": "env_steps_per_s",

@@ -119,14 +119,30 @@ Phases (any failure raises, exits nonzero and prints no "ok" line):
    processes;
    DynamicObstacles' balls kept through ``step``; the same at B=1.
 14. PPO throughput at the JAX bench's configuration (BabyAI-GoToDoor,
-   32768 envs, T=32, 2 epochs, 8 minibatches): two warm-up updates, then
-   five timed ones; the full update's env-steps/s, and the rollout /
-   learner split, the rollout timed by a zero-epoch update.
-15. PPO learning: MiniGrid-DoorKey-5x5 and BabyAI-GoToDoor at the JAX
-   learning bench's configuration (8192 envs, T=64, 2 epochs, 8
+   32768 envs, T=32, 2 epochs, 8 minibatches), the collector's and the
+   minibatch's step each replayed as a CUDA graph: two warm-up updates,
+   then five timed ones; the full update's env-steps/s, and the rollout /
+   learner split, the rollout timed by a zero-epoch update; each PPO
+   captured its collector once and its learner once (none at zero
+   epochs).
+14a. PPO graphed against eager at that size: two updates graphed
+   (``update``) and, from the same seed, eager (``_update_eager``, both
+   steps in Python loops) three times; the first update's trajectory
+   (every buffer), final state, reset counts and the collector
+   generator's next draw equal bit for bit; after the second, the
+   parameters and Adam's state of the graphed run within twice the
+   eager runs' spread, by the mean difference over every element (the
+   embeddings' backward sums with atomics; max and mean printed).  Then
+   the same with PyTorch's deterministic algorithms, graphed and eager
+   twice: everything, parameters and Adam's state included, bit for bit.  Then ``profile_torch.profile_ppo``: ms,
+   kernels, graph launches and busy share of the collector (a step), the
+   learner and the whole update, graphed and eager, and of the eager
+   remainder; each graph's capture ms and pool bytes.
+15. PPO learning (graphed): MiniGrid-DoorKey-5x5 and BabyAI-GoToDoor at
+   the JAX learning bench's configuration (8192 envs, T=64, 2 epochs, 8
    minibatches) must each reach mean return >= 0.90 over >= 1024
-   episodes for 3 updates in a row within 100 updates; each curve is
-   printed.
+   episodes for 3 updates in a row within 100 updates, each graph
+   captured once; each curve is printed.
 16. rendering and wrappers: ``render_frame`` (tile 32, highlight) on 4096
    DoorKey-8x8 states two steps into their episodes (805 MB of frames) and
    ``render_pov`` (tile 8) on 32768, each with its ms, frames/s, peak
@@ -148,8 +164,10 @@ Phases (any failure raises, exits nonzero and prints no "ok" line):
    group's sharded ``lane_rollout`` on DoorKey-8x8 at B=65536, T=256, four
    pool rounds (grouped, ungrouped, grouped, each timed) equals the
    ungrouped run from the same seed bit for bit;
-   one sharded PPO update on GoToDoor at 32768 envs, T=32 lands within
-   twice the spread of three ungrouped updates from the same seed.  Then
+   one sharded PPO update on GoToDoor at 32768 envs, T=32 (its learner's
+   all-reduces inside the learner's graph) lands within twice the spread
+   of three ungrouped updates from the same seed, all four with PyTorch's
+   deterministic algorithms.  Then
    two gloo ranks spawned on the one card: the sharded rollout on a fixed
    pool and action script (Empty-5x5, B=4096, T=256, four rounds) equals
    the one-process run's slices bit for bit, the all-reduced scalars equal
@@ -173,8 +191,8 @@ Phases (any failure raises, exits nonzero and prints no "ok" line):
    PPO at BENCH_SIZES, its DP rows at full size: one JSON line holding
    every key, every rate finite and positive, B1 and B2's cluster route
    launched (a warm-up and each timed run) and counted in its
-   ``launches``; B1 and B2 held against their plain versions on the
-   bench's layouts.
+   ``launches``, each PPO row's graphs captured once (``ppo_graphs``);
+   B1 and B2 held against their plain versions on the bench's layouts.
 22. the kernels line: for each kernel, its launches on the main path (each
    part of it driven with the counts set to 0 just before and read just
    after), its largest difference from the plain version, the times of
@@ -349,7 +367,7 @@ BENCH_KEYS = {
     "vi_key_sweeps_per_s", "vi_key_cuda_sweeps_per_s", "vi_obstructed_sweeps_per_s",
     "vi_twokey_sweeps_per_s", "vi_d1_plain_sweeps_per_s", "vi_d1_cuda_sweeps_per_s",
     "ppo_steps_per_s", "ppo_rollout_s", "ppo_learner_s",
-    "git_rev", "timestamp_utc", "device", "spread", "launches",
+    "git_rev", "timestamp_utc", "device", "spread", "launches", "ppo_graphs",
 }
 
 PALLAS_VI = "minigrid_dynamicprogramming_tpu/dp/pallas_vi.py"
@@ -1136,6 +1154,8 @@ def ppo_throughput(make, card: str) -> dict:
 
     env = make(PPO_ENV)
 
+    graphs = {}
+
     def timed(epochs: int) -> list:
         cfg = PPOConfig(num_envs=PPO_B, rollout_len=PPO_T, epochs=epochs, num_minibatches=PPO_MB)
         ppo = PPO(env, cfg, device=DEVICE)
@@ -1152,6 +1172,9 @@ def ppo_throughput(make, card: str) -> dict:
         finite = [float(x) for x in m]
         if epochs:
             require(all(np.isfinite(finite)), f"{PPO_ENV}: finite update metrics {finite}")
+        require(ppo.captures == {"collector": 1, "learner": int(epochs > 0)},
+                f"one capture of each graph over {PPO_WARMUP + PPO_TIMED} updates: {ppo.captures}")
+        graphs[f"epochs_{epochs}"] = {"capture_ms": ppo.capture_ms, "pool_bytes": ppo.pool_bytes}
         return times
 
     torch.cuda.reset_peak_memory_stats()
@@ -1165,9 +1188,100 @@ def ppo_throughput(make, card: str) -> dict:
         "env_steps_per_s": steps / statistics.mean(full),
         "rollout_mean_s": statistics.mean(roll),
         "learner_mean_s": statistics.mean(full) - statistics.mean(roll),
-        "peak_bytes": peak, "card": card,
+        "peak_bytes": peak, "graphs": graphs, "card": card,
     }
     print(f"[ppo_throughput] {out}", flush=True)
+    return out
+
+
+def ppo_runs(make, ways) -> list:
+    """One PPO run at the throughput size from seed 3 for each of
+    ``ways`` (True: graphed, ``update``; False: eager, ``_update_eager``),
+    two updates each; for each, its seconds of the first update, what the
+    first update collected (every trajectory buffer, the final state, the
+    reset counts, the generator's next draw) and, after the second, the
+    parameters and Adam's state."""
+    from minigrid_dynamicprogramming_tpu_torch.models import PPO, PPOConfig
+    from minigrid_dynamicprogramming_tpu_torch.models import ppo as P
+
+    cfg = PPOConfig(num_envs=PPO_B, rollout_len=PPO_T, epochs=2, num_minibatches=PPO_MB)
+    runs = []
+    for graphed in ways:
+        ppo = PPO(make(PPO_ENV), cfg, device=DEVICE)
+        ts = ppo.init(3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ts, _ = ppo.update(ts) if graphed else ppo._update_eager(ts)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        first = [*(x.clone() for x in P._traj_tensors(ppo._traj)),
+                 *(torch.from_numpy(v) for v in state_numpy(ts.env_state).values()),
+                 ts.reset_count.clone(),
+                 next_draw(torch.Generator(device=DEVICE).set_state(ts.generator.get_state()))]
+        require(int(ts.reset_count.sum()) > 0, "lanes reset")
+        ts, m = ppo.update(ts) if graphed else ppo._update_eager(ts)
+        require(all(np.isfinite([float(x) for x in m])), f"finite metrics {[float(x) for x in m]}")
+        require(ppo.captures == ({"collector": 1, "learner": 1} if graphed
+                                 else {"collector": 0, "learner": 0}), f"captures {ppo.captures}")
+        params = list(ts.model.parameters())
+        state = [x.detach().clone() for x in
+                 (*params, *(v for p in params for v in ts.optimizer.state[p].values()))]
+        runs.append((first_s, first, state))
+        del ppo, ts
+    return runs
+
+
+def ppo_graph_against_eager(make, card: str) -> dict:
+    """Phase 14a: PPO graphed against eager at the throughput size, then
+    ``profile_torch.profile_ppo``'s graphed and eager parts."""
+    import profile_torch
+
+    def diffs(a, b) -> tuple:
+        """max |a - b| and its mean over every element."""
+        d = [(x.double() - y.double()).abs() for x, y in zip(a, b)]
+        return max(float(x.max()) for x in d), sum(float(x.sum()) for x in d) / sum(x.numel() for x in d)
+
+    # PyTorch's default algorithms, as PPO runs: the embeddings' backward
+    # sums with atomics, so the learners of two eager runs differ.
+    runs = ppo_runs(make, [True] + [False] * PPO_SPREAD_RUNS)
+    (_, g_first, g_state), eager = runs[0], runs[1:]
+    for k, (_, e_first, _) in enumerate(eager):
+        require(all(torch.equal(x, y) for x, y in zip(g_first, e_first)),
+                f"the first update's trajectory, state, resets and next draw, graphed against "
+                f"eager run {k + 1}")
+    pairs = [diffs(a[2], b[2]) for i, a in enumerate(eager) for b in eager[:i]]
+    spread = (max(p[0] for p in pairs), max(p[1] for p in pairs))
+    diff = min((diffs(g_state, e[2]) for e in eager), key=lambda d: d[1])
+    print(f"[ppo graph] {PPO_B} envs, T={PPO_T}, default algorithms: the first update's "
+          f"trajectory, state, resets and next draw equal bit for bit (graphed, then "
+          f"{PPO_SPREAD_RUNS} eager); after two updates, params and Adam state, graphed against "
+          f"the nearest eager run max {diff[0]:.6g} mean {diff[1]:.6g}, eager against eager max "
+          f"{spread[0]:.6g} mean {spread[1]:.6g}; first update s "
+          + ", ".join(f"{r[0]:.3f}" for r in runs) + f" ({card})", flush=True)
+    require(diff[0] == 0 if spread[0] == 0 else diff[1] <= 2 * spread[1],
+            "the graphed learner within the eager runs' spread (mean over every element)")
+    out = {"default": {"max_diff": diff[0], "mean_diff": diff[1], "eager_max_spread": spread[0],
+                       "eager_mean_spread": spread[1], "first_update_s": [r[0] for r in runs]}}
+    del runs, g_state, eager
+
+    # Deterministic algorithms: graphed and eager equal bit for bit.
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        runs = ppo_runs(make, [True, False, False])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    require(all(torch.equal(x, y) for x, y in zip(runs[1][1] + runs[1][2], runs[2][1] + runs[2][2])),
+            "two eager runs with deterministic algorithms equal")
+    require(all(torch.equal(x, y) for x, y in zip(runs[0][1] + runs[0][2], runs[1][1] + runs[1][2])),
+            "with deterministic algorithms, the graphed update equal to the eager one bit for bit "
+            "(trajectory, state, resets, next draw; params and Adam state after two updates)")
+    print(f"[ppo graph] deterministic algorithms: graphed and eager (twice) equal bit for bit, "
+          f"params and Adam state after two updates included; first update s "
+          + ", ".join(f"{r[0]:.3f}" for r in runs), flush=True)
+    out["deterministic_first_update_s"] = [r[0] for r in runs]
+    del runs
+    out["profile"] = profile_torch.profile_ppo({}, PPO_B, PPO_T)
+    out["card"] = card
     return out
 
 
@@ -1190,7 +1304,9 @@ def ppo_learning(make, env_id: str) -> dict:
         if hits >= LEARN_PATIENCE:
             solved_at = u + 1
             break
-    out = {"env": env_id, "solved_at": solved_at, "s": time.perf_counter() - t0, "curve": curve}
+    require(ppo.captures == {"collector": 1, "learner": 1}, f"one capture of each graph: {ppo.captures}")
+    out = {"env": env_id, "solved_at": solved_at, "s": time.perf_counter() - t0, "curve": curve,
+           "capture_ms": ppo.capture_ms, "pool_bytes": ppo.pool_bytes}
     print(f"[ppo_learning] {env_id}: solved at update {solved_at} in {out['s']:.1f} s; curve "
           + " ".join(f"{c['update']}:{c['mean_return']:.4f}/{c['episodes']}" for c in curve), flush=True)
     require(solved_at is not None, f"{env_id}: mean return >= {LEARN_THRESHOLD} over >= "
@@ -1521,14 +1637,23 @@ def one_rank_nccl(make, card: str) -> dict:
 
         # PPO: three ungrouped updates from one seed give the spread of the
         # card's atomics; the grouped update must land within twice it.
+        # With deterministic algorithms (the embeddings' backward sums with
+        # atomics otherwise) the spread is 0.
         cfg = PPOConfig(num_envs=PPO_B, rollout_len=PPO_T, epochs=2, num_minibatches=PPO_MB)
         models, metrics = [], []
-        for grp in [None] * PPO_SPREAD_RUNS + [group]:
-            ppo = PPO(make(PPO_ENV), cfg, device=DEVICE, group=grp)
-            ts, m = ppo.update(ppo.init(3))
-            models.append(ts.model)
-            metrics.append([float(x) for x in m])
-            del ppo, ts
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            for grp in [None] * PPO_SPREAD_RUNS + [group]:
+                ppo = PPO(make(PPO_ENV), cfg, device=DEVICE, group=grp)
+                ts, m = ppo.update(ppo.init(3))
+                models.append(ts.model)
+                metrics.append([float(x) for x in m])
+                # One rank: both loops graphed, the grouped one's
+                # all-reduces captured in its learner's graph.
+                require(ppo.captures == {"collector": 1, "learner": 1}, f"PPO captures {ppo.captures}")
+                del ppo, ts
+        finally:
+            torch.use_deterministic_algorithms(False)
         spread = max(params_diff(models[i], models[j])
                      for i in range(PPO_SPREAD_RUNS) for j in range(i))
         grouped_diff = params_diff(models[-1], models[0])
@@ -1777,6 +1902,9 @@ def bench_line(card: str) -> dict:
     require(extra["device"]["name"] == torch.cuda.get_device_name(0), "the bench names the card")
     require(set(extra["spread"]) >= {"env_steps_per_s", "vi_d1_cuda_sweeps_per_s", "vi_key_cuda_sweeps_per_s"},
             "the bench reports the spread of its timed runs")
+    require(extra["ppo_graphs"]["epochs_2"]["captures"] == {"collector": 1, "learner": 1}
+            and extra["ppo_graphs"]["epochs_0"]["captures"] == {"collector": 1, "learner": 0},
+            f"each PPO row captured each graph once: {extra['ppo_graphs']}")
     print(f"[bench_torch] at {BENCH_SIZES} ({card}): {lines[0]}", flush=True)
     return {"sizes": sizes, "line": line}
 
@@ -2305,6 +2433,13 @@ def run(args, t_start: float, workers) -> int:
     results["ppo_throughput"], counts = drive("PPO throughput", lambda: ppo_throughput(make, card))
     require(not any(counts.values()), "PPO launches no VI kernel")
     phase_s["ppo_throughput"] = time.perf_counter() - t0
+
+    # 14a. PPO graphed against eager, and the profile of both.
+    t0 = time.perf_counter()
+    results["ppo_graph"], counts = drive("PPO graph against eager",
+                                         lambda: ppo_graph_against_eager(make, card))
+    require(not any(counts.values()), "PPO launches no VI kernel")
+    phase_s["ppo_graph"] = time.perf_counter() - t0
 
     # 15. PPO learning.
     results["ppo_learning"] = []

@@ -15,9 +15,11 @@ with its writes into the carry; a field's copy onto itself is counted
 but launches nothing) and of its parts: the core transition, the id's
 post-step hook (the BabyAI verifier), the observation.  Then those of one sweep of the two-key
 domain on an UnlockToUnlock layout, and how many of them write a full
-(N, K1, K2, Cd, H, W) block.  Views (reshape, select, expand and the like)
-launch no kernel and are not counted, but for the sweep's total with
-views.
+(N, K1, K2, Cd, H, W) block; then PPO's on BabyAI-GoToDoor: the
+collector's step and the minibatch step (each one CUDA graph on the
+card) and the eager rest of an update.  Views (reshape, select, expand
+and the like) launch no kernel and are not counted, but for the sweep's
+total with views.
 """
 
 from __future__ import annotations
@@ -85,6 +87,37 @@ def step_counts(env_id: str) -> dict:
     return out
 
 
+def ppo_counts(env_id: str = "BabyAI-GoToDoor-v0") -> dict:
+    """The operators of PPO's collector step and minibatch step (the two
+    steps the card replays as CUDA graphs; the minibatch step's Adam on
+    the CPU is PyTorch's loop over parameters, a few fused calls on the
+    card) and of the update's eager remainder: the last observation and
+    value, GAE over T=8, the permutations and the metrics."""
+    from minigrid_dynamicprogramming_tpu_torch.models import PPO, PPOConfig
+
+    ppo = PPO(make(env_id), PPOConfig(num_envs=16, rollout_len=8, num_minibatches=2), device="cpu")
+    ts = ppo.init(0)
+    c = ppo._rollout_carry(ts)
+    ppo._load(c, ts)
+    collector = count(lambda: ppo._collect_step(c, ts.model, ts.pool, ts.generator)).total
+    for _ in range(ppo.config.rollout_len - 1):
+        ppo._collect_step(c, ts.model, ts.pool, ts.generator)
+    with torch.no_grad():
+        _, value = ts.model(ppo._final(c)[1])
+    mb = ppo._minibatch_carry(ts, c.traj, value)
+    ppo._learn_step(mb, c.traj, ts.model, ts.optimizer)  # Adam's state made
+    minibatch = count(lambda: ppo._learn_step(mb, c.traj, ts.model, ts.optimizer)).total
+
+    def remainder():
+        _, last_obs = ppo._final(c)
+        with torch.no_grad():
+            _, v = ts.model(last_obs)
+        ppo._metrics(c.traj, ppo._minibatch_carry(ts, c.traj, v))
+
+    return {"collector step": collector, "minibatch step": minibatch,
+            "eager remainder (T=8)": count(remainder).total}
+
+
 def twokey_sweep_counts() -> dict:
     from minigrid_dynamicprogramming_tpu_torch.core.constants import OBJ_BALL
     from minigrid_dynamicprogramming_tpu_torch.dp import tabular_twokey as TT
@@ -115,6 +148,7 @@ def main(argv) -> int:
     for env_id in argv or IDS:
         print(env_id, step_counts(env_id), flush=True)
     print("two-key sweep", twokey_sweep_counts(), flush=True)
+    print("PPO on BabyAI-GoToDoor", ppo_counts(), flush=True)
     return 0
 
 

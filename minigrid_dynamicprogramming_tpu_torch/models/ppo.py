@@ -39,6 +39,30 @@ rank)`` (``sharding.sharded_keys``; an ungrouped PPO is rank 0 of one);
 the minibatch permutations from the learner generator; the parameters are
 drawn on the CPU from the seed, so they are the same on any device.
 
+JAX compiles the whole update into one program, its collector and its
+minibatch loop each a ``lax.scan``.  Here each loop has a step that reads
+and writes only tensors of fixed address, its index on the device: the
+collector's (``_collect_step``: the observation of the carried lanes, the
+policy's draw, the env step, auto-reset, the step's row of the
+trajectory) and the learner's (``_learn_step``: the minibatch's envs
+through the epoch's permutation, the loss, its backward, the clip and
+Adam, the step's loss terms).  On a CUDA device each step is captured
+once as a CUDA graph (``lanes.capture_step``) and replayed,
+``rollout_len`` and ``epochs * num_minibatches`` times an update; on the
+CPU the same steps run in Python loops, as they do on any device in
+``_update_eager``, the plain version that the graphed update is held to.
+GAE, the epochs' permutations (drawn before the first minibatch step) and
+the metrics run eagerly.  A ``PPO`` keeps its graphs across updates and
+captures one again only when it would read another TrainState's objects:
+another model, optimizer, pool or generator, or an optimizer whose state
+tensors were replaced (``load_state_dict``).  A failed capture raises.
+Two loops stay eager on every device, by rule: the collector in
+``"regen"`` mode (the generators copy host data onto the device) and the
+learner of a group of more than one rank (a rank's share of a global
+minibatch has a size that depends on the permutation).  On the card the
+optimizer is Adam with ``capturable=True`` (its step count on the
+device), in the graphed and the eager update alike.
+
 Run from the repository root (on the card by default)::
 
     python -m minigrid_dynamicprogramming_tpu_torch.models.ppo --env-id MiniGrid-Empty-8x8-v0
@@ -47,7 +71,7 @@ Run from the repository root (on the card by default)::
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -136,6 +160,16 @@ def _gae(rewards, values, dones, last_value, gamma: float, lam: float):
     return advantages, advantages + values
 
 
+def sample_actions(logits: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """One action a row of ``(B, A)`` logits, drawn from their softmax as
+    ``torch.multinomial(probs, 1, generator=generator)`` draws it (an
+    exponential race, the same draws from the same generator state),
+    without the check of its input that ``multinomial`` reads back to the
+    host on a CUDA device.  Returns ``(B,)`` int64."""
+    probs = logits.softmax(-1)
+    return (probs / torch.empty_like(probs).exponential_(generator=generator)).argmax(-1)
+
+
 def ppo_loss(
     model: ActorCritic, cfg: PPOConfig, mb, group: Optional[EnvGroup] = None
 ) -> Tuple[torch.Tensor, Tuple]:
@@ -154,7 +188,8 @@ def ppo_loss(
     logp = logp_all.gather(-1, action[:, None]).squeeze(-1)
     ratio = torch.exp(logp - old_logp)
     # The minibatch's size, mean and (two-pass, uncorrected) deviation.
-    moments = all_reduce(torch.stack([adv.new_tensor(adv.numel()), adv.sum()]), group)
+    count = torch.full((), adv.numel(), dtype=adv.dtype, device=adv.device)
+    moments = all_reduce(torch.stack([count, adv.sum()]), group)
     n = moments[0]
     mean = moments[1] / n
     std = (all_reduce(((adv - mean) ** 2).sum(), group) / n).sqrt()
@@ -193,6 +228,45 @@ def clip_by_global_norm_(params, max_norm: float) -> torch.Tensor:
     return norm
 
 
+class _Rollout(NamedTuple):
+    """The collector's carry, each tensor at a fixed address: the lanes
+    and reset counts it carries, the step index ``t`` on the device, and
+    the ``(T, B, ...)`` trajectory that each step writes at ``t``."""
+
+    ls: L.LaneState
+    reset_count: torch.Tensor  # (B,) i32
+    t: torch.Tensor  # () i64
+    traj: Trajectory
+
+
+class _Minibatches(NamedTuple):
+    """The learner's carry, each tensor at a fixed address: the
+    advantages and returns of the rollout, every epoch's permutation of
+    the ``num_envs`` envs, the minibatch step's index ``k`` on the device
+    and each step's five loss terms (loss, policy, value, entropy, KL)."""
+
+    advantages: torch.Tensor  # (T, B) f32
+    returns: torch.Tensor  # (T, B) f32
+    perms: torch.Tensor  # (epochs, num_envs) i64
+    k: torch.Tensor  # () i64
+    terms: torch.Tensor  # (epochs * num_minibatches, 5) f32
+
+
+def _same(a: tuple, b: Optional[tuple]) -> bool:
+    return b is not None and len(a) == len(b) and all(x is y for x, y in zip(a, b))
+
+
+def _map_traj(fn, traj: Trajectory) -> Trajectory:
+    return Trajectory(
+        obs={k: fn(v) for k, v in traj.obs.items()},
+        **{name: fn(getattr(traj, name)) for name in Trajectory._fields[1:]},
+    )
+
+
+def _traj_tensors(traj: Trajectory) -> list:
+    return [*traj.obs.values(), *traj[1:]]
+
+
 class PPO:
     """One env id and one :class:`ActorCritic`, trained on ``device``, or
     on each rank's ``group.device`` (``device`` is then not read)."""
@@ -224,6 +298,18 @@ class PPO:
         self._skip = L._skip_fields(env.params)
         hooked = env.pre_step_lanes is not None or env.post_step_lanes is not None
         self._hook_draws = hooked and env.hook_rng
+        # Whether an update replays its loops as CUDA graphs: on a CUDA
+        # device, but for the loops that stay eager by rule.
+        self._capture = self.device.type == "cuda"
+        # The carries, made at first use; the trajectory is both's.
+        self._traj: Optional[Trajectory] = None
+        self._rollout: Optional[_Rollout] = None
+        self._minibatches: Optional[_Minibatches] = None
+        # Each graph, and what it reads that a TrainState brings.
+        self._graphs: Dict[str, Tuple[torch.cuda.CUDAGraph, tuple]] = {}
+        self.captures = {"collector": 0, "learner": 0}
+        self.capture_ms = {"collector": 0.0, "learner": 0.0}
+        self.pool_bytes = {"collector": 0, "learner": 0}
 
     # -- initialization ------------------------------------------------------
     def init(self, seed: int = 0) -> TrainState:
@@ -234,7 +320,10 @@ class PPO:
             with torch.no_grad():
                 for p, q in zip(model.parameters(), replicated(list(model.parameters()), self.group)):
                     p.copy_(q)
-        optimizer = torch.optim.Adam(model.parameters(), lr=cfg.lr, eps=1e-5)
+        # On the card Adam keeps its step on the device, as a capture needs.
+        optimizer = torch.optim.Adam(
+            model.parameters(), lr=cfg.lr, eps=1e-5, capturable=dev.type == "cuda"
+        )
         g = torch.Generator(device=dev).manual_seed(rank_seed(seed, self.rank))
         if cfg.autoreset == "regen":
             pool = None
@@ -259,111 +348,269 @@ class PPO:
     # -- one full PPO update -------------------------------------------------
     def update(self, ts: TrainState) -> Tuple[TrainState, UpdateMetrics]:
         """One rollout and its learner phase; the model and optimizer are
-        updated in place.  Nothing waits for the device."""
-        env_state, last_obs, reset_count, traj = self._collect(ts)
+        updated in place.  Nothing waits for the device.  Every tensor
+        returned is the caller's own: the next update writes none of
+        them."""
+        return self._update(ts, eager=False)
+
+    def _update_eager(self, ts: TrainState) -> Tuple[TrainState, UpdateMetrics]:
+        """:meth:`update` with both steps run in Python loops on any
+        device: the plain version that the graphed update is held to."""
+        return self._update(ts, eager=True)
+
+    def _update(self, ts: TrainState, eager: bool) -> Tuple[TrainState, UpdateMetrics]:
+        c = self._run_collector(ts, eager)
+        env_state, last_obs = self._final(c)
         with torch.no_grad():
             _, last_value = ts.model(last_obs)
-        metrics = self._learn(ts, traj, last_value)
+        metrics = self._learn(ts, c.traj, last_value, eager)
         return (
             ts._replace(
                 env_state=env_state,
                 obs=last_obs,
                 update_idx=ts.update_idx + 1,
-                reset_count=reset_count,
+                reset_count=c.reset_count.clone(),
             ),
             metrics,
         )
 
+    def _final(self, c: _Rollout):
+        """The carried lanes as a batch-first state and its observation,
+        both copies."""
+        ls = L._clone_lanes(c.ls)
+        return L.from_lanes(self.env.params, ls), self.env.observation_lanes(ls)
+
+    # -- the collector -------------------------------------------------------
     def _collect(self, ts: TrainState):
         """The ``(T, B)`` rollout on the lane engine with auto-reset;
-        returns ``(env_state, last_obs, reset_count, trajectory)``."""
-        cfg, env, dev = self.config, self.env, self.device
-        p = env.params
-        B, T, v = self.num_envs, cfg.rollout_len, p.agent_view_size
-        g = ts.generator
-        hook_gen = g if self._hook_draws else None
-        rounds = ts.pool.agent_dir.shape[0] if ts.pool is not None else 0
-        images = torch.empty((T, B, v, v, 3), dtype=torch.uint8, device=dev)
-        directions = torch.empty((T, B), dtype=ts.obs["direction"].dtype, device=dev)
-        missions = torch.empty((T, *ts.obs["mission"].shape), dtype=torch.int32, device=dev)
-        actions = torch.empty((T, B), dtype=torch.int64, device=dev)
-        logps, values, rewards = (torch.empty((T, B), device=dev) for _ in range(3))
-        dones = torch.empty((T, B), dtype=torch.bool, device=dev)
+        returns ``(env_state, last_obs, reset_count, trajectory)``, copies
+        of the carry's."""
+        c = self._run_collector(ts, eager=False)
+        env_state, last_obs = self._final(c)
+        return env_state, last_obs, c.reset_count.clone(), _map_traj(torch.clone, c.traj)
 
-        ls, obs, reset_count = L.to_lanes(ts.env_state), ts.obs, ts.reset_count
-        with torch.no_grad():
-            for t in range(T):
-                logits, value = ts.model(obs)
-                action = torch.multinomial(logits.softmax(-1), 1, generator=g)[:, 0]
-                logps[t] = logits.log_softmax(-1).gather(1, action[:, None])[:, 0]
-                ls, reward, term = L.step_lanes_env(env, ls, action, hook_gen)
-                done = term | ls.truncated
-                reset_count = reset_count + done.to(torch.int32)
-                if ts.pool is None:
-                    fresh = L.to_lanes(env.generate(g, p, B, dev))
-                else:
-                    fresh = L._select_pool(ts.pool, reset_count % rounds, rounds, self._skip)
-                ls = L._select_lanes(done, fresh, ls, self._skip)
-                images[t], directions[t], missions[t] = (
-                    obs["image"], obs["direction"], obs["mission"]
+    def _rollout_carry(self, ts: TrainState) -> _Rollout:
+        if self._rollout is None:
+            cfg, dev = self.config, self.device
+            ls = L._clone_lanes(L.to_lanes(ts.env_state))
+            obs = self.env.observation_lanes(ls)
+            T, B = cfg.rollout_len, self.num_envs
+
+            def buf(x, dtype=None):
+                return torch.empty((T, *x.shape), dtype=dtype or x.dtype, device=dev)
+
+            if self._traj is None:
+                row = torch.empty(B, dtype=torch.float32, device=dev)
+                self._traj = Trajectory(
+                    obs={k: buf(v) for k, v in obs.items()},
+                    actions=buf(row, torch.int64),
+                    logps=buf(row),
+                    values=buf(row),
+                    rewards=buf(row),
+                    dones=buf(row, torch.bool),
                 )
-                actions[t], values[t], rewards[t], dones[t] = action, value, reward, done
-                obs = env.observation_lanes(ls)
-        traj = Trajectory(
-            obs={"image": images, "direction": directions, "mission": missions},
-            actions=actions, logps=logps, values=values, rewards=rewards, dones=dones,
-        )
-        return L.from_lanes(p, ls), obs, reset_count, traj
+            self._rollout = _Rollout(
+                ls=ls,
+                reset_count=torch.zeros(B, dtype=torch.int32, device=dev),
+                t=torch.zeros((), dtype=torch.int64, device=dev),
+                traj=self._traj,
+            )
+        return self._rollout
 
-    def _learn(self, ts: TrainState, traj: Trajectory, last_value: torch.Tensor) -> UpdateMetrics:
-        """GAE, then epochs x minibatches of clipped PPO steps on ``traj``
-        (this rank's envs, ``(T, B / N, ...)``)."""
-        cfg, group = self.config, self.group
-        mb_size = cfg.num_envs // cfg.num_minibatches  # global
-        lo = self.rank * self.num_envs
+    def _load(self, c: _Rollout, ts: TrainState) -> None:
+        """The TrainState's lanes and reset counts into the carry, at step 0."""
+        ls = L.to_lanes(ts.env_state)
+        for name in L._FIELDS:
+            getattr(c.ls, name).copy_(getattr(ls, name))
+        c.reset_count.copy_(ts.reset_count)
+        c.t.zero_()
+
+    def _collect_step(self, c: _Rollout, model: ActorCritic, pool, g: torch.Generator) -> None:
+        """One step of JAX's rollout body, in its order, on the carry
+        ``c``: the observation of the carried lanes, the policy's draw, the
+        env step and auto-reset.  It reads the model's parameters in
+        place, the pool and the generator, and writes nothing but ``c``."""
+        env, p = self.env, self.env.params
+        t = c.t.view(1)
+        with torch.no_grad():
+            obs = env.observation_lanes(c.ls)
+            for k, x in obs.items():
+                c.traj.obs[k].index_copy_(0, t, x[None])
+            logits, value = model(obs)
+            action = sample_actions(logits, g)
+            logp = logits.log_softmax(-1).gather(1, action[:, None])[:, 0]
+            ls, reward, term = L.step_lanes_env(env, c.ls, action, g if self._hook_draws else None)
+            done = term | ls.truncated
+            reset_count = c.reset_count + done.to(torch.int32)
+            if pool is None:
+                fresh = L.to_lanes(env.generate(g, p, self.num_envs, self.device))
+            else:
+                rounds = pool.agent_dir.shape[0]
+                fresh = L._select_pool(pool, reset_count % rounds, rounds, self._skip)
+            ls = L._select_lanes(done, fresh, ls, self._skip)
+            for buf, x in zip(c.traj[1:], (action, logp, value, reward, done)):
+                buf.index_copy_(0, t, x[None])
+            # A field the step left alone is the carry's own tensor: its
+            # copy onto itself does nothing.
+            for name in L._FIELDS:
+                getattr(c.ls, name).copy_(getattr(ls, name))
+            c.reset_count.copy_(reset_count)
+            c.t.add_(1)
+
+    def _run_collector(self, ts: TrainState, eager: bool) -> _Rollout:
+        """The rollout from ``ts`` in the carry: its step replayed as a
+        CUDA graph ``rollout_len`` times, or, ``eager`` or where the
+        collector is not graphed, called in a Python loop."""
+        c = self._rollout_carry(ts)
+        self._load(c, ts)
+        model, pool, g = ts.model, ts.pool, ts.generator
+
+        def step():
+            self._collect_step(c, model, pool, g)
+
+        if eager or not self._capture or pool is None:  # "regen" stays eager
+            for _ in range(self.config.rollout_len):
+                step()
+            return c
+        # The warm-up steps the carry itself; it is loaded again after.
+        graph = self._graph("collector", (model, *model.parameters(), pool, g), step, step, g)
+        self._load(c, ts)
+        for _ in range(self.config.rollout_len):
+            graph.replay()
+        return c
+
+    def _graph(self, name: str, reads: tuple, step, warmup, generator=None) -> torch.cuda.CUDAGraph:
+        """The graph ``name``, captured anew unless the one kept was
+        captured reading the same objects ``reads``."""
+        kept = self._graphs.pop(name, None)
+        if kept is not None and _same(reads, kept[1]):
+            self._graphs[name] = kept
+            return kept[0]
+        if kept is not None:
+            kept[0].reset()
+        graph, self.capture_ms[name], self.pool_bytes[name] = L.capture_step(
+            step, warmup, self.device, generator
+        )
+        self.captures[name] += 1
+        self._graphs[name] = (graph, reads)
+        return graph
+
+    # -- the learner ---------------------------------------------------------
+    def _minibatch_carry(self, ts: TrainState, traj: Trajectory,
+                         last_value: torch.Tensor) -> _Minibatches:
+        """The learner's carry, made at first use, for ``traj``: its GAE,
+        the epochs' permutations from the learner generator, step 0."""
+        cfg, dev = self.config, self.device
+        if self._minibatches is None:
+            self._minibatches = _Minibatches(
+                advantages=torch.empty_like(traj.values),
+                returns=torch.empty_like(traj.values),
+                perms=torch.empty((cfg.epochs, cfg.num_envs), dtype=torch.int64, device=dev),
+                k=torch.zeros((), dtype=torch.int64, device=dev),
+                terms=torch.empty((cfg.epochs * cfg.num_minibatches, 5), device=dev),
+            )
+        mb = self._minibatches
         advantages, returns = _gae(
             traj.rewards, traj.values, traj.dones, last_value, cfg.gamma, cfg.gae_lambda
         )
-        batch = (traj.obs, traj.actions, traj.logps, traj.values, advantages, returns)
-        params = list(ts.model.parameters())
+        mb.advantages.copy_(advantages)
+        mb.returns.copy_(returns)
+        for e in range(cfg.epochs):
+            mb.perms[e] = torch.randperm(cfg.num_envs, generator=ts.learner_generator, device=dev)
+        mb.k.zero_()
+        return mb
 
-        def take(x, idx):
+    def _learn_step(self, mb: _Minibatches, traj: Trajectory, model: ActorCritic,
+                    optimizer: torch.optim.Optimizer) -> None:
+        """Minibatch step ``mb.k``: its envs through the epoch's
+        permutation, the clipped loss, its gradients (summed over the
+        group's ranks), the global-norm clip and Adam; the loss terms
+        written at ``k``.  With one rank it reads and writes only tensors
+        of fixed address (the model's, the optimizer's and the carry's)."""
+        cfg, group = self.config, self.group
+        k = mb.k.view(1)
+        idx = mb.perms.view(-1, cfg.num_envs // cfg.num_minibatches).index_select(0, k)[0]
+        if self.world > 1:
+            # The members of the global minibatch this rank holds, as its
+            # own env indices.
+            lo = self.rank * self.num_envs
+            idx = idx[(idx >= lo) & (idx < lo + self.num_envs)] - lo
+
+        def take(x):
             # (T, B, ...) -> (T * mb, ...): the minibatch's envs, all steps.
             if isinstance(x, dict):
-                return {k: take(a, idx) for k, a in x.items()}
+                return {name: take(a) for name, a in x.items()}
             return x.index_select(1, idx).flatten(0, 1)
 
-        def mine(idx):
-            # The members of a global minibatch this rank holds, as its own
-            # env indices.
-            if self.world == 1:
-                return idx
-            return idx[(idx >= lo) & (idx < lo + self.num_envs)] - lo
+        batch = (traj.obs, traj.actions, traj.logps, traj.values, mb.advantages, mb.returns)
+        loss, aux = ppo_loss(model, cfg, tuple(take(x) for x in batch), group)
+        params = list(model.parameters())
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        if group is not None:
+            all_reduce_grads_(params, group)
+        clip_by_global_norm_(params, cfg.max_grad_norm)
+        optimizer.step()
+        mb.terms.index_copy_(0, k, torch.stack([loss.detach(), *(a.detach() for a in aux)])[None])
+        mb.k.add_(1)
 
-        steps: List[torch.Tensor] = []
-        for _ in range(cfg.epochs):
-            perm = torch.randperm(cfg.num_envs, generator=ts.learner_generator, device=self.device)
-            for i in range(cfg.num_minibatches):
-                mb = tuple(take(x, mine(perm[i * mb_size:(i + 1) * mb_size])) for x in batch)
-                loss, aux = ppo_loss(ts.model, cfg, mb, group)
-                ts.optimizer.zero_grad(set_to_none=True)
-                loss.backward()
-                if group is not None:
-                    all_reduce_grads_(params, group)
-                clip_by_global_norm_(params, cfg.max_grad_norm)
-                ts.optimizer.step()
-                steps.append(torch.stack([loss.detach(), *(a.detach() for a in aux)]))
-        # One reduction for every metric: each step's terms (the rank's
-        # shares), then the rollout's reward sum, reward count, episodes and
-        # terminal-reward sum.
+    def _fixed_traj(self, traj: Trajectory) -> Trajectory:
+        """The trajectory at the carry's addresses: ``traj`` copied into
+        them, unless it is the carry's own."""
+        if self._traj is None:
+            self._traj = _map_traj(torch.empty_like, traj)
+        fixed = self._traj
+        for dst, src in zip(_traj_tensors(fixed), _traj_tensors(traj)):
+            if dst is not src:
+                dst.copy_(src)
+        return fixed
+
+    def _learn(self, ts: TrainState, traj: Trajectory, last_value: torch.Tensor,
+               eager: bool = False) -> UpdateMetrics:
+        """GAE, then epochs x minibatches of clipped PPO steps on ``traj``
+        (this rank's envs, ``(T, B / N, ...)``): the minibatch step
+        replayed as a CUDA graph, or, ``eager`` or where the learner is not
+        graphed, called in a Python loop."""
+        cfg = self.config
+        n_steps = cfg.epochs * cfg.num_minibatches
+        # A group of more than one rank stays eager: a rank's share of a
+        # global minibatch has a size that depends on the permutation.
+        graphed = self._capture and not eager and self.world == 1 and n_steps > 0
+        if graphed:
+            traj = self._fixed_traj(traj)
+        mb = self._minibatch_carry(ts, traj, last_value)
+        model, optimizer = ts.model, ts.optimizer
+
+        def step():
+            self._learn_step(mb, traj, model, optimizer)
+
+        if not graphed:
+            for _ in range(n_steps):
+                step()
+        else:
+            graph = self._graph("learner", self._learner_reads(model, optimizer), step,
+                                lambda: self._warm_up_learner(step, mb, model, optimizer))
+            # A first capture made Adam's state, which the graph now reads.
+            self._graphs["learner"] = (graph, self._learner_reads(model, optimizer))
+            for _ in range(n_steps):
+                graph.replay()
+        return self._metrics(traj, mb)
+
+    def _metrics(self, traj: Trajectory, mb: _Minibatches) -> UpdateMetrics:
+        """One reduction for every metric (over the group's ranks): each
+        minibatch step's terms (the rank's shares), then the rollout's
+        reward sum, reward count, episodes and terminal-reward sum."""
+        n_steps = mb.terms.shape[0]
         dones = traj.dones.to(torch.float32)
         totals = torch.stack([
-            traj.rewards.sum(), traj.rewards.new_tensor(traj.rewards.numel()),
-            dones.sum(), (traj.rewards * dones).sum(),
+            traj.rewards.sum(),
+            torch.full((), traj.rewards.numel(), dtype=traj.rewards.dtype, device=self.device),
+            dones.sum(),
+            (traj.rewards * dones).sum(),
         ])
-        flat = all_reduce(torch.cat([torch.stack(steps).flatten(), totals]) if steps else totals, group)
-        if steps:
-            means = flat[:-4].view(len(steps), 5).mean(0)
+        flat = all_reduce(torch.cat([mb.terms.flatten(), totals]), self.group)
+        if n_steps:
+            means = flat[:-4].view(n_steps, 5).mean(0)
         else:
             means = torch.full((5,), float("nan"), device=self.device)
         reward_sum, reward_count, n_done, return_sum = flat[-4:].unbind()
@@ -373,6 +620,37 @@ class PPO:
             episodes=n_done.to(torch.int32),
             mean_return=torch.where(n_done > 0, return_sum / n_done.clamp(min=1), 0.0),
         )
+
+    @staticmethod
+    def _learner_reads(model, optimizer) -> tuple:
+        """What the learner's graph reads that is not the PPO's own: the
+        model, its parameters, the optimizer and its state's tensors."""
+        state = [v for p in model.parameters() for v in optimizer.state.get(p, {}).values()
+                 if isinstance(v, torch.Tensor)]
+        return (model, *model.parameters(), optimizer, *state)
+
+    @staticmethod
+    def _warm_up_learner(step, mb: _Minibatches, model, optimizer) -> None:
+        """One minibatch step, then the model, the optimizer's state and
+        the step index put back in place (state the step created is
+        zeroed, as Adam creates it); the gradients are dropped, so that the
+        capture makes them in its pool."""
+        params = list(model.parameters())
+        saved = [p.detach().clone() for p in params]
+        state = {p: {n: v.clone() for n, v in optimizer.state[p].items()}
+                 for p in params if optimizer.state.get(p)}
+        step()
+        with torch.no_grad():
+            for p, s in zip(params, saved):
+                p.copy_(s)
+            for p in params:
+                for n, v in optimizer.state[p].items():
+                    if p in state:
+                        v.copy_(state[p][n])
+                    else:
+                        v.zero_()
+        mb.k.zero_()
+        optimizer.zero_grad(set_to_none=True)
 
 
 def train(

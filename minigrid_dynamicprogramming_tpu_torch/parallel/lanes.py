@@ -661,6 +661,38 @@ def _clone_lanes(ls: LaneState) -> LaneState:
     return LaneState(**{name: getattr(ls, name).clone() for name in _FIELDS})
 
 
+def capture_step(step, warmup, device, generator: Optional[torch.Generator] = None):
+    """``step()`` captured as a CUDA graph in a memory pool of its own;
+    each replay of the graph runs it once.  ``warmup()`` runs first, on a
+    side stream, so that what a first call sets up lazily is not set up
+    inside the capture; it must leave every tensor that ``step`` reads as
+    it found it.  ``generator``, where ``step`` draws from it, is put back
+    after the warm-up and registered with the graph, so the replays draw
+    what as many eager calls would.  A failed capture raises.  Returns
+    ``(graph, capture_ms, pool_bytes)``: the capture's host time and the
+    bytes its memory pool holds."""
+    saved = None if generator is None else generator.get_state()
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        warmup()
+    torch.cuda.current_stream(device).wait_stream(side)
+    if generator is not None:
+        generator.set_state(saved)
+
+    graph = torch.cuda.CUDAGraph()
+    if generator is not None:
+        graph.register_generator_state(generator)
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved(device)
+    t0 = time.perf_counter()
+    with torch.cuda.graph(graph):
+        step()
+    capture_ms = 1e3 * (time.perf_counter() - t0)
+    return graph, capture_ms, torch.cuda.memory_reserved(device) - reserved
+
+
 class _Scan:
     """One rollout's scan: ``_lane_scan``'s set-up, and its step, which
     reads the pool, the given actions and the generator, and writes
@@ -752,34 +784,15 @@ class _Scan:
             self.step(self.carry)
 
     def capture(self) -> torch.cuda.CUDAGraph:
-        """``step`` on the carry, captured as a CUDA graph in a memory pool
-        of its own; each replay is one step.  The warm-up that comes
-        before a capture steps a copy of the carry, and the generator is
-        put back where it was, so the replays draw what the eager loop
-        would.  A failed capture raises."""
-        dev = self.device
+        """``step`` on the carry, captured as a CUDA graph (``capture_step``);
+        each replay is one step.  The warm-up steps a copy of the carry."""
         draws = self.actions is None or self.hook_gen is not None
-        gen = self.generator if draws else None
-        saved = None if gen is None else gen.get_state()
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            self.step(self.carry.clone())
-        torch.cuda.current_stream(dev).wait_stream(side)
-        if gen is not None:
-            gen.set_state(saved)
-
-        graph = torch.cuda.CUDAGraph()
-        if gen is not None:
-            graph.register_generator_state(gen)
-        torch.cuda.synchronize(dev)
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(dev)
-        t0 = time.perf_counter()
-        with torch.cuda.graph(graph):
-            self.step(self.carry)
-        _lane_scan.capture_ms = 1e3 * (time.perf_counter() - t0)
-        _lane_scan.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        graph, _lane_scan.capture_ms, _lane_scan.pool_bytes = capture_step(
+            lambda: self.step(self.carry),
+            lambda: self.step(self.carry.clone()),
+            self.device,
+            self.generator if draws else None,
+        )
         _lane_scan.captures += 1
         return graph
 

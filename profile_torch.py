@@ -21,9 +21,13 @@ the card's name and power limit, then:
   device's busy share is the profiler's kernel time over the wall time
   of the same loop run without the profiler.
 * for one PPO update at ``chip_smoke.py``'s throughput configuration
-  (BabyAI-GoToDoor, 32768 envs, T=32, 2 epochs x 8 minibatches, bf16): the
-  same for its two halves, the rollout (``PPO._collect``) and the learner
-  (``PPO._learn``: GAE and the 16 minibatch steps) on that rollout;
+  (BabyAI-GoToDoor, 32768 envs, T=32, 2 epochs x 8 minibatches, bf16) and
+  at its learning configuration (8192 envs, T=64): the same for the
+  collector (per step), the learner (GAE and the 16 minibatch steps) and
+  the whole update, each graphed (the collector's and the minibatch's
+  step each replayed as a CUDA graph, as ``PPO.update`` runs on a card)
+  and eager (``PPO._update_eager``), and for the eager remainder; each
+  graph's capture ms and memory pool bytes;
 * the same for ``chip_smoke.py``'s rendering: ``render_frame`` (tile 32,
   highlight) of 4096 DoorKey-8x8 states, and a step of the pixel
   observation ``ImgObs(RGBImgPartialObs(env, 8))`` on BabyAI-GoToDoor at
@@ -47,6 +51,7 @@ import torch
 ENV_ID = "MiniGrid-DoorKey-8x8-v0"
 BATCH, STEPS, POOL_ROUNDS = 65536, 32, 4
 PPO_ENV, PPO_B, PPO_T, PPO_MB = "BabyAI-GoToDoor-v0", 32768, 32, 8
+LEARN_B, LEARN_T = 8192, 64
 RENDER_B, RENDER_TILE = 4096, 32
 
 
@@ -107,21 +112,47 @@ def profiled(fn, label: str, per: int, results: dict) -> None:
         print(f"[kernel] {share:6.3f} x{e.count:6d} {e.key[:100]}")
 
 
-def profile_ppo(results: dict) -> None:
-    """The rollout and the learner of one PPO update, after one update
-    that warms both up."""
+def profile_ppo(results: dict, num_envs: int = PPO_B, rollout_len: int = PPO_T,
+                label: str = "ppo") -> dict:
+    """One PPO update's parts on BabyAI-GoToDoor (2 epochs x 8
+    minibatches), each graphed (as ``update`` runs it on the card) and
+    eager (``_update_eager``'s Python loops): the collector per step, the
+    learner per update, the whole update; the eager remainder (the last
+    observation and value, GAE, the permutations, the metrics); each
+    graph's captures, capture ms and memory pool bytes.  After one
+    update that captures both graphs and one eager one."""
     from minigrid_dynamicprogramming_tpu_torch import make
     from minigrid_dynamicprogramming_tpu_torch.models import PPO, PPOConfig
 
-    cfg = PPOConfig(num_envs=PPO_B, rollout_len=PPO_T, epochs=2, num_minibatches=PPO_MB)
+    cfg = PPOConfig(num_envs=num_envs, rollout_len=rollout_len, epochs=2, num_minibatches=PPO_MB)
     ppo = PPO(make(PPO_ENV), cfg)
     ts, _ = ppo.update(ppo.init(3))
-    _, last_obs, _, traj = ppo._collect(ts)
-    with torch.no_grad():
-        _, last_value = ts.model(last_obs)
-    results["ppo"] = {"env": PPO_ENV, "num_envs": PPO_B, "rollout_len": PPO_T}
-    profiled(lambda: ppo._collect(ts), "ppo rollout, per step", PPO_T, results["ppo"])
-    profiled(lambda: ppo._learn(ts, traj, last_value), "ppo learner, per update", 1, results["ppo"])
+    ts, _ = ppo._update_eager(ts)
+    out = results[label] = {"env": PPO_ENV, "num_envs": num_envs, "rollout_len": rollout_len,
+                            "epochs": 2, "num_minibatches": PPO_MB}
+    for eager in (False, True):
+        way = "eager" if eager else "graphed"
+        profiled(lambda: ppo._run_collector(ts, eager), f"{label} collector {way}, per step",
+                 rollout_len, out)
+        c = ppo._rollout
+        with torch.no_grad():
+            _, last_value = ts.model(ppo._final(c)[1])
+        profiled(lambda: ppo._learn(ts, c.traj, last_value, eager),
+                 f"{label} learner {way}, per update", 1, out)
+        profiled(lambda: ppo._update(ts, eager), f"{label} update {way}", 1, out)
+
+    def remainder():
+        _, last_obs = ppo._final(c)
+        with torch.no_grad():
+            _, value = ts.model(last_obs)
+        ppo._metrics(c.traj, ppo._minibatch_carry(ts, c.traj, value))
+
+    profiled(remainder, f"{label} eager remainder, per update", 1, out)
+    out.update(captures=dict(ppo.captures), capture_ms=dict(ppo.capture_ms),
+               pool_bytes=dict(ppo.pool_bytes))
+    print(f"[{label} graphs] captures {ppo.captures}, capture ms {ppo.capture_ms}, "
+          f"pool bytes {ppo.pool_bytes}", flush=True)
+    return out
 
 
 def profile_render(results: dict) -> None:
@@ -236,6 +267,7 @@ def main(argv=None) -> int:
     graph.reset()
     del pool, ls, scan, graph
     profile_ppo(results)
+    profile_ppo(results, LEARN_B, LEARN_T, "ppo learning size")
     profile_render(results)
     profile_render_rows(results)
     if args.out:

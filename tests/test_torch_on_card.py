@@ -45,7 +45,15 @@ the same step in a Python loop (``_lane_scan_eager``) bit for bit on
 DoorKey-8x8 (both autoreset modes, drawn and given actions),
 Dynamic-Obstacles-8x8 (ball moves drawn in the graph) and GoToLocal, and
 leaves its generator where the loop does; a second rollout in the same
-process, after another, gives the first one's result.
+process, after another, gives the first one's result.  PPO on the card
+replays its collector and minibatch steps as CUDA graphs: the graphed
+update's trajectory, final state, reset counts and generator equal the
+eager update's (``PPO._update_eager``) bit for bit on GoToDoor,
+DoorKey-5x5 and Dynamic-Obstacles-8x8, and so, with PyTorch's
+deterministic algorithms, do its parameters and Adam's state after two
+updates; it captures each
+graph once over seven updates, again after a restored optimizer state or
+another ``init``, and no learner at zero epochs.
 """
 
 from __future__ import annotations
@@ -568,7 +576,7 @@ def test_success_reward_card_equals_cpu(card):
 def test_bench_on_card_goes_through_the_kernels(card):
     """``bench_torch.main`` at a small size on the card: both kernel rows,
     B1 and B2 (on the cluster route) each launched for the warm-up and the
-    timed runs."""
+    timed runs; each PPO row's graphs captured once."""
     import bench_torch
 
     small = {
@@ -586,6 +594,9 @@ def test_bench_on_card_goes_through_the_kernels(card):
     }
     assert extra["device"]["name"] == torch.cuda.get_device_name(0)
     assert {"vi_d1_cuda_sweeps_per_s", "vi_key_cuda_sweeps_per_s"} <= set(extra["spread"])
+    # One capture of each loop per PPO over its warm-up and timed updates.
+    assert extra["ppo_graphs"]["epochs_2"]["captures"] == {"collector": 1, "learner": 1}
+    assert extra["ppo_graphs"]["epochs_0"]["captures"] == {"collector": 1, "learner": 0}
 
 
 def _rollout_pair(card, env_id: str, autoreset: str, given: bool, seed: int):
@@ -673,3 +684,97 @@ def test_zero_horizon_captures_nothing(card):
     assert tlanes._lane_scan.captures == captures
     assert res.steps == 0 and int(res.episodes) == 0 and int(res.obs_checksum) == 0
     assert int(res.final_state.step_count.max()) == 0
+
+
+_PPO_IDS = ["BabyAI-GoToDoor-v0", "MiniGrid-DoorKey-5x5-v0", "MiniGrid-Dynamic-Obstacles-8x8-v0"]
+
+
+def _ppo_on_card(card, env_id: str, epochs: int = 2):
+    from minigrid_dynamicprogramming_tpu_torch.models import PPO, PPOConfig
+
+    env = port.make(env_id)
+    env.params = env.params.replace(max_steps=min(env.params.max_steps, 24))  # lanes reset
+    return PPO(env, PPOConfig(num_envs=2048, rollout_len=32, epochs=epochs, num_minibatches=4),
+               device=card)
+
+
+def _next_draw(g: torch.Generator) -> torch.Tensor:
+    """The generator's next draw, taken from a copy of its state."""
+    copy = torch.Generator(device=g.device).set_state(g.get_state())
+    return torch.randint(0, 1 << 30, (16,), generator=copy, device=g.device)
+
+
+def _learner_state(ts) -> list:
+    """The parameters, then Adam's state tensors, in order."""
+    params = list(ts.model.parameters())
+    return [*params, *(v for p in params for v in ts.optimizer.state[p].values())]
+
+
+@pytest.fixture
+def deterministic():
+    """PyTorch's deterministic algorithms for the test's duration: the
+    embeddings' backward on the card sums with atomics by default, so two
+    eager learners from one state differ in the last bits."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    yield
+    torch.use_deterministic_algorithms(False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env_id", _PPO_IDS)
+def test_graphed_ppo_update_equals_eager(card, deterministic, env_id):
+    """Two updates graphed (``update``) and, from the same seed, eager
+    (``_update_eager``) twice, with deterministic algorithms: each
+    update's trajectory, final state, reset counts and collector
+    generator, then the parameters and Adam's state, equal bit for bit."""
+    from minigrid_dynamicprogramming_tpu_torch.models import ppo as tppo
+
+    runs = []
+    for graphed in (True, False, False):
+        ppo = _ppo_on_card(card, env_id)
+        ts = ppo.init(4)
+        seen = []
+        for _ in range(2):
+            ts, m = ppo.update(ts) if graphed else ppo._update_eager(ts)
+            seen += [*(x.clone() for x in tppo._traj_tensors(ppo._traj)),
+                     *(getattr(ts.env_state, f.name).clone() for f in dataclasses.fields(ts.env_state)),
+                     ts.reset_count.clone(), _next_draw(ts.generator), *(x.clone() for x in m)]
+        assert int(ts.reset_count.sum()) > 0, "lanes reset"
+        assert all(torch.isfinite(x).all() for x in m), m
+        assert ppo.captures == ({"collector": 1, "learner": 1} if graphed
+                                else {"collector": 0, "learner": 0})
+        runs.append(seen + [x.detach().clone() for x in _learner_state(ts)])
+    graphed, eager, eager2 = runs
+    assert all(torch.equal(x, y) for x, y in zip(eager, eager2)), "two eager runs agree"
+    for k, (x, y) in enumerate(zip(graphed, eager)):
+        assert torch.equal(x, y), k
+
+
+@pytest.mark.cuda
+def test_ppo_captures_once_per_train_state(card, tmp_path):
+    """Seven updates capture each graph once; an optimizer state restored
+    from a checkpoint (new tensors) captures the learner again, a
+    TrainState from another ``init`` both; zero epochs capture no
+    learner."""
+    from minigrid_dynamicprogramming_tpu_torch.utils import checkpoint as ckpt
+
+    ppo = _ppo_on_card(card, _PPO_IDS[0])
+    ts = ppo.init(0)
+    for _ in range(7):
+        ts, m = ppo.update(ts)
+    assert ppo.captures == {"collector": 1, "learner": 1}
+    assert all(ppo.pool_bytes[n] > 0 and ppo.capture_ms[n] > 0 for n in ppo.captures)
+    ckpt.save(str(tmp_path / "opt"), ts.optimizer)
+    ckpt.restore(str(tmp_path / "opt"), ts.optimizer)
+    ts, _ = ppo.update(ts)
+    assert ppo.captures == {"collector": 1, "learner": 2}
+    ppo.update(ppo.init(1))
+    assert ppo.captures == {"collector": 2, "learner": 3}
+    assert all(torch.isfinite(x).all() for x in m), m
+
+    rollout_only = _ppo_on_card(card, _PPO_IDS[0], epochs=0)
+    ts = rollout_only.init(0)
+    for _ in range(3):
+        ts, m = rollout_only.update(ts)
+    assert rollout_only.captures == {"collector": 1, "learner": 0}
+    assert bool(torch.isfinite(m.mean_reward))

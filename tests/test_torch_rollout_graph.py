@@ -7,11 +7,11 @@ data-dependent shape, or copies host data onto the device.  Here there
 is no card, so:
 
 * ``test_step_reads_nothing_to_the_host`` runs the step under a dispatch
-  mode that raises on each of those operators (``data_dependent_output``
-  and ``dynamic_output_shape`` tags, boolean-mask indexing, and
-  ``lift_fresh``, a tensor made from Python data), and checks that it
-  writes nothing but its carry: the pool, which "cached" mode reads as its
-  fresh layouts, is left as it was;
+  mode that raises on each of those operators (``_torch_graph.py``'s
+  ``NoHostReads``: ``data_dependent_output`` and ``dynamic_output_shape``
+  tags, boolean-mask indexing, and ``lift_fresh``, a tensor made from
+  Python data), and checks that it writes nothing but its carry: the
+  pool, which "cached" mode reads as its fresh layouts, is left as it was;
 * ``test_scan_matches_jax_given_pool_and_actions`` holds the scan, given
   a pool and JAX's own action draws, bit for bit against JAX's
   ``_lane_scan`` at horizons 1, 2 and 7, with the step limit cut to 2 so
@@ -33,7 +33,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
 import minigrid_dynamicprogramming_tpu as mgtpu
 from minigrid_dynamicprogramming_tpu.parallel import lanes as jlanes
@@ -44,6 +43,7 @@ from minigrid_dynamicprogramming_tpu_torch.bridge import to_numpy
 from minigrid_dynamicprogramming_tpu_torch.parallel import lanes as tlanes
 
 from ._torch_families import jax_actions
+from ._torch_graph import NoHostReads
 
 torch.set_num_threads(1)
 
@@ -52,32 +52,6 @@ DRAWING = "MiniGrid-Dynamic-Obstacles-8x8-v0"  # the one id whose hooks draw
 BATCH = 8
 ROUNDS = 2
 MAX_STEPS = 2
-
-_ATEN = torch.ops.aten
-_HOST_DATA = {_ATEN.lift_fresh.default, _ATEN.lift_fresh_copy.default}
-_MASK_INDEX = {_ATEN.index.Tensor, _ATEN.index_put.default, _ATEN.index_put_.default}
-
-
-class NoHostReads(TorchDispatchMode):
-    """Raises on an operator that a CUDA graph capture would refuse."""
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        tags = set(func.tags)
-        bad = (
-            torch.Tag.data_dependent_output in tags
-            or torch.Tag.dynamic_output_shape in tags
-            or func in _HOST_DATA
-            or (
-                func in _MASK_INDEX
-                and any(
-                    i is not None and i.dtype == torch.bool for i in args[1]
-                )
-            )
-        )
-        if bad:
-            raise AssertionError(f"the step calls {func}")
-        return func(*args, **(kwargs or {}))
-
 
 def _env(env_id: str):
     env = port.make(env_id)
