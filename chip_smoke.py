@@ -17,9 +17,9 @@ Phases (any failure raises, exits nonzero and prints no "ok" line):
    capture's ms and its memory pool's bytes).
 2a. graph against eager: one pool of that shape stepped T=768 times by
    the graphed scan and by ``_lane_scan_eager`` (the same step in a Python
-   loop), in turns (graphed, eager, eager, graphed), from generators in
-   the same state: every result, and each generator's next draw, equal
-   bit for bit; ms a step of each run, capture ms, the pool's bytes.
+   loop), graphed then eager, from generators in the same state: every
+   result, and each generator's next draw, equal bit for bit; ms a step
+   of each run, capture ms, the pool's bytes.
 3. B1: ``tabular.solve`` on 1024 DoorKey-8x8 layouts, 128 sweeps, at
    max_doors 1 and 2; the kernel's V must equal the plain version's
    exactly.  Then the kernel's other two ways of holding walkability, also
@@ -127,17 +127,19 @@ Phases (any failure raises, exits nonzero and prints no "ok" line):
    epochs).
 14a. PPO graphed against eager at that size: two updates graphed
    (``update``) and, from the same seed, eager (``_update_eager``, both
-   steps in Python loops) three times; the first update's trajectory
+   steps in Python loops) twice; the first update's trajectory
    (every buffer), final state, reset counts and the collector
    generator's next draw equal bit for bit; after the second, the
    parameters and Adam's state of the graphed run within twice the
    eager runs' spread, by the mean difference over every element (the
    embeddings' backward sums with atomics; max and mean printed).  Then
-   the same with PyTorch's deterministic algorithms, graphed and eager
-   twice: everything, parameters and Adam's state included, bit for bit.  Then ``profile_torch.profile_ppo``: ms,
-   kernels, graph launches and busy share of the collector (a step), the
-   learner and the whole update, graphed and eager, and of the eager
-   remainder; each graph's capture ms and pool bytes.
+   the same with PyTorch's deterministic algorithms, graphed and eager:
+   everything, parameters and Adam's state included, bit for bit.  Then
+   ``profile_torch.profile_ppo``: ms, kernels, graph launches and busy
+   share of the collector (a step), graphed and eager; the learner, the
+   whole update and the eager remainder on the host clock
+   (``profile_torch.py`` traces them); each graph's capture ms and pool
+   bytes.
 15. PPO learning (graphed): MiniGrid-DoorKey-5x5 and BabyAI-GoToDoor at
    the JAX learning bench's configuration (8192 envs, T=64, 2 epochs, 8
    minibatches) must each reach mean return >= 0.90 over >= 1024
@@ -165,9 +167,9 @@ Phases (any failure raises, exits nonzero and prints no "ok" line):
    pool rounds (grouped, ungrouped, grouped, each timed) equals the
    ungrouped run from the same seed bit for bit;
    one sharded PPO update on GoToDoor at 32768 envs, T=32 (its learner's
-   all-reduces inside the learner's graph) lands within twice the spread
-   of three ungrouped updates from the same seed, all four with PyTorch's
-   deterministic algorithms.  Then
+   all-reduces inside the learner's graph) equals an ungrouped update
+   from the same seed bit for bit, both with PyTorch's deterministic
+   algorithms.  Then
    two gloo ranks spawned on the one card: the sharded rollout on a fixed
    pool and action script (Empty-5x5, B=4096, T=256, four rounds) equals
    the one-process run's slices bit for bit, the all-reduced scalars equal
@@ -186,14 +188,34 @@ Phases (any failure raises, exits nonzero and prints no "ok" line):
    plain value iteration, then B1, at JAX's sizes (1024 DoorKey-8x8
    layouts from seed 7, two door slots, 128 sweeps); B1's V equal to the
    plain V exactly; the Chrome trace holds B1's kernel and the CLI's
-   ``annotate`` ranges.
+   ``annotate`` ranges; the CLI's two rates printed, JAX's
+   ``batched_env_steps_per_s`` from the "regen" rollout and
+   ``lane_env_steps_per_s`` from the "pool" one.
 21. the headline bench: ``bench_torch.main`` in-process, its rollouts and
    PPO at BENCH_SIZES, its DP rows at full size: one JSON line holding
    every key, every rate finite and positive, B1 and B2's cluster route
    launched (a warm-up and each timed run) and counted in its
    ``launches``, each PPO row's graphs captured once (``ppo_graphs``);
    B1 and B2 held against their plain versions on the bench's layouts.
-22. the kernels line: for each kernel, its launches on the main path (each
+22. the "regen" autoreset graphed: (a) every registered id's ``generate``
+   at B=256 captured once as a CUDA graph and replayed, equal bit for bit
+   to an eager call from the same generator state (capture ms and pool
+   bytes per id), and six ids' generate at B=4096 timed graphed and
+   eager; the BabyAI flood fill at its fixed bound (244 sweeps) on 4096
+   BossLevel layouts, graphed and eager, against the loop it replaced
+   (a host check every 16 sweeps): ms, that loop's sweeps, equal
+   answers; (b) the regen ``lane_rollout`` graphed against
+   ``_lane_scan_eager`` bit for bit (final lanes, sums, the generator's
+   next draw) on DoorKey-8x8 at B=65536, T=768, LavaGapS7 at 4096 x 256
+   (the CLI's size) and BabyAI-BossLevel at 4096 x 64 (the heaviest
+   generator): ms a step of each, capture ms, pool bytes, and
+   ``profile_torch.profile_regen``'s kernels a step and busy share;
+   (c) PPO's regen collector on GoToDoor at 8192 envs, T=64, 2 x 8
+   minibatches, graphed against eager: the first update's trajectory,
+   state, resets and next draw bit for bit; a second update of each timed;
+   the collector's ms a step graphed (kernels and busy share under the
+   profiler) and eager.
+23. the kernels line: for each kernel, its launches on the main path (each
    part of it driven with the counts set to 0 just before and read just
    after), its largest difference from the plain version, the times of
    kernel, plain version and bound, its design and route, and the
@@ -341,7 +363,23 @@ PEAK_F32_OPS_PER_S = 67e12 / 2
 # dryrun_multichip's (its Empty-5x5 rollout at B=4096 here); the scaling
 # harness at one rank.
 NCCL_B, NCCL_T = 65536, 256
-PPO_SPREAD_RUNS = 3
+PPO_SPREAD_RUNS = 2
+# The "regen" autoreset (phase 22): every id's generator captured at
+# REGEN_GEN_B; six ids' generate timed at REGEN_TIMED_B, graphed and eager;
+# the regen rollout at the main path's shape, the CLI's (LavaGapS7) and
+# on the heaviest generator (BossLevel); PPO's regen collector at the
+# learning size.
+REGEN_GEN_B, REGEN_TIMED_B = 256, 4096
+REGEN_TIMED_IDS = (
+    "MiniGrid-DoorKey-8x8-v0", "MiniGrid-LavaGapS7-v0", "MiniGrid-MultiRoom-N6-v0",
+    "MiniGrid-KeyCorridorS6R3-v0", "BabyAI-GoToDoor-v0", "BabyAI-BossLevel-v0",
+)
+REGEN_ROLLOUTS = (
+    (ENV_ID, ROLLOUT_B, ROLLOUT_T),
+    ("MiniGrid-LavaGapS7-v0", 4096, 256),
+    ("BabyAI-BossLevel-v0", 4096, 64),
+)
+REGEN_PROFILE_STEPS = 4
 GLOO_ENV, GLOO_B, GLOO_T = "MiniGrid-Empty-5x5-v0", 4096, 256
 GLOO_TIMEOUT_S = 300
 SCALING_B, SCALING_T = 65536, 256
@@ -598,42 +636,45 @@ def next_draw(g: torch.Generator) -> torch.Tensor:
     return torch.randint(0, 1 << 30, (16,), generator=g, device=DEVICE)
 
 
-def graph_against_eager(env, L, card: str) -> dict:
-    """Phase 2a: one pool of the headline's shape stepped ROLLOUT_T times
-    by ``_lane_scan`` (the step captured once as a CUDA graph, then
-    replayed) and by ``_lane_scan_eager`` (the same step in a Python
-    loop), in turns (graphed, eager, eager, graphed), each drawing its
-    actions from a generator in the same state: every result equals the
-    first eager one bit for bit, as does each generator's next draw.
-    Host seconds and ms a step of each run, the capture's ms and its
-    memory pool's bytes."""
-    dev = torch.device(DEVICE)
-    pool = L._lane_pool(env, gen(2), ROLLOUT_B, "pool", POOL_ROUNDS, dev)
-    start = gen(3).get_state()
+def scan_graphed_and_eager(env, L, pool, b: int, horizon: int, autoreset: str, rounds: int,
+                           start, what: str) -> tuple:
+    """``horizon`` steps from ``pool`` by ``_lane_scan`` (the step captured
+    once as a CUDA graph, then replayed) and by ``_lane_scan_eager`` (the
+    same step in a Python loop), graphed then eager, each drawing from a
+    generator in state ``start``: the results equal bit for bit, as do
+    the generators' next draws.  Returns (graphed s, eager s, the eager
+    result) on the host clock."""
     runs = []
-    for graphed in (True, False, False, True):
+    for graphed in (True, False):
         g = torch.Generator(device=DEVICE).set_state(start)
         scan = L._lane_scan if graphed else L._lane_scan_eager
         captures = L._lane_scan.captures
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = scan(env, g, pool, ROLLOUT_B, ROLLOUT_T, "pool", POOL_ROUNDS)
+        res = scan(env, g, pool, b, horizon, autoreset, rounds)
         torch.cuda.synchronize()
-        s = time.perf_counter() - t0
+        runs.append((time.perf_counter() - t0, res, next_draw(g)))
         require(L._lane_scan.captures == captures + graphed, "one capture a graphed scan")
-        run = {"graphed": graphed, "s": s, "ms_per_step": 1e3 * s / ROLLOUT_T}
-        if graphed:
-            run.update(capture_ms=L._lane_scan.capture_ms, graph_pool_bytes=L._lane_scan.pool_bytes)
-        runs.append((run, res, next_draw(g)))
-    _, want, want_next = runs[1]
-    for k, (run, res, nxt) in enumerate(runs):
-        rollouts_equal(L, res, want, f"graph against eager, run {k}")
-        require(torch.equal(nxt, want_next), f"run {k}: the generator's next draw equal")
-    require(int(want.resets_per_env.min()) >= 1, "every lane reset")
-    out = {"B": ROLLOUT_B, "T": ROLLOUT_T, "pool_rounds": POOL_ROUNDS, "card": card,
-           "runs": [run for run, _, _ in runs]}
+    (g_s, g_res, g_next), (e_s, e_res, e_next) = runs
+    rollouts_equal(L, g_res, e_res, f"{what}: graphed against eager")
+    require(torch.equal(g_next, e_next), f"{what}: the generator's next draw")
+    return g_s, e_s, e_res
+
+
+def graph_against_eager(env, L, card: str) -> dict:
+    """Phase 2a: one pool of the headline's shape stepped ROLLOUT_T times,
+    graphed and eager (``scan_graphed_and_eager``).  Host seconds and ms
+    a step of each run, the capture's ms and its memory pool's bytes."""
+    pool = L._lane_pool(env, gen(2), ROLLOUT_B, "pool", POOL_ROUNDS, torch.device(DEVICE))
+    g_s, e_s, res = scan_graphed_and_eager(env, L, pool, ROLLOUT_B, ROLLOUT_T, "pool",
+                                           POOL_ROUNDS, gen(3).get_state(), "graph")
+    require(int(res.resets_per_env.min()) >= 1, "every lane reset")
+    runs = [{"graphed": True, "s": g_s, "ms_per_step": 1e3 * g_s / ROLLOUT_T,
+             "capture_ms": L._lane_scan.capture_ms, "graph_pool_bytes": L._lane_scan.pool_bytes},
+            {"graphed": False, "s": e_s, "ms_per_step": 1e3 * e_s / ROLLOUT_T}]
+    out = {"B": ROLLOUT_B, "T": ROLLOUT_T, "pool_rounds": POOL_ROUNDS, "card": card, "runs": runs}
     print(
-        f"[graph] B={ROLLOUT_B} T={ROLLOUT_T}: graphed, eager, eager, graphed equal bit for bit, "
+        f"[graph] B={ROLLOUT_B} T={ROLLOUT_T}: graphed and eager equal bit for bit, "
         "generators too; ms a step "
         + ", ".join(f"{run['ms_per_step']:.4f}" for run in out["runs"])
         + "; capture ms "
@@ -1267,20 +1308,20 @@ def ppo_graph_against_eager(make, card: str) -> dict:
     # Deterministic algorithms: graphed and eager equal bit for bit.
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
-        runs = ppo_runs(make, [True, False, False])
+        runs = ppo_runs(make, [True, False])
     finally:
         torch.use_deterministic_algorithms(False)
-    require(all(torch.equal(x, y) for x, y in zip(runs[1][1] + runs[1][2], runs[2][1] + runs[2][2])),
-            "two eager runs with deterministic algorithms equal")
     require(all(torch.equal(x, y) for x, y in zip(runs[0][1] + runs[0][2], runs[1][1] + runs[1][2])),
             "with deterministic algorithms, the graphed update equal to the eager one bit for bit "
             "(trajectory, state, resets, next draw; params and Adam state after two updates)")
-    print(f"[ppo graph] deterministic algorithms: graphed and eager (twice) equal bit for bit, "
+    print(f"[ppo graph] deterministic algorithms: graphed and eager equal bit for bit, "
           f"params and Adam state after two updates included; first update s "
           + ", ".join(f"{r[0]:.3f}" for r in runs), flush=True)
     out["deterministic_first_update_s"] = [r[0] for r in runs]
     del runs
-    out["profile"] = profile_torch.profile_ppo({}, PPO_B, PPO_T)
+    # The collector under the profiler; the learner, the update and the
+    # eager remainder on the host clock (profile_torch.py traces them).
+    out["profile"] = profile_torch.profile_ppo({}, PPO_B, PPO_T, trace_learner=False)
     out["card"] = card
     return out
 
@@ -1635,15 +1676,14 @@ def one_rank_nccl(make, card: str) -> dict:
         out.update(episodes=int(b.episodes), steps=b.steps)
         del runs, a, b
 
-        # PPO: three ungrouped updates from one seed give the spread of the
-        # card's atomics; the grouped update must land within twice it.
-        # With deterministic algorithms (the embeddings' backward sums with
-        # atomics otherwise) the spread is 0.
+        # PPO: the grouped update equals the ungrouped one from the same
+        # seed bit for bit, with deterministic algorithms (the embeddings'
+        # backward sums with atomics otherwise).
         cfg = PPOConfig(num_envs=PPO_B, rollout_len=PPO_T, epochs=2, num_minibatches=PPO_MB)
         models, metrics = [], []
         torch.use_deterministic_algorithms(True, warn_only=True)
         try:
-            for grp in [None] * PPO_SPREAD_RUNS + [group]:
+            for grp in (None, group):
                 ppo = PPO(make(PPO_ENV), cfg, device=DEVICE, group=grp)
                 ts, m = ppo.update(ppo.init(3))
                 models.append(ts.model)
@@ -1654,14 +1694,12 @@ def one_rank_nccl(make, card: str) -> dict:
                 del ppo, ts
         finally:
             torch.use_deterministic_algorithms(False)
-        spread = max(params_diff(models[i], models[j])
-                     for i in range(PPO_SPREAD_RUNS) for j in range(i))
-        grouped_diff = params_diff(models[-1], models[0])
-        out.update(ppo_spread=spread, ppo_grouped_diff=grouped_diff, ppo_metrics=metrics)
-        print(f"[nccl] PPO update, {PPO_B} envs: max|param diff| ungrouped-ungrouped {spread:.4g}, "
-              f"grouped-ungrouped {grouped_diff:.4g}; metrics {metrics}", flush=True)
+        grouped_diff = params_diff(models[1], models[0])
+        out.update(ppo_grouped_diff=grouped_diff, ppo_metrics=metrics)
+        print(f"[nccl] PPO update, {PPO_B} envs: max|param diff| grouped-ungrouped "
+              f"{grouped_diff:.4g}; metrics {metrics}", flush=True)
         require(all(np.isfinite(metrics[-1])), "finite one-rank NCCL PPO metrics")
-        require(grouped_diff <= 2 * spread, "the one-rank NCCL update within twice the ungrouped spread")
+        require(grouped_diff == 0, "the one-rank NCCL update equal to the ungrouped one bit for bit")
     finally:
         dist.destroy_process_group()
     print(f"[nccl] {out}", flush=True)
@@ -1870,11 +1908,18 @@ def cli_dp(card: str) -> tuple:
     kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
     names = {e.get("name") for e in events}
     vi = sorted(k for k in kernels if "vi_kernel" in k)
-    ranges = sorted(n for n in ("dp/layouts", "dp/value_iteration", "reset", "lane_rollout") if n in names)
+    ranges = sorted(n for n in ("dp/layouts", "dp/value_iteration", "reset", "regen_rollout",
+                                "lane_rollout") if n in names)
     print(f"[cli --dp] {len(events)} trace events, {len(kernels)} kernel names; B1: {vi}; ranges {ranges}",
           flush=True)
     require(vi, "the trace holds B1's kernel")
-    require(len(ranges) == 4, "the trace holds the CLI's annotate ranges")
+    require(len(ranges) == 5, "the trace holds the CLI's annotate ranges")
+    bench = reports["benchmark"]
+    print(f"[cli] batched_env_steps_per_s {bench['batched_env_steps_per_s']} (the regen rollout), "
+          f"lane_env_steps_per_s {bench['lane_env_steps_per_s']} (the pool rollout), "
+          f"{bench['batch']} envs x {bench['horizon']} steps ({card})", flush=True)
+    require(bench["batched_env_steps_per_s"] > 0 and bench["lane_env_steps_per_s"] > 0,
+            "the CLI reports both rollouts' rates")
     return reports, {"vi_kernels": vi, "ranges": ranges, "events": len(events), "card": card}
 
 
@@ -1907,6 +1952,228 @@ def bench_line(card: str) -> dict:
             f"each PPO row captured each graph once: {extra['ppo_graphs']}")
     print(f"[bench_torch] at {BENCH_SIZES} ({card}): {lines[0]}", flush=True)
     return {"sizes": sizes, "line": line}
+
+
+def generate_graph(env, b: int, seed: int):
+    """``env.generate`` at ``b`` captured as a CUDA graph from a generator
+    seeded ``seed`` (``lanes.capture_step``, the generator registered):
+    returns (graph, the graph's output state, capture ms, pool bytes, the
+    generator and its state before the first replay)."""
+    from minigrid_dynamicprogramming_tpu_torch.parallel import lanes as L
+
+    dev = torch.device(DEVICE)
+    g = gen(seed)
+    start = g.get_state()
+    out = {}
+
+    def step():
+        out["state"] = env.generate(g, env.params, b, dev)
+
+    graph, capture_ms, pool_bytes = L.capture_step(step, step, dev, g)
+    return graph, out, capture_ms, pool_bytes, g, start
+
+
+def regen_generators(make, ids, card: str) -> dict:
+    """Phase 22a: each id's generate at REGEN_GEN_B captured once and
+    replayed; the replay equal bit for bit to an eager call from the same
+    generator state, and so is the generator's next draw.  Then
+    REGEN_TIMED_IDS's generate at REGEN_TIMED_B, the replay and the eager
+    call each timed with CUDA events."""
+    out = {"B": REGEN_GEN_B, "ids": {}, "timed": {}, "card": card}
+    for k, env_id in enumerate(ids):
+        env = make(env_id)
+        graph, got, capture_ms, pool_bytes, g, start = generate_graph(env, REGEN_GEN_B, 1000 + k)
+        graph.replay()
+        h = torch.Generator(device=DEVICE).set_state(start)
+        tree_equal(got["state"], env.generate(h, env.params, REGEN_GEN_B, DEVICE),
+                   f"{env_id}: generate graphed against eager")
+        require(torch.equal(next_draw(g), next_draw(h)), f"{env_id}: the generator's next draw")
+        graph.reset()
+        out["ids"][env_id] = {"capture_ms": capture_ms, "pool_bytes": pool_bytes}
+        del graph, got
+    caps = [v["capture_ms"] for v in out["ids"].values()]
+    pools = [v["pool_bytes"] for v in out["ids"].values()]
+    print(f"[regen generate] {len(ids)} ids at B={REGEN_GEN_B}: each captured once, the replay "
+          f"equal to eager bit for bit, generators too; capture ms {min(caps):.3f}-{max(caps):.3f} "
+          f"(median {statistics.median(caps):.3f}), pool bytes {min(pools)}-{max(pools)} ({card})",
+          flush=True)
+    for env_id, row in out["ids"].items():
+        print(f"[regen generate] {env_id}: capture {row['capture_ms']:.3f} ms, pool "
+              f"{row['pool_bytes']} bytes")
+    for env_id in REGEN_TIMED_IDS:
+        env = make(env_id)
+        graph, got, capture_ms, pool_bytes, g, _ = generate_graph(env, REGEN_TIMED_B, 7)
+        graphed_ms = cuda_ms(graph.replay, 5)
+        h = gen(8)
+        eager_ms = cuda_ms(lambda: env.generate(h, env.params, REGEN_TIMED_B, DEVICE), 5)
+        graph.reset()
+        out["timed"][env_id] = {"graphed_ms": graphed_ms, "eager_ms": eager_ms,
+                                "capture_ms": capture_ms, "pool_bytes": pool_bytes}
+        print(f"[regen generate] {env_id} at B={REGEN_TIMED_B}: graphed {graphed_ms:.4f} ms, "
+              f"eager {eager_ms:.4f} ms (CUDA events); capture {capture_ms:.3f} ms, pool "
+              f"{pool_bytes} bytes ({card})", flush=True)
+        del graph, got
+    out["flood"] = flood_cost(make, card)
+    return out
+
+
+def flood_cost(make, card: str) -> dict:
+    """Phase 22a's last row: the BabyAI flood fill (``objs_reachable``) on
+    REGEN_TIMED_B BossLevel layouts at its fixed bound of sweeps, as a
+    CUDA graph and eager (CUDA events), against the loop it replaced,
+    which read a convergence check to the host every 16 sweeps and stopped
+    at the first check after the fixed point: that loop's ms and sweeps on
+    the same layouts, and its answer equal to the graph's."""
+    from minigrid_dynamicprogramming_tpu_torch.core.constants import OBJ_DOOR, OBJ_EMPTY, OBJ_WALL
+    from minigrid_dynamicprogramming_tpu_torch.envs.babyai import level as BL
+    from minigrid_dynamicprogramming_tpu_torch.parallel import lanes as L
+
+    env = make("BabyAI-BossLevel-v0")
+    states = env.generate(gen(11), env.params, REGEN_TIMED_B, DEVICE)
+    obj = states.grid_obj
+    b, h, w = obj.shape
+    bound = (h * w) // 2 + 2
+    got = {}
+
+    def fixed():
+        got["ok"] = BL.objs_reachable(states)
+
+    def checked():
+        """The replaced loop: ``objs_reachable`` with a check every 16
+        sweeps; returns (its answer, the sweeps it ran)."""
+        passable = (obj == OBJ_EMPTY) | (obj == OBJ_DOOR)
+        ys = torch.arange(h, device=obj.device)[:, None]
+        xs = torch.arange(w, device=obj.device)[None, :]
+        reach = (xs == states.agent_pos[:, 0, None, None]) & (ys == states.agent_pos[:, 1, None, None])
+        done = 0
+        while done < bound:
+            before = reach
+            for _ in range(min(16, bound - done)):
+                reach = reach | BL._adjacent(reach & passable)
+            done = min(done + 16, bound)
+            if torch.equal(reach, before):
+                break
+        is_obj = (obj != OBJ_EMPTY) & (obj != OBJ_WALL)
+        return (~is_obj | reach).reshape(b, -1).all(dim=1), done
+
+    graph, capture_ms, pool_bytes = L.capture_step(fixed, fixed, torch.device(DEVICE))
+    row = {"env": "BabyAI-BossLevel-v0", "B": b, "grid": f"{w}x{h}", "sweeps": bound,
+           "graphed_ms": cuda_ms(graph.replay, 5), "eager_ms": cuda_ms(fixed, 5),
+           "checked_ms": cuda_ms(checked, 5), "capture_ms": capture_ms, "pool_bytes": pool_bytes,
+           "card": card}
+    want, row["checked_sweeps"] = checked()
+    graph.replay()
+    require(torch.equal(got["ok"], want), "the fixed-bound flood equal to the checked loop's")
+    graph.reset()
+    print(f"[regen flood] BossLevel {b} layouts {w}x{h}: {bound} sweeps graphed "
+          f"{row['graphed_ms']:.4f} ms, eager {row['eager_ms']:.4f} ms; the replaced loop (a host "
+          f"check every 16 sweeps) {row['checked_sweeps']} sweeps, {row['checked_ms']:.4f} ms "
+          f"(CUDA events); equal answers ({card})", flush=True)
+    return row
+
+
+def regen_rollouts(make, card: str) -> list:
+    """Phase 22b: each of REGEN_ROLLOUTS's regen rollouts, graphed and
+    eager (``scan_graphed_and_eager``): ms a step of each (host clock, the
+    capture included), the capture's ms and pool bytes; then
+    ``profile_torch.profile_regen``'s kernels a step and busy share."""
+    import profile_torch
+
+    from minigrid_dynamicprogramming_tpu_torch.parallel import lanes as L
+
+    rows = []
+    for k, (env_id, b, horizon) in enumerate(REGEN_ROLLOUTS):
+        env = make(env_id)
+        pool = L._lane_pool(env, gen(40 + k), b, "regen", 1, torch.device(DEVICE))
+        g_s, e_s, e_res = scan_graphed_and_eager(env, L, pool, b, horizon, "regen", 1,
+                                                 gen(50 + k).get_state(), f"regen {env_id}")
+        require(int(e_res.episodes) > 0, f"regen {env_id}: episodes")
+        row = {"env": env_id, "B": b, "T": horizon, "graphed_ms_per_step": 1e3 * g_s / horizon,
+               "eager_ms_per_step": 1e3 * e_s / horizon, "capture_ms": L._lane_scan.capture_ms,
+               "graph_pool_bytes": L._lane_scan.pool_bytes, "episodes": int(e_res.episodes),
+               "min_resets": int(e_res.resets_per_env.min()), "card": card}
+        print(f"[regen rollout] {env_id} B={b} T={horizon}: graphed and eager equal bit for bit, "
+              f"generators too; ms a step graphed {row['graphed_ms_per_step']:.4f} (capture "
+              f"included), eager {row['eager_ms_per_step']:.4f}; capture {row['capture_ms']:.3f} ms, "
+              f"pool {row['graph_pool_bytes']} bytes; episodes {row['episodes']}, resets per lane "
+              f">= {row['min_resets']} ({card})", flush=True)
+        del pool, e_res
+        row["profile"] = profile_torch.profile_regen({}, env_id, b, REGEN_PROFILE_STEPS,
+                                                     trace_eager=False)
+        rows.append(row)
+    require(rows[0]["min_resets"] >= 1, "every lane of the main path's regen rollout reset")
+    return rows
+
+
+def regen_ppo(make, card: str) -> dict:
+    """Phase 22c: PPO's regen collector on GoToDoor at the learning size,
+    graphed (``update``) against eager (``_update_eager``) from the same
+    seed: the first update's trajectory, final state, resets and the
+    generator's next draw equal bit for bit.  Then a second update of
+    each, timed on the host clock, and the graphed PPO's collector, per
+    step, graphed (under the profiler: kernels, busy share) and eager."""
+    import profile_torch
+
+    from minigrid_dynamicprogramming_tpu_torch.models import PPO, PPOConfig
+    from minigrid_dynamicprogramming_tpu_torch.models import ppo as P
+
+    cfg = PPOConfig(num_envs=LEARN_B, rollout_len=LEARN_T, epochs=2, num_minibatches=PPO_MB,
+                    autoreset="regen")
+    runs, out = [], {"env": PPO_ENV, "num_envs": LEARN_B, "rollout_len": LEARN_T, "card": card}
+    for graphed in (True, False):
+        ppo = PPO(make(PPO_ENV), cfg, device=DEVICE)
+        ts = ppo.init(3)
+        update = ppo.update if graphed else ppo._update_eager
+        seconds = []
+        for k in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ts, m = update(ts)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            if not k:
+                first = [*(x.clone() for x in P._traj_tensors(ppo._traj)),
+                         *(torch.from_numpy(v) for v in state_numpy(ts.env_state).values()),
+                         ts.reset_count.clone(),
+                         next_draw(torch.Generator(device=DEVICE).set_state(ts.generator.get_state()))]
+        require(all(np.isfinite([float(x) for x in m])), f"finite metrics {[float(x) for x in m]}")
+        require(int(ts.reset_count.sum()) > 0, "lanes reset")
+        require(ppo.captures == ({"collector": 1, "learner": 1} if graphed
+                                 else {"collector": 0, "learner": 0}), f"captures {ppo.captures}")
+        way = "graphed" if graphed else "eager"
+        out[f"update_s_{way}"] = seconds
+        runs.append(first)
+        if graphed:
+            out.update(capture_ms=dict(ppo.capture_ms), pool_bytes=dict(ppo.pool_bytes))
+            kept = ppo, ts
+    require(all(torch.equal(x, y) for x, y in zip(*runs)),
+            "PPO regen: the graphed first update's trajectory, state, resets and next draw equal "
+            "to the eager one's bit for bit")
+    ppo, ts = kept
+    for eager in (False, True):
+        way = "eager" if eager else "graphed"
+        profile_torch.profiled(lambda: ppo._run_collector(ts, eager),
+                               f"ppo regen collector {way}, per step", LEARN_T, out, not eager)
+    print(f"[ppo regen] {PPO_ENV}, {LEARN_B} envs, T={LEARN_T}, 2 x {PPO_MB}: the first update "
+          f"graphed and eager equal bit for bit (trajectory, state, resets, next draw); update s "
+          f"graphed {out['update_s_graphed']} (the first captures), eager {out['update_s_eager']}; "
+          f"captures ms {out['capture_ms']}, pools {out['pool_bytes']} bytes ({card})", flush=True)
+    return out
+
+
+def regen_phase(make, ids, card: str) -> dict:
+    """Phase 22: the "regen" autoreset graphed (a, b, c above), with each
+    part's seconds."""
+    out, seconds = {}, {}
+    for name, part in (("generators", lambda: regen_generators(make, ids, card)),
+                       ("rollouts", lambda: regen_rollouts(make, card)),
+                       ("ppo", lambda: regen_ppo(make, card))):
+        t0 = time.perf_counter()
+        out[name] = part()
+        seconds[name] = time.perf_counter() - t0
+    print(f"[regen] seconds {seconds}", flush=True)
+    out["seconds"] = seconds
+    return out
 
 
 def main(argv=None) -> int:
@@ -2024,7 +2291,7 @@ def run(args, t_start: float, workers) -> int:
     def kernel_row(name, source, replaces, launches, err, call, kernel_only, plain, work, reps, **design):
         ms = cuda_ms(call, reps)
         kernel_ms = cuda_ms(kernel_only, reps)
-        plain_ms = cuda_ms(plain, 2, warmup=0)  # each phase ran it once already, for err
+        plain_ms = cuda_ms(plain, 1, warmup=0)  # each phase ran it once already, for err
         bound_ms, bound_by = bound(*work)
         row = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2558,10 +2825,16 @@ def run(args, t_start: float, workers) -> int:
     )
     del states, layouts, v, masks, key_layouts, kv, key_masks
     phase_s["bench_torch"] = time.perf_counter() - t0
-    print(f"[phases 8-21] seconds {phase_s}", flush=True)
+    # 22. The "regen" autoreset graphed: every id's generate, three regen
+    # rollouts and PPO's regen collector, each against its eager run.
+    t0 = time.perf_counter()
+    results["regen"], counts = drive("regen", lambda: regen_phase(make, registered_ids(), card))
+    require(not any(counts.values()), "the regen phase launches no VI kernel")
+    phase_s["regen"] = time.perf_counter() - t0
+    print(f"[phases 8-22] seconds {phase_s}", flush=True)
     results["phase_s"] = phase_s
 
-    # 22. Kernels line, card, ok.
+    # 23. Kernels line, card, ok.
     results["kernels"] = kernels
     results["total_s"] = time.perf_counter() - t_start
     print(f"[chip_smoke] {results['total_s']:.1f} s in all, the build included", flush=True)

@@ -122,9 +122,12 @@ def instr_codes(b: int, device, comb, clause_a, clause_b=None, strict=0) -> torc
     """The full code vectors, (B, 48) int32; every value an int or a (B,)
     tensor."""
     vals = [comb, strict] + _clause_block(clause_a) + _clause_block(clause_b)
-    return torch.stack(
-        [torch.as_tensor(v, device=device).to(torch.int32).expand(b) for v in vals], dim=1
-    )
+    ints = [0 if isinstance(v, torch.Tensor) else int(v) for v in vals]
+    codes = G.const(ints, torch.int32, device).expand(b, len(vals)).clone()
+    for k, v in enumerate(vals):
+        if isinstance(v, torch.Tensor):
+            codes[:, k] = v
+    return codes
 
 
 def single_codes(state: EnvState, kind, dtype, color, strict=0, loc=LOC_NONE) -> torch.Tensor:
@@ -203,7 +206,9 @@ def desc_match_mask(params: EnvParams, state: EnvState, dtype, dcolor, dloc) -> 
     dev = obj.device
 
     def per_env(v):
-        return torch.as_tensor(v, device=dev).to(torch.int32).reshape(-1, 1, 1)
+        if isinstance(v, torch.Tensor):
+            return v.to(device=dev, dtype=torch.int32).reshape(-1, 1, 1)
+        return torch.full((1, 1, 1), v, dtype=torch.int32, device=dev)
 
     dtype, dcolor, dloc = per_env(dtype), per_env(dcolor), per_env(dloc)
     m = obj != OBJ_EMPTY
@@ -288,9 +293,10 @@ def init_instr(params: EnvParams, state: EnvState, codes: torch.Tensor) -> EnvSt
         max_steps = num_navs(rows) * nav_time_maze
 
     aux = state.aux.clone()
-    aux[:, [AUX_A_DONE, AUX_B_DONE, AUX_LAST_MATCH]] = 0
-    aux[:, AUX_LEAF_DONE:AUX_LEAF_DONE + 4] = 0
-    aux[:, AUX_PC_NONE:AUX_PC_NONE + 4] = 1
+    for slot in (AUX_A_DONE, AUX_B_DONE, AUX_LAST_MATCH):
+        aux[:, slot].zero_()
+    aux[:, AUX_LEAF_DONE:AUX_LEAF_DONE + 4].zero_()
+    aux[:, AUX_PC_NONE:AUX_PC_NONE + 4].fill_(1)
     aux[:, AUX_MAX_STEPS] = max_steps.to(torch.int32)
     return state.replace(
         marks=marks,

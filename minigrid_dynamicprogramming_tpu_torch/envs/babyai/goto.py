@@ -57,7 +57,9 @@ def distractors_per_room(generator, state, ctx, room_size, rows, cols, per_room,
         i, j = r % cols, r // cols
         sub, sub_ctx = state, ctx
         for _ in range(per_room):
-            kind = torch.tensor(rg.OBJ_KINDS, device=dev)[G.randint(generator, 0, 3, b, dev).long()]
+            kind = G.lookup(
+                G.const(rg.OBJ_KINDS, torch.int64, dev), G.randint(generator, 0, 3, b, dev)
+            )
             color = G.randint(generator, 0, 6, b, dev)
             sub, sub_ctx, _, _ = rg.place_in_room(
                 generator, sub, sub_ctx, room_size, i, j, kind, color

@@ -48,11 +48,6 @@ from minigrid_dynamicprogramming_tpu_torch.utils.telemetry import pooled_stats
 
 GenMissionFn = Callable
 
-# Flood-fill sweeps between two convergence checks (each check reads one
-# bool on the host).
-FLOOD_CHECK_EVERY = 16
-
-
 def _adjacent(m: torch.Tensor) -> torch.Tensor:
     """(B, H, W): the cells 4-adjacent to a cell of ``m``, edges dropped."""
     out = torch.zeros_like(m)
@@ -68,23 +63,17 @@ def objs_reachable(state: EnvState) -> torch.Tensor:
     flood from the agent through empty and door cells that must visit
     every object cell (anything but empty and wall).
 
-    The flood grows to its fixed point or to JAX's bound of (H*W)//2 + 2
-    sweeps, whichever comes first; it checks for the fixed point every
-    FLOOD_CHECK_EVERY sweeps, and sweeps past it change nothing."""
+    The flood runs JAX's bound of (H*W)//2 + 2 sweeps, with no check for
+    its fixed point (a check would read a value back to the host); sweeps
+    past the fixed point change nothing."""
     obj = state.grid_obj
     b, h, w = obj.shape
     passable = (obj == OBJ_EMPTY) | (obj == OBJ_DOOR)
     ys = torch.arange(h, device=obj.device)[:, None]
     xs = torch.arange(w, device=obj.device)[None, :]
     reach = (xs == state.agent_pos[:, 0, None, None]) & (ys == state.agent_pos[:, 1, None, None])
-    bound, done = (h * w) // 2 + 2, 0
-    while done < bound:
-        before = reach
-        for _ in range(min(FLOOD_CHECK_EVERY, bound - done)):
-            reach = reach | _adjacent(reach & passable)
-        done += FLOOD_CHECK_EVERY
-        if torch.equal(reach, before):
-            break
+    for _ in range((h * w) // 2 + 2):
+        reach = reach | _adjacent(reach & passable)
     is_obj = (obj != OBJ_EMPTY) & (obj != OBJ_WALL)
     return (~is_obj | reach).reshape(b, -1).all(dim=1)
 
@@ -124,7 +113,7 @@ def select_state(cond: torch.Tensor, a, b):
 
 def take(state: EnvState, idx: torch.Tensor) -> EnvState:
     """The envs ``idx`` of a batch-first state."""
-    return EnvState(**{n: getattr(state, n)[idx] for n in state.__dataclass_fields__})
+    return EnvState(**{n: getattr(state, n).index_select(0, idx) for n in state.__dataclass_fields__})
 
 
 def validate(p: EnvParams, state: EnvState, codes: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
@@ -206,8 +195,8 @@ def make_level(
         order = torch.argsort((~ok).to(torch.int8), stable=True)  # accepted first
         accepted = ok.sum()
         idx = torch.arange(n, device=dev)
-        sel = order[torch.where(idx < accepted, idx, idx % accepted.clamp(min=1))]
-        state = B.init_instr(p, take(state, sel), codes[sel])
+        sel = order.index_select(0, torch.where(idx < accepted, idx, idx % accepted.clamp(min=1)))
+        state = B.init_instr(p, take(state, sel), codes.index_select(0, sel))
         if after_init is not None:
             state = after_init(state)
         return state, ok

@@ -102,8 +102,8 @@ def _rand_obj(
 
     ci = draw(7)  # color: None or one of six (levelgen.py:127)
     color = torch.where(ci == 0, B.COLOR_ANY, ci - 1)
-    t_any = torch.tensor(OBJ_TYPES, device=dev)[draw(4)]
-    t_nd = torch.tensor(OBJ_TYPES_NOT_DOOR, device=dev)[draw(3)]
+    t_any = G.lookup(G.const(OBJ_TYPES, torch.int64, dev), draw(4))
+    t_nd = G.lookup(G.const(OBJ_TYPES_NOT_DOOR, torch.int64, dev), draw(3))
     # Pickup and putnext's moved object exclude doors (levelgen.py:169-176).
     k = kind[:, None]
     dtype = torch.where(
@@ -149,7 +149,7 @@ def make_levelgen(
         table, table_out = tables
         b, dev = active.shape[0], active.device
         draw = G.randint(generator, 0, len(action_ids), b, dev).long()
-        kind = torch.tensor(action_ids, device=dev)[draw]
+        kind = G.lookup(G.const(action_ids, torch.int64, dev), draw)
         t1, c1, l1, ok1 = _rand_obj(generator, kind, table, table_out, has_locked,
                                     locations, implicit_unlock)
         # PutNext's fixed object draws over every type (levelgen.py:173-176).
@@ -201,9 +201,10 @@ def make_levelgen(
 
         # A random instruction (levelgen.py:157-210).
         top = G.randint(generator, 0, len(instr_kinds), b, dev)
-        top_kind = torch.tensor(
-            [("action", "and", "seq").index(k) for k in instr_kinds], device=dev
-        )[top.long()]  # 0 action, 1 and, 2 seq
+        top_kind = G.lookup(  # 0 action, 1 and, 2 seq
+            G.const([("action", "and", "seq").index(k) for k in instr_kinds], torch.int64, dev),
+            top,
+        )
         before = G.randint(generator, 0, 2, b, dev) == 0
         # Each seq sub-clause is drawn from {action, and} (levelgen.py:189-199).
         sub_and = G.randint(generator, 0, 2, b, dev)

@@ -75,7 +75,7 @@ def make_crossing(
 
         # Room limits: 0, the selected rivers sorted (unselected sort to the
         # sentinel size-1), size-1.
-        pos = torch.tensor(cand, dtype=torch.int32, device=dev)
+        pos = G.const(cand, torch.int32, dev)
         edge0 = torch.zeros((b, 1), dtype=torch.int32, device=dev)
 
         def limits(selected, last):

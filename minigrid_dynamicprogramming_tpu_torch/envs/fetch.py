@@ -59,8 +59,8 @@ def make_fetch(env_id: str, size: int = 8, num_objs: int = 3) -> Environment:
         b = batch_size
         state = new_state(b, p.height, p.width, dev)
         state = G.wall_rect(state, 0, 0, p.width, p.height)
-        kinds = torch.tensor(OBJ_TYPES, dtype=torch.int32, device=dev)
-        types = kinds[G.randint(generator, 0, 2, b * num_objs, dev).long()].reshape(b, num_objs)
+        kinds = G.const(OBJ_TYPES, torch.int32, dev)
+        types = G.lookup(kinds, G.randint(generator, 0, 2, b * num_objs, dev)).reshape(b, num_objs)
         colors = G.randint(generator, 0, 6, b * num_objs, dev).reshape(b, num_objs)
         state, _, _ = place_objects(generator, state, types, colors)
         state, _ = G.place_agent(generator, state)

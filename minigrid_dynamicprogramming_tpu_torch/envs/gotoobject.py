@@ -34,7 +34,7 @@ def distinct_type_color_prefix(generator, batch: int, k: int, device):
     """(types, colors), each (B, k) int32: a uniform ordered draw of k
     distinct (type, color) pairs, the prefix of a permutation of the 18."""
     perm = G.permutation(generator, batch, len(TYPES) * 6, device)[:, :k]
-    types = torch.tensor(TYPES, dtype=torch.int32, device=device)[perm // 6]
+    types = G.lookup(G.const(TYPES, torch.int32, device), perm // 6)
     return types, (perm % 6).to(torch.int32)
 
 

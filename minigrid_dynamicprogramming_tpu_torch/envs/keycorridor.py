@@ -50,10 +50,11 @@ def set_target(state: EnvState, kind, color, mission_kind: bool = True) -> EnvSt
     """Aux slots 0-1 to the target's (kind, color); mission slot 0 to its
     color and, where the mission names it, slot 1 to its kind."""
     aux, mission = state.aux.clone(), state.mission.clone()
-    aux[:, 0], aux[:, 1] = kind, color
-    mission[:, 0] = color
+    G.assign(aux[:, 0], kind)
+    G.assign(aux[:, 1], color)
+    G.assign(mission[:, 0], color)
     if mission_kind:
-        mission[:, 1] = kind
+        G.assign(mission[:, 1], kind)
     return state.replace(aux=aux, mission=mission)
 
 

@@ -58,13 +58,14 @@ def make_lockedroom(env_id: str, size: int = 19) -> Environment:
             state = G.horz_wall(state, 0, j, lwall)
             state = G.horz_wall(state, rwall, j, size - rwall)
 
-        top = torch.tensor(tops, dtype=torch.int32, device=dev)  # (6, 2)
+        top = G.const(tops, torch.int32, dev)  # (6, 2)
         locked_idx = G.randint(generator, 0, 6, b, dev).long()
         # The goal on a random interior cell of the locked room.
         gx = G.randint(generator, 1, room_w - 1, b, dev)
         gy = G.randint(generator, 1, room_h - 1, b, dev)
+        locked_top = G.lookup(top, locked_idx)
         state = G.put_obj(
-            state, top[locked_idx, 0] + gx, top[locked_idx, 1] + gy, OBJ_GOAL, COLOR_GREEN
+            state, locked_top[:, 0] + gx, locked_top[:, 1] + gy, OBJ_GOAL, COLOR_GREEN
         )
 
         # Distinct door colors: a permutation of the six.
@@ -78,9 +79,8 @@ def make_lockedroom(env_id: str, size: int = 19) -> Environment:
         kx = G.randint(generator, 1, room_w - 1, b, dev)
         ky = G.randint(generator, 1, room_h - 1, b, dev)
         locked_color = colors.gather(1, locked_idx[:, None])[:, 0]
-        state = G.put_obj(
-            state, top[key_idx, 0] + kx, top[key_idx, 1] + ky, OBJ_KEY, locked_color
-        )
+        key_top = G.lookup(top, key_idx)
+        state = G.put_obj(state, key_top[:, 0] + kx, key_top[:, 1] + ky, OBJ_KEY, locked_color)
 
         # The agent in the hallway band.
         _, xs = G.coord_grids(size, size, dev)

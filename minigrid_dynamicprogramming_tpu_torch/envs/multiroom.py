@@ -56,7 +56,8 @@ MARGIN = {2: 2.0, 4: 3.0, 6: 5.0}
 def _uniform_int(generator, low, high, shape, device) -> torch.Tensor:
     """int64 uniform draws from [low, high) of ``shape``; the bounds are
     ints or tensors that broadcast to it."""
-    n = torch.as_tensor(high - low, device=device).to(torch.int64)
+    n = high - low
+    n = n.to(torch.int64) if isinstance(n, torch.Tensor) else torch.full((), n, device=device)
     u = torch.rand(shape, generator=generator, device=device)
     rank = torch.minimum((u * n).to(torch.int64), n - 1)
     return low + rank
@@ -150,7 +151,6 @@ def _paint(generator, p: EnvParams, tops, sizes, entries, count, device) -> EnvS
     b, n_max, _ = tops.shape
     state = new_state(b, p.height, p.width, device)
     ys, xs = G.coord_grids(p.height, p.width, device)
-    sorted_ids = torch.tensor(SORTED_COLOR_IDS, device=device)
     prev_color = torch.full((b,), -1, dtype=torch.int64, device=device)
     for idx in range(n_max):
         active = idx < count
@@ -162,7 +162,7 @@ def _paint(generator, p: EnvParams, tops, sizes, entries, count, device) -> EnvS
             r = G.randint(generator, 0, torch.where(prev_color >= 0, 5, 6), b, device)
             color = torch.zeros_like(prev_color)
             seen = torch.zeros_like(prev_color)
-            for cand in sorted_ids:
+            for cand in SORTED_COLOR_IDS:
                 is_opt = cand != prev_color
                 color = torch.where(is_opt & (seen == r), cand, color)
                 seen = seen + is_opt.to(torch.int64)
@@ -202,12 +202,14 @@ def make_multiroom(
         order = torch.argsort((~ok).to(torch.int8), stable=True)  # successes first
         accepted = ok.sum()
         idx = torch.arange(n, device=dev)
-        sel = order[torch.where(idx < accepted, idx, idx % accepted.clamp(min=1))]
+        sel = order.index_select(0, torch.where(idx < accepted, idx, idx % accepted.clamp(min=1)))
 
         def take(a):  # (n_max, 2, m) -> (n, n_max, 2)
-            return a[:, :, sel].permute(2, 0, 1)
+            return a.index_select(2, sel).permute(2, 0, 1)
 
-        state = _paint(generator, p, take(tops), take(sizes), take(entries), count[sel], dev)
+        state = _paint(
+            generator, p, take(tops), take(sizes), take(entries), count.index_select(0, sel), dev
+        )
         return state, ok
 
     def generate(

@@ -47,8 +47,8 @@ BOX_COLOR = SORTED_COLOR_IDS[2]  # grey
 
 def _door_colors(generator: torch.Generator, b: int, device) -> torch.Tensor:
     """(B, 6) int32: a uniform permutation of the sorted color list."""
-    ids = torch.tensor(SORTED_COLOR_IDS, dtype=torch.int32, device=device)
-    return ids[G.permutation(generator, b, 6, device)]
+    ids = G.const(SORTED_COLOR_IDS, torch.int32, device)
+    return G.lookup(ids, G.permutation(generator, b, 6, device))
 
 
 def _add_key(generator, state, ctx, i, j, color, key_in_box: bool):
@@ -167,9 +167,9 @@ def make_obstructedmaze_full(
                         generator, state, ctx, side[0], side[1],
                         colors[:, (i + k) % 6], key_in_box,
                     )
-        room = torch.tensor(corners, dtype=torch.int32, device=dev)[
-            G.randint(generator, 0, len(corners), b, dev).long()
-        ]
+        room = G.lookup(
+            G.const(corners, torch.int32, dev), G.randint(generator, 0, len(corners), b, dev)
+        )
         state, ctx, _, _, _ = RG.add_object(
             generator, state, ctx, ROOM_SIZE, room[:, 0], room[:, 1],
             kind=OBJ_BALL, color=BALL_TO_FIND,

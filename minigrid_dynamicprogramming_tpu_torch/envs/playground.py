@@ -54,9 +54,9 @@ def make_playground(env_id: str, max_steps: int = 100) -> Environment:
                     color = G.randint(generator, 0, 6, b, dev)
                     state = G.put_obj(state, dx, y_b, OBJ_DOOR, color, STATE_CLOSED)
         state, _ = G.place_agent(generator, state)
-        types = torch.tensor(TYPES, dtype=torch.int32, device=dev)
+        types = G.const(TYPES, torch.int32, dev)
         for _ in range(12):
-            kind = types[G.randint(generator, 0, 3, b, dev).long()]
+            kind = G.lookup(types, G.randint(generator, 0, 3, b, dev))
             color = G.randint(generator, 0, 6, b, dev)
             state, _, _ = G.place_obj(generator, state, kind, color)
         return state

@@ -65,7 +65,8 @@ def make_redbluedoors(env_id: str, size: int = 8) -> Environment:
         state = G.put_obj(state, red_x, red_y, OBJ_DOOR, COLOR_RED, STATE_CLOSED)
         state = G.put_obj(state, blue_x, blue_y, OBJ_DOOR, COLOR_BLUE, STATE_CLOSED)
         aux = state.aux.clone()
-        aux[:, 0], aux[:, 1], aux[:, 2], aux[:, 3] = red_x, red_y, blue_x, blue_y
+        for slot, v in enumerate((red_x, red_y, blue_x, blue_y)):
+            G.assign(aux[:, slot], v)
         return state.replace(aux=aux)
 
     return Environment(

@@ -56,10 +56,12 @@ the metrics run eagerly.  A ``PPO`` keeps its graphs across updates and
 captures one again only when it would read another TrainState's objects:
 another model, optimizer, pool or generator, or an optimizer whose state
 tensors were replaced (``load_state_dict``).  A failed capture raises.
-Two loops stay eager on every device, by rule: the collector in
-``"regen"`` mode (the generators copy host data onto the device) and the
-learner of a group of more than one rank (a rank's share of a global
-minibatch has a size that depends on the permutation).  On the card the
+The collector is graphed in every autoreset mode: in ``"regen"`` its
+step generates a fresh batch of layouts with ``env.generate``, which
+copies no host data and reads nothing back (its constant tables are made
+by the capture's warm-up).  One loop stays eager on every device, by
+rule: the learner of a group of more than one rank (a rank's share of a
+global minibatch has a size that depends on the permutation).  On the card the
 optimizer is Adam with ``capturable=True`` (its step count on the
 device), in the graphed and the eager update alike.
 
@@ -468,11 +470,12 @@ class PPO:
         def step():
             self._collect_step(c, model, pool, g)
 
-        if eager or not self._capture or pool is None:  # "regen" stays eager
+        if eager or not self._capture:
             for _ in range(self.config.rollout_len):
                 step()
             return c
-        # The warm-up steps the carry itself; it is loaded again after.
+        # The warm-up steps the carry itself; it is loaded again after.  In
+        # "regen" the pool is None.
         graph = self._graph("collector", (model, *model.parameters(), pool, g), step, step, g)
         self._load(c, ts)
         for _ in range(self.config.rollout_len):

@@ -13,6 +13,12 @@ draw different numbers; the layouts agree in distribution).  Object codes
 and colors may also be ``(B,)`` tensors.  ``randint`` and ``permutation``
 stand for ``jax.random.randint`` with per-env bounds and
 ``jax.random.permutation``, drawn for the whole batch from the generator.
+
+Every generator is a fixed-shape program with no host step, so that a
+CUDA graph can capture it: no tensor is made from Python data inside it
+(a table comes from :func:`const`, a number fills a tensor with
+:func:`vec` or :func:`assign`), nothing is read back to the host, and a
+lookup is an ``index_select`` (:func:`lookup`), never an advanced index.
 """
 
 from __future__ import annotations
@@ -27,6 +33,55 @@ from minigrid_dynamicprogramming_tpu_torch.core.constants import (
     OBJ_WALL,
 )
 from minigrid_dynamicprogramming_tpu_torch.core.state import EnvState
+
+_CONSTS: dict = {}
+
+
+def _frozen(values):
+    if isinstance(values, (list, tuple)):
+        return tuple(_frozen(v) for v in values)
+    return values
+
+
+def const(values, dtype: torch.dtype, device) -> torch.Tensor:
+    """``torch.tensor(values, dtype=dtype, device=device)``, made once per
+    (values, dtype, device) and shared after that: a generator's constant
+    table.  The first call copies host data to the device, so it comes
+    before a CUDA graph capture (the capture's warm-up call makes it); the
+    later calls launch nothing.  The table is read, never written."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    key = (_frozen(values), dtype, dev)
+    table = _CONSTS.get(key)
+    if table is None:
+        table = _CONSTS[key] = torch.tensor(values, dtype=dtype, device=dev)
+    return table
+
+
+def lookup(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]`` for an integer ``idx`` of any shape: rows of
+    ``table`` along its first axis, as one ``index_select``."""
+    rows = table.index_select(0, idx.reshape(-1).long())
+    return rows.reshape(*idx.shape, *table.shape[1:])
+
+
+def vec(v, batch: int, device, dtype=torch.int32) -> torch.Tensor:
+    """An int, a bool or a tensor as a fresh (B,) tensor of ``dtype``; a
+    number fills it on the device."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=device, dtype=dtype).expand(batch).clone()
+    return torch.full((batch,), v, dtype=dtype, device=device)
+
+
+def assign(view: torch.Tensor, v) -> None:
+    """``view[...] = v`` in place, a number written by ``fill_`` (a
+    setitem of a Python number copies it from the host)."""
+    if isinstance(v, torch.Tensor):
+        view.copy_(v)
+    else:
+        view.fill_(v)
+
 
 _PLANES = ("grid_obj", "grid_color", "grid_state", "contains_obj", "contains_color")
 
@@ -99,13 +154,9 @@ def set_agent(state: EnvState, x, y, agent_dir) -> EnvState:
     """Put every env's agent at (x, y) facing ``agent_dir``; each is an int
     or a (B,) tensor."""
     b, dev = state.agent_pos.shape[0], state.agent_pos.device
-
-    def per_env(v):
-        return torch.as_tensor(v, dtype=torch.int32, device=dev).expand(b)
-
     return state.replace(
-        agent_pos=torch.stack([per_env(x), per_env(y)], dim=1),
-        agent_dir=per_env(agent_dir).clone(),
+        agent_pos=torch.stack([vec(x, b, dev), vec(y, b, dev)], dim=1),
+        agent_dir=vec(agent_dir, b, dev),
     )
 
 

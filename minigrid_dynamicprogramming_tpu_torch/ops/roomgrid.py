@@ -64,11 +64,6 @@ class RoomCtx:
         return dataclasses.replace(self, **changes)
 
 
-def _per_env(v, b: int, device, dtype=torch.int32) -> torch.Tensor:
-    """An int, bool or (B,) tensor as a fresh (B,) tensor of ``dtype``."""
-    return torch.as_tensor(v, device=device).to(dtype).expand(b).clone()
-
-
 def _room_mask(rows: int, cols: int, i, j, device) -> torch.Tensor:
     """(B or 1, rows, cols) bool: room (i, j) per env."""
     hit_j = G.index_hit(rows, j, device)[:, :, None]
@@ -80,7 +75,7 @@ def _at_room(table: torch.Tensor, i, j) -> torch.Tensor:
     """``table[b, j, i]`` per env for a (B, rows, cols, ...) table."""
     b, rows, cols = table.shape[:3]
     rest = table.shape[3:]
-    j, i = (_per_env(v, b, table.device, torch.int64) for v in (j, i))
+    j, i = (G.vec(v, b, table.device, torch.int64) for v in (j, i))
     r = j * cols + i
     idx = r.reshape(b, 1, *([1] * len(rest))).expand(b, 1, *rest)
     return table.reshape(b, rows * cols, *rest).gather(1, idx)[:, 0]
@@ -105,25 +100,26 @@ def init(
     shape = (b, rows, cols, 4)
     door_x = torch.zeros(shape, dtype=torch.int32, device=dev)
     door_y = torch.zeros(shape, dtype=torch.int32, device=dev)
-    has_edge = torch.zeros((rows, cols, 4), dtype=torch.bool)
     for j in range(rows):
         for i in range(cols):
             tx, ty = room_top(room_size, i, j)
             if i < cols - 1:  # right edge: y in [top + 1, top + room_size - 1)
-                door_x[:, j, i, 0] = tx + room_size - 1
+                door_x[:, j, i, 0].fill_(tx + room_size - 1)
                 door_y[:, j, i, 0] = G.randint(generator, ty + 1, ty + room_size - 1, b, dev)
-                has_edge[j, i, 0] = True
             if j < rows - 1:  # down edge
                 door_x[:, j, i, 1] = G.randint(generator, tx + 1, tx + room_size - 1, b, dev)
-                door_y[:, j, i, 1] = ty + room_size - 1
-                has_edge[j, i, 1] = True
+                door_y[:, j, i, 1].fill_(ty + room_size - 1)
     # Left and up mirror the neighbour's right and down slots.
     door_x[:, :, 1:, 2] = door_x[:, :, :-1, 0]
     door_y[:, :, 1:, 2] = door_y[:, :, :-1, 0]
     door_x[:, 1:, :, 3] = door_x[:, :-1, :, 1]
     door_y[:, 1:, :, 3] = door_y[:, :-1, :, 1]
-    has_edge[:, 1:, 2] = True
-    has_edge[1:, :, 3] = True
+    # Edges 0-3 (right, down, left, up) have a neighbour inside the lattice.
+    has_edge = G.const(
+        [[[i < cols - 1, j < rows - 1, i > 0, j > 0] for i in range(cols)] for j in range(rows)],
+        torch.bool,
+        dev,
+    )
 
     state = G.set_agent(
         state, (cols // 2) * pitch + room_size // 2, (rows // 2) * pitch + room_size // 2, 0
@@ -131,7 +127,7 @@ def init(
     ctx = RoomCtx(
         door_x=door_x,
         door_y=door_y,
-        has_edge=has_edge.to(dev).expand(shape),
+        has_edge=has_edge.expand(shape),
         edge=torch.zeros(shape, dtype=torch.int32, device=dev),
         locked=torch.zeros((b, rows, cols), dtype=torch.bool, device=dev),
         used=torch.zeros((b, 3, 6), dtype=torch.bool, device=dev),
@@ -143,8 +139,8 @@ def _neighbor(rows: int, cols: int, i, j, k):
     """The room across edge k, clipped to the lattice (callers guard
     ``has_edge``); each argument an int or a tensor."""
     if isinstance(k, torch.Tensor):
-        di = torch.tensor(_DI, device=k.device)[k.long()]
-        dj = torch.tensor(_DJ, device=k.device)[k.long()]
+        di = G.lookup(G.const(_DI, torch.int64, k.device), k)
+        dj = G.lookup(G.const(_DJ, torch.int64, k.device), k)
     else:
         di, dj = _DI[int(k)], _DJ[int(k)]
 
@@ -206,9 +202,9 @@ def add_door(
         color = G.randint(generator, 0, 6, b, dev)
     if locked is None:
         locked = G.randint(generator, 0, 2, b, dev) == 0
-    color = _per_env(color, b, dev)
-    locked = _per_env(locked, b, dev, torch.bool)
-    k = _per_env(door_idx, b, dev, torch.int64)
+    color = G.vec(color, b, dev)
+    locked = G.vec(locked, b, dev, torch.bool)
+    k = G.vec(door_idx, b, dev, torch.int64)
     x = _at_room(ctx.door_x, i, j).gather(1, k[:, None])[:, 0]
     y = _at_room(ctx.door_y, i, j).gather(1, k[:, None])[:, 0]
     state = G.put_obj(
@@ -300,11 +296,11 @@ def add_object(
     b = state.grid_obj.shape[0]
     dev = state.grid_obj.device
     if kind is None:
-        kinds = torch.tensor(OBJ_KINDS, dtype=torch.int32, device=dev)
-        kind = kinds[G.randint(generator, 0, 3, b, dev).long()]
+        kinds = G.const(OBJ_KINDS, torch.int32, dev)
+        kind = G.lookup(kinds, G.randint(generator, 0, 3, b, dev))
     if color is None:
         color = G.randint(generator, 0, 6, b, dev)
-    kind, color = _per_env(kind, b, dev), _per_env(color, b, dev)
+    kind, color = G.vec(kind, b, dev), G.vec(color, b, dev)
     state, ctx, pos, _ = place_in_room(generator, state, ctx, room_size, i, j, kind, color)
     return state, ctx, pos, kind, color
 
@@ -378,7 +374,7 @@ def connect_all(
         dcolor = draw(6)
     else:
         r = draw(5)
-        ex = torch.as_tensor(exclude_color, device=dev).to(torch.int64).reshape(-1, 1)
+        ex = G.vec(exclude_color, b, dev, torch.int64).reshape(-1, 1)
         dcolor = torch.where(ex < 0, draw(6), r + (r >= ex).to(torch.int64))
     return connect_all_draws(state, ctx, room_size, di, dj, dk, dcolor)
 
@@ -494,7 +490,7 @@ def add_distractors(
     b, h, w = state.grid_obj.shape
     dev = state.grid_obj.device
     n = num_distractors
-    kinds_t = torch.tensor(OBJ_KINDS, dtype=torch.int32, device=dev)
+    kinds_t = G.const(OBJ_KINDS, torch.int32, dev)
     if (i is not None and j is not None) or (rows == 1 and cols == 1):
         ri = 0 if i is None else i
         rj = 0 if j is None else j
@@ -514,7 +510,7 @@ def add_distractors(
         else:
             kind_idx = torch.randint(0, 3, (b, n), generator=generator, device=dev)
             combos = kind_idx * 6 + torch.randint(0, 6, (b, n), generator=generator, device=dev)
-        kinds, colors = kinds_t[combos // 6], (combos % 6).to(torch.int32)
+        kinds, colors = G.lookup(kinds_t, combos // 6), (combos % 6).to(torch.int32)
         used = ctx.used.reshape(b, 18)
         grid_obj, grid_color = state.grid_obj, state.grid_color
         for t in range(n):
@@ -529,9 +525,9 @@ def add_distractors(
     for _ in range(n):
         if all_unique:
             combo, _, _ = G.sample_mask_pos(generator, ~ctx.used.reshape(b, 1, 18))
-            kind, color = kinds_t[combo.long() // 6], combo % 6
+            kind, color = G.lookup(kinds_t, combo.long() // 6), combo % 6
         else:
-            kind = kinds_t[G.randint(generator, 0, 3, b, dev).long()]
+            kind = G.lookup(kinds_t, G.randint(generator, 0, 3, b, dev))
             color = G.randint(generator, 0, 6, b, dev)
         ri = G.randint(generator, 0, cols, b, dev) if i is None else i
         rj = G.randint(generator, 0, rows, b, dev) if j is None else j

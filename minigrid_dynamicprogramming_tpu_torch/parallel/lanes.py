@@ -1,4 +1,4 @@
-"""Batch-last (lane-major) step, observation and pool-autoreset rollout.
+"""Batch-last (lane-major) step, observation and autoreset rollout.
 
 Counterpart of ``minigrid_dynamicprogramming_tpu/parallel/lanes.py``.  The
 batch stays the LAST axis: grid planes are ``(H*W, B)``, view planes
@@ -561,7 +561,11 @@ def lane_rollout(
 
     * ``"pool"`` — pregenerate ``pool_rounds`` layout batches; the k-th
       reset of a slot draws round ``k % pool_rounds``;
-    * ``"cached"`` — each slot replays its initial layout.
+    * ``"cached"`` — each slot replays its initial layout;
+    * ``"regen"`` — every step generates a fresh batch of layouts
+      (``env.generate``, after the actions' and the hooks' draws) and each
+      finished slot takes its own: JAX's default ``rollout`` mode, which
+      computes both branches of the select every step.
 
     The layouts and the actions come from ``generator`` (a
     ``torch.Generator`` on ``device``); ``actions``, if given, is a
@@ -595,7 +599,9 @@ def shard_lanes(ls: LaneState, group: EnvGroup) -> LaneState:
 
 
 def _rounds(autoreset: str, pool_rounds: int) -> int:
-    if autoreset not in ("pool", "cached"):
+    """The layout batches ``_lane_pool`` generates: ``pool_rounds`` for
+    "pool", else the initial batch only."""
+    if autoreset not in ("pool", "cached", "regen"):
         raise ValueError(f"unknown autoreset mode {autoreset!r}")
     return pool_rounds if autoreset == "pool" else 1
 
@@ -713,6 +719,8 @@ class _Scan:
     ):
         self.rounds = _rounds(autoreset, pool_rounds)
         self.device = dev = pool.grid_obj.device
+        if autoreset == "regen" and generator is None:
+            raise ValueError('"regen" generates from the generator; pass one')
         if actions is None:
             if generator is None:
                 raise ValueError("pass a generator or an actions tensor")
@@ -734,7 +742,8 @@ class _Scan:
             return torch.empty(horizon, dtype=dtype, device=dev)
 
         # The carried state is a copy: the step writes into it, and in
-        # "cached" mode it reads the pool's round 0 as its fresh layouts.
+        # "cached" mode it reads the pool's round 0 as its fresh layouts
+        # ("regen" generates them every step).
         self.carry = _Carry(
             ls=_clone_lanes(self.init_ls),
             reset_count=torch.zeros(batch_size, dtype=torch.int32, device=dev),
@@ -762,6 +771,10 @@ class _Scan:
         reset_count = c.reset_count + done.to(torch.int32)
         if self.autoreset == "pool":
             fresh = _select_pool(self.pool, reset_count % self.rounds, self.rounds, self.skip)
+        elif self.autoreset == "regen":
+            fresh = to_lanes(
+                env.generate(self.generator, env.params, self.batch_size, self.device)
+            )
         else:
             fresh = self.init_ls
         ls = _select_lanes(done, fresh, ls, self.skip)
@@ -786,7 +799,7 @@ class _Scan:
     def capture(self) -> torch.cuda.CUDAGraph:
         """``step`` on the carry, captured as a CUDA graph (``capture_step``);
         each replay is one step.  The warm-up steps a copy of the carry."""
-        draws = self.actions is None or self.hook_gen is not None
+        draws = self.actions is None or self.hook_gen is not None or self.autoreset == "regen"
         graph, _lane_scan.capture_ms, _lane_scan.pool_bytes = capture_step(
             lambda: self.step(self.carry),
             lambda: self.step(self.carry.clone()),
@@ -842,7 +855,7 @@ def _lane_scan(
 ) -> LaneRolloutResult:
     """Step ``horizon`` times from round 0 of ``pool`` with autoreset.
     The hooks draw from ``generator`` after each step's actions, and only
-    where ``env.hook_rng``.
+    where ``env.hook_rng``; "regen" generates from it after the hooks.
 
     On a CUDA device the step is captured once as a CUDA graph and
     replayed ``horizon`` times, as JAX compiles its scan into one program;

@@ -20,6 +20,10 @@ the card's name and power limit, then:
   time; and the capture's host time and its memory pool's bytes.  The
   device's busy share is the profiler's kernel time over the wall time
   of the same loop run without the profiler.
+* the same for the "regen" rollout (a fresh batch of layouts generated
+  every step, ``env.generate`` inside the step's graph) on DoorKey-8x8 at
+  B=65536 (``profile_regen``; ``chip_smoke.py`` phase 22 also runs it on
+  LavaGapS7 and BabyAI-BossLevel at B=4096);
 * for one PPO update at ``chip_smoke.py``'s throughput configuration
   (BabyAI-GoToDoor, 32768 envs, T=32, 2 epochs x 8 minibatches, bf16) and
   at its learning configuration (8192 envs, T=64): the same for the
@@ -27,7 +31,8 @@ the card's name and power limit, then:
   the whole update, each graphed (the collector's and the minibatch's
   step each replayed as a CUDA graph, as ``PPO.update`` runs on a card)
   and eager (``PPO._update_eager``), and for the eager remainder; each
-  graph's capture ms and memory pool bytes;
+  graph's capture ms and memory pool bytes; and the same at the learning
+  configuration with the "regen" collector;
 * the same for ``chip_smoke.py``'s rendering: ``render_frame`` (tile 32,
   highlight) of 4096 DoorKey-8x8 states, and a step of the pixel
   observation ``ImgObs(RGBImgPartialObs(env, 8))`` on BabyAI-GoToDoor at
@@ -68,15 +73,20 @@ def part_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def profiled(fn, label: str, per: int, results: dict) -> None:
-    """Time ``fn()`` on the host clock, then under ``torch.profiler``:
-    kernel time, kernels launched and the ten costliest kernels, each
-    divided by ``per`` (steps or updates); adds them to ``results``."""
+def profiled(fn, label: str, per: int, results: dict, trace: bool = True) -> None:
+    """Time ``fn()`` on the host clock, then (``trace``) under
+    ``torch.profiler``: kernel time, kernels launched and the ten
+    costliest kernels, each divided by ``per`` (steps or updates); adds
+    them to ``results``."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t0)
+    if not trace:
+        results[label] = dict(wall_ms=wall_ms / per)
+        print(f"[{label}] {wall_ms / per:.4f} ms on the host clock", flush=True)
+        return
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
         t0 = time.perf_counter()
@@ -112,24 +122,59 @@ def profiled(fn, label: str, per: int, results: dict) -> None:
         print(f"[kernel] {share:6.3f} x{e.count:6d} {e.key[:100]}")
 
 
+def profile_regen(results: dict, env_id: str = ENV_ID, b: int = BATCH, steps: int = STEPS,
+                  label: str = "regen", trace_eager: bool = True) -> dict:
+    """``steps`` steps of the "regen" rollout on ``env_id`` at ``b`` lanes,
+    eager (``_lane_scan_eager``; under the profiler too where
+    ``trace_eager``) and graphed (the step captured once, then replayed a
+    step at a time); the capture's ms and its pool's bytes."""
+    from minigrid_dynamicprogramming_tpu_torch import make
+    from minigrid_dynamicprogramming_tpu_torch.parallel import lanes as L
+
+    dev = torch.device("cuda")
+    env = make(env_id)
+    g = torch.Generator(device=dev).manual_seed(0)
+    pool = L._lane_pool(env, g, b, "regen", 1, dev)
+    out = results[label] = {"env": env_id, "B": b, "steps": steps}
+    L._lane_scan_eager(env, g, pool, b, 2, "regen", 1)  # warm-up
+    profiled(lambda: L._lane_scan_eager(env, g, pool, b, steps, "regen", 1),
+             f"{label} eager rollout loop, {env_id}, B={b}, per step", steps, out, trace_eager)
+    scan = L._Scan(env, g, pool, b, 2 * steps, "regen", 1, None)
+    graph = scan.capture()
+    out.update(capture_ms=L._lane_scan.capture_ms, graph_pool_bytes=L._lane_scan.pool_bytes)
+    print(f"[{label} graph] captured in {L._lane_scan.capture_ms:.3f} ms, its memory pool "
+          f"{L._lane_scan.pool_bytes} bytes", flush=True)
+
+    def replay():
+        for _ in range(steps):
+            graph.replay()
+
+    profiled(replay, f"{label} graphed rollout loop, {env_id}, B={b}, per step", steps, out)
+    graph.reset()
+    return out
+
+
 def profile_ppo(results: dict, num_envs: int = PPO_B, rollout_len: int = PPO_T,
-                label: str = "ppo") -> dict:
+                label: str = "ppo", autoreset: str = "pool", trace_learner: bool = True) -> dict:
     """One PPO update's parts on BabyAI-GoToDoor (2 epochs x 8
     minibatches), each graphed (as ``update`` runs it on the card) and
     eager (``_update_eager``'s Python loops): the collector per step, the
     learner per update, the whole update; the eager remainder (the last
     observation and value, GAE, the permutations, the metrics); each
     graph's captures, capture ms and memory pool bytes.  After one
-    update that captures both graphs and one eager one."""
+    update that captures both graphs and one eager one.  Without
+    ``trace_learner`` the learner, the update and the remainder are timed
+    on the host clock only."""
     from minigrid_dynamicprogramming_tpu_torch import make
     from minigrid_dynamicprogramming_tpu_torch.models import PPO, PPOConfig
 
-    cfg = PPOConfig(num_envs=num_envs, rollout_len=rollout_len, epochs=2, num_minibatches=PPO_MB)
+    cfg = PPOConfig(num_envs=num_envs, rollout_len=rollout_len, epochs=2, num_minibatches=PPO_MB,
+                    autoreset=autoreset)
     ppo = PPO(make(PPO_ENV), cfg)
     ts, _ = ppo.update(ppo.init(3))
     ts, _ = ppo._update_eager(ts)
     out = results[label] = {"env": PPO_ENV, "num_envs": num_envs, "rollout_len": rollout_len,
-                            "epochs": 2, "num_minibatches": PPO_MB}
+                            "epochs": 2, "num_minibatches": PPO_MB, "autoreset": autoreset}
     for eager in (False, True):
         way = "eager" if eager else "graphed"
         profiled(lambda: ppo._run_collector(ts, eager), f"{label} collector {way}, per step",
@@ -138,8 +183,8 @@ def profile_ppo(results: dict, num_envs: int = PPO_B, rollout_len: int = PPO_T,
         with torch.no_grad():
             _, last_value = ts.model(ppo._final(c)[1])
         profiled(lambda: ppo._learn(ts, c.traj, last_value, eager),
-                 f"{label} learner {way}, per update", 1, out)
-        profiled(lambda: ppo._update(ts, eager), f"{label} update {way}", 1, out)
+                 f"{label} learner {way}, per update", 1, out, trace_learner)
+        profiled(lambda: ppo._update(ts, eager), f"{label} update {way}", 1, out, trace_learner)
 
     def remainder():
         _, last_obs = ppo._final(c)
@@ -147,7 +192,7 @@ def profile_ppo(results: dict, num_envs: int = PPO_B, rollout_len: int = PPO_T,
             _, value = ts.model(last_obs)
         ppo._metrics(c.traj, ppo._minibatch_carry(ts, c.traj, value))
 
-    profiled(remainder, f"{label} eager remainder, per update", 1, out)
+    profiled(remainder, f"{label} eager remainder, per update", 1, out, trace_learner)
     out.update(captures=dict(ppo.captures), capture_ms=dict(ppo.capture_ms),
                pool_bytes=dict(ppo.pool_bytes))
     print(f"[{label} graphs] captures {ppo.captures}, capture ms {ppo.capture_ms}, "
@@ -266,8 +311,10 @@ def main(argv=None) -> int:
     profiled(replay, f"graphed rollout loop, B={b}, per step", steps, results)
     graph.reset()
     del pool, ls, scan, graph
+    profile_regen(results)
     profile_ppo(results)
     profile_ppo(results, LEARN_B, LEARN_T, "ppo learning size")
+    profile_ppo(results, LEARN_B, LEARN_T, "ppo regen, learning size", "regen")
     profile_render(results)
     profile_render_rows(results)
     if args.out:

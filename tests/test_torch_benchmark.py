@@ -1,7 +1,8 @@
 """The port's micro-benchmark CLI runs on the CPU at a tiny size and
-reports every metric of the JAX package's ``benchmark`` (its batched
-number from ``lane_rollout``); without a card it refuses the default
-device."""
+reports every metric of the JAX package's ``benchmark``: its headline
+``batched_env_steps_per_s`` from the "regen" rollout, as JAX's, and
+``lane_env_steps_per_s`` from the "pool" one; without a card it refuses
+the default device."""
 
 from __future__ import annotations
 
@@ -22,6 +23,22 @@ def test_benchmark_smoke(env_id, capsys):
     assert out["pov_shape"] == (56, 56, 3)
     printed = capsys.readouterr().out
     assert f"env_id: {env_id}" in printed and "render_fps:" in printed
+
+
+def test_headline_comes_from_the_regen_rollout(monkeypatch):
+    modes = []
+    rollout = B.lane_rollout
+
+    def recording(env, generator, batch, horizon, autoreset, *args, **kwargs):
+        modes.append(autoreset)
+        return rollout(env, generator, batch, horizon, autoreset, *args, **kwargs)
+
+    monkeypatch.setattr(B, "lane_rollout", recording)
+    out = B.benchmark(num_resets=1, num_frames=1, tile_size=8, batch=4, horizon=3, device="cpu")
+    # A warm-up and a timed run of each, the headline's first.
+    assert modes == ["regen", "regen", "pool", "pool"]
+    assert out["env_id"] == "MiniGrid-LavaGapS7-v0"
+    assert out["batched_env_steps_per_s"] > 0 and out["lane_env_steps_per_s"] > 0
 
 
 def test_cli(capsys):

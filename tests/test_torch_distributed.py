@@ -14,6 +14,10 @@
   (``lane_rollout`` with a group, each rank's own generator) the ranks'
   streams differ and each rank has episodes; ``replicated`` gives rank 0's
   values on both ranks.
+* The "regen" rollout with a group: each rank generates its own lanes
+  from its own generator, so its final state and resets equal the
+  ungrouped regen rollout of half the batch from the same seed, and the
+  all-reduced episodes and checksum are the two halves' sums.
 * ``shard_batch`` gives each rank the slice that JAX's ``P("env")`` puts
   on the same device of a mesh, on every axis it is used on.
 """
@@ -146,6 +150,47 @@ def test_two_process_rollout_equals_one_process(tmp_path):
     assert not np.array_equal(dumps[0]["drawn_grid"], dumps[1]["drawn_grid"]) or not np.array_equal(
         dumps[0]["drawn_resets"], dumps[1]["drawn_resets"]
     ), "the ranks drew the same stream"
+
+
+_REGEN_WORKER = join(2) + f"""
+import numpy as np
+import minigrid_dynamicprogramming_tpu_torch as port
+from minigrid_dynamicprogramming_tpu_torch.bridge import to_numpy
+from minigrid_dynamicprogramming_tpu_torch.parallel import lanes as L
+from minigrid_dynamicprogramming_tpu_torch.parallel.sharding import sharded_keys
+
+group = distributed.global_env_group("cpu")
+env = port.make("MiniGrid-LavaGapS5-v0")
+res = L.lane_rollout(env, sharded_keys(9, group), 16, 24, "regen", group=group)
+np.savez(
+    out,
+    **{{"final_" + k: v for k, v in to_numpy(res.final_state).items()}},
+    resets=res.resets_per_env.numpy(),
+    scalars=np.array([int(res.episodes), int(res.obs_checksum), res.steps]),
+)
+print("worker", rank, "ok", distributed.process_summary())
+"""
+
+
+def test_two_process_regen_rollout_is_each_ranks_own(tmp_path):
+    outs = [tmp_path / f"rank{r}.npz" for r in range(2)]
+    logs = run_workers(_REGEN_WORKER, 2, outs)
+    for r, log in enumerate(logs):
+        assert f"worker {r} ok process {r}/2" in log, log
+    env = port.make("MiniGrid-LavaGapS5-v0")
+    episodes = checksum = 0
+    for r, o in enumerate(outs):
+        d = np.load(o)
+        g = torch.Generator().manual_seed(rank_seed(9, r))
+        own = L.lane_rollout(env, g, 8, 24, "regen", device="cpu")
+        for name, want in to_numpy(own.final_state).items():
+            np.testing.assert_array_equal(d["final_" + name], want, err_msg=f"rank {r} {name}")
+        np.testing.assert_array_equal(d["resets"], own.resets_per_env.numpy())
+        episodes += int(own.episodes)
+        checksum += int(own.obs_checksum)
+    for d in (np.load(o) for o in outs):
+        assert d["scalars"].tolist() == [episodes, checksum % (1 << 32), 16 * 24]
+    assert episodes > 0
 
 
 def _groups(n: int):

@@ -53,7 +53,12 @@ DoorKey-5x5 and Dynamic-Obstacles-8x8, and so, with PyTorch's
 deterministic algorithms, do its parameters and Adam's state after two
 updates; it captures each
 graph once over seven updates, again after a restored optimizer state or
-another ``init``, and no learner at zero epochs.
+another ``init``, and no learner at zero epochs.  The "regen" autoreset
+runs ``generate`` inside those graphs: every registered id's generator,
+captured once and replayed, equals an eager call from the same generator
+state at B=64; the regen rollout (DoorKey-8x8, drawn and given actions,
+Dynamic-Obstacles-8x8 and GoToLocal) and PPO's regen update equal their
+eager runs bit for bit.
 """
 
 from __future__ import annotations
@@ -643,6 +648,10 @@ def _assert_rollouts_equal(a, b) -> None:
     ("MiniGrid-DoorKey-8x8-v0", "cached", True),
     ("MiniGrid-Dynamic-Obstacles-8x8-v0", "pool", False),
     ("BabyAI-GoToLocal-v0", "pool", False),
+    ("MiniGrid-DoorKey-8x8-v0", "regen", False),
+    ("MiniGrid-DoorKey-8x8-v0", "regen", True),
+    ("MiniGrid-Dynamic-Obstacles-8x8-v0", "regen", False),
+    ("BabyAI-GoToLocal-v0", "regen", False),
 ])
 def test_graphed_rollout_equals_eager(card, env_id, autoreset, given):
     """The graphed rollout equals the eager loop bit for bit, and leaves
@@ -689,13 +698,13 @@ def test_zero_horizon_captures_nothing(card):
 _PPO_IDS = ["BabyAI-GoToDoor-v0", "MiniGrid-DoorKey-5x5-v0", "MiniGrid-Dynamic-Obstacles-8x8-v0"]
 
 
-def _ppo_on_card(card, env_id: str, epochs: int = 2):
+def _ppo_on_card(card, env_id: str, epochs: int = 2, autoreset: str = "pool"):
     from minigrid_dynamicprogramming_tpu_torch.models import PPO, PPOConfig
 
     env = port.make(env_id)
     env.params = env.params.replace(max_steps=min(env.params.max_steps, 24))  # lanes reset
-    return PPO(env, PPOConfig(num_envs=2048, rollout_len=32, epochs=epochs, num_minibatches=4),
-               device=card)
+    return PPO(env, PPOConfig(num_envs=2048, rollout_len=32, epochs=epochs, num_minibatches=4,
+                              autoreset=autoreset), device=card)
 
 
 def _next_draw(g: torch.Generator) -> torch.Tensor:
@@ -720,9 +729,7 @@ def deterministic():
     torch.use_deterministic_algorithms(False)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("env_id", _PPO_IDS)
-def test_graphed_ppo_update_equals_eager(card, deterministic, env_id):
+def _ppo_graphed_against_eager(card, env_id: str, autoreset: str) -> None:
     """Two updates graphed (``update``) and, from the same seed, eager
     (``_update_eager``) twice, with deterministic algorithms: each
     update's trajectory, final state, reset counts and collector
@@ -731,7 +738,7 @@ def test_graphed_ppo_update_equals_eager(card, deterministic, env_id):
 
     runs = []
     for graphed in (True, False, False):
-        ppo = _ppo_on_card(card, env_id)
+        ppo = _ppo_on_card(card, env_id, autoreset=autoreset)
         ts = ppo.init(4)
         seen = []
         for _ in range(2):
@@ -748,6 +755,47 @@ def test_graphed_ppo_update_equals_eager(card, deterministic, env_id):
     assert all(torch.equal(x, y) for x, y in zip(eager, eager2)), "two eager runs agree"
     for k, (x, y) in enumerate(zip(graphed, eager)):
         assert torch.equal(x, y), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env_id", _PPO_IDS)
+def test_graphed_ppo_update_equals_eager(card, deterministic, env_id):
+    _ppo_graphed_against_eager(card, env_id, "pool")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env_id", _PPO_IDS)
+def test_graphed_regen_ppo_update_equals_eager(card, deterministic, env_id):
+    """As above with the "regen" collector: ``generate`` in its graph."""
+    _ppo_graphed_against_eager(card, env_id, "regen")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env_id", port.registered_ids())
+def test_generate_graph_equals_eager(card, env_id):
+    """``generate`` at B=64 captured once (the generator registered) and
+    replayed twice: each replay equals an eager call from the generator
+    state it started from, and the generators end alike."""
+    env = port.make(env_id)
+    g = torch.Generator(device=card).manual_seed(9)
+    start = g.get_state()
+    out = {}
+
+    def step():
+        out["state"] = env.generate(g, env.params, 64, card)
+
+    graph, _, pool_bytes = tlanes.capture_step(step, step, card, g)
+    h = torch.Generator(device=card).set_state(start)
+    try:
+        for _ in range(2):
+            graph.replay()
+            want = env.generate(h, env.params, 64, card)
+            for f in dataclasses.fields(want):
+                assert torch.equal(getattr(out["state"], f.name), getattr(want, f.name)), f.name
+    finally:
+        graph.reset()
+    assert pool_bytes > 0
+    assert torch.equal(_next_draw(g), _next_draw(h))
 
 
 @pytest.mark.cuda

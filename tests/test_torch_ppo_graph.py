@@ -9,8 +9,9 @@ the same steps run in Python loops.  Here there is no card, so:
 * each step runs under ``_torch_graph.py``'s ``NoHostReads`` (Adam's own
   step excepted: on the card it is PyTorch's capturable Adam, on the CPU
   it reads its step count), on Empty-5x5, GoToDoor and
-  Dynamic-Obstacles-8x8 (its hooks draw), the collector in both pool
-  modes; the collector's step writes nothing but its carry;
+  Dynamic-Obstacles-8x8 (its hooks draw), the collector in every
+  autoreset mode ("regen" generates inside the step); the collector's
+  step writes nothing but its carry;
 * the action draw equals ``torch.multinomial``'s from the same generator
   state;
 * the update's graph path runs with a stand-in for
@@ -20,7 +21,8 @@ the same steps run in Python loops.  Here there is no card, so:
   Adam's state, both generators), which holds the learner's warm-up to
   leaving the model and the optimizer where it found them; it captures
   each loop once, again after a new ``init`` or a restored optimizer
-  state, and no learner at zero epochs;
+  state, and no learner at zero epochs; in "regen" too, where the
+  collector's graph reads no pool;
 * a TrainState and metrics that the caller keeps do not change when the
   next update runs.
 """
@@ -91,19 +93,21 @@ def _params(model) -> list:
     return [p.detach().clone() for p in model.parameters()]
 
 
-@pytest.mark.parametrize("autoreset", ["pool", "cached"])
+@pytest.mark.parametrize("autoreset", ["pool", "cached", "regen"])
 @pytest.mark.parametrize("env_id", IDS)
 def test_collector_step_reads_nothing_to_the_host(env_id, autoreset):
     ppo, ts = _ppo(env_id, autoreset)
     c = ppo._rollout_carry(ts)
     ppo._load(c, ts)
-    pool, state, params = to_numpy(ts.pool), to_numpy(ts.env_state), _params(ts.model)
+    assert (ts.pool is None) == (autoreset == "regen")
+    pool = {} if ts.pool is None else to_numpy(ts.pool)
+    state, params = to_numpy(ts.env_state), _params(ts.model)
     with NoHostReads():
         for _ in range(T):
             ppo._collect_step(c, ts.model, ts.pool, ts.generator)
     assert int(c.t) == T
-    for name, value in to_numpy(ts.pool).items():
-        np.testing.assert_array_equal(value, pool[name], err_msg=name)
+    for name, value in pool.items():
+        np.testing.assert_array_equal(to_numpy(ts.pool)[name], value, err_msg=name)
     for name, value in to_numpy(ts.env_state).items():
         np.testing.assert_array_equal(value, state[name], err_msg=name)
     assert all(torch.equal(p, q) for p, q in zip(ts.model.parameters(), params))
@@ -173,6 +177,19 @@ def _assert_updates_equal(ppo_a, ta, ma, ppo_b, tb, mb) -> None:
 def test_graph_path_equals_eager(graph_path, env_id):
     ppo_g, ts_g = _ppo(env_id, seed=3)
     ppo_e, ts_e = _ppo(env_id, seed=3)
+    graph_path(ppo_g)
+    for _ in range(3):
+        ts_g, m_g = ppo_g.update(ts_g)
+        ts_e, m_e = ppo_e._update_eager(ts_e)
+        _assert_updates_equal(ppo_g, ts_g, m_g, ppo_e, ts_e, m_e)
+    assert ppo_g.captures == {"collector": 1, "learner": 1}
+    assert ppo_e.captures == {"collector": 0, "learner": 0}
+
+
+@pytest.mark.parametrize("env_id", IDS)
+def test_regen_graph_path_equals_eager(graph_path, env_id):
+    ppo_g, ts_g = _ppo(env_id, "regen", seed=3)
+    ppo_e, ts_e = _ppo(env_id, "regen", seed=3)
     graph_path(ppo_g)
     for _ in range(3):
         ts_g, m_g = ppo_g.update(ts_g)
