@@ -166,16 +166,23 @@ Phases (any failure raises, exits nonzero and prints no "ok" line):
    group's sharded ``lane_rollout`` on DoorKey-8x8 at B=65536, T=256, four
    pool rounds (grouped, ungrouped, grouped, each timed) equals the
    ungrouped run from the same seed bit for bit;
-   one sharded PPO update on GoToDoor at 32768 envs, T=32 (its learner's
-   all-reduces inside the learner's graph) equals an ungrouped update
-   from the same seed bit for bit, both with PyTorch's deterministic
-   algorithms.  Then
+   one sharded PPO update at BASELINE config 5's width (GoToDoor, 65536
+   envs, T=32, 2 epochs x 8 minibatches; the trajectory all-gathered, the
+   learner's all-reduces inside its graph, each graph captured once)
+   equals an ungrouped update from the same seed bit for bit, both with
+   PyTorch's deterministic algorithms; each learner's ms an update (CUDA
+   events, on the next rollout), the all-gather's bytes and each run's
+   peak memory printed.  Then
    two gloo ranks spawned on the one card: the sharded rollout on a fixed
    pool and action script (Empty-5x5, B=4096, T=256, four rounds) equals
    the one-process run's slices bit for bit, the all-reduced scalars equal
    on both ranks; one sharded PPO update (GoToDoor, two envs a rank, T=8)
-   gives finite metrics and parameters equal on both ranks.  Then
-   ``measure_scaling`` at one rank: steps/s only.
+   gives finite metrics and parameters equal on both ranks; ``_learn`` on
+   one fixed numpy trajectory (Empty-5x5, 12 envs, T=8, minibatches of
+   three: a share of two rows, one padded; f32 compute) within 1e-5 of the
+   one-process ``_learn`` on the card (parameters; metrics relative).
+   The gloo learner stays eager by rule: both legs' ``captures`` printed.
+   Then ``measure_scaling`` at one rank: steps/s only.
 19. host tools: ``checked_step`` over 64 steps at B=4096 on DoorKey-8x8,
    a corrupted state caught; ``debug_mode`` trips on a NaN made on the
    card; a PPO train state on the card through a checkpoint round trip
@@ -235,6 +242,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ProcessPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -358,11 +366,16 @@ VI_FAMILIES = (
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12 / 2
 
-# Multi-device (phase 18): the one-rank NCCL rollout and PPO update at the
-# main path's and the PPO bench's sizes; the two-rank gloo legs at
-# dryrun_multichip's (its Empty-5x5 rollout at B=4096 here); the scaling
-# harness at one rank.
+# Multi-device (phase 18): the one-rank NCCL rollout at the main path's
+# size and PPO update at BASELINE config 5's width (GoToDoor, 65536 envs,
+# T=32 as the PPO bench); the two-rank gloo legs at dryrun_multichip's (its
+# Empty-5x5 rollout at B=4096 here), and the learner on a fixed trajectory
+# at minibatches of three envs (a two-row share, one row padded); the
+# scaling harness at one rank.
 NCCL_B, NCCL_T = 65536, 256
+NCCL_PPO_B = 65536
+GLOO_LEARN_B, GLOO_LEARN_T, GLOO_LEARN_MB, GLOO_LEARN_SEED = 12, 8, 4, 3
+GLOO_LEARN_ATOL = GLOO_LEARN_RTOL = 1e-5
 PPO_SPREAD_RUNS = 2
 # The "regen" autoreset (phase 22): every id's generator captured at
 # REGEN_GEN_B; six ids' generate timed at REGEN_TIMED_B, graphed and eager;
@@ -1635,6 +1648,87 @@ def params_diff(a, b) -> float:
         return max(float((p - q).abs().max()) for p, q in zip(a.parameters(), b.parameters()))
 
 
+def learner_ms(ppo, ts) -> tuple:
+    """The learner's part of one more update on the next rollout (GAE,
+    the all-gather with a group, the permutations, the minibatch steps,
+    the metrics): its ms on CUDA events and its peak device bytes."""
+    c = ppo._run_collector(ts, eager=False)
+    _, last_obs = ppo._final(c)
+    with torch.no_grad():
+        _, last_value = ts.model(last_obs)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start.record()
+    ppo._learn(ts, c.traj, last_value)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), torch.cuda.max_memory_allocated()
+
+
+def learn_trajectory(seed: int = 0) -> dict:
+    """A ``(T, B)`` trajectory of valid Empty-5x5 observations and random
+    outcomes, and its last values, made with numpy (as the CPU tests'
+    ``tests/test_torch_ppo_distributed.py`` makes one); each key starts
+    with ``traj_``."""
+    rng = np.random.default_rng(seed)
+    T, B = GLOO_LEARN_T, GLOO_LEARN_B
+    image = np.stack([rng.integers(0, 11, (T, B, 7, 7)), rng.integers(0, 6, (T, B, 7, 7)),
+                      rng.integers(0, 3, (T, B, 7, 7))], axis=-1).astype(np.uint8)
+    data = {
+        "obs_image": image,
+        "obs_direction": rng.integers(0, 4, (T, B)).astype(np.int32),
+        "obs_mission": rng.integers(0, 5, (T, B, 48)).astype(np.int32),
+        "actions": rng.integers(0, 7, (T, B)).astype(np.int64),
+        "logps": np.log(rng.uniform(0.05, 0.5, (T, B))).astype(np.float32),
+        "values": rng.normal(size=(T, B)).astype(np.float32),
+        "rewards": (rng.random((T, B)) * (rng.random((T, B)) < 0.3)).astype(np.float32),
+        "dones": rng.random((T, B)) < 0.2,
+        "last": rng.normal(size=B).astype(np.float32),
+    }
+    return {"traj_" + k: v for k, v in data.items()}
+
+
+def learn_on_trajectory(data: dict, group, device):
+    """``PPO._learn`` on ``learn_trajectory``'s data at f32 compute (the
+    rank's slice of its envs with a ``group``); returns the metrics, the
+    flat parameters and the PPO's captures.  The gloo ranks import it.
+    The compute is float32 as on the CPU: no TF32 in the convolutions and
+    matrix products, and deterministic algorithms (no atomic sums in the
+    embeddings' backward), each flag put back after."""
+    from minigrid_dynamicprogramming_tpu_torch import make
+    from minigrid_dynamicprogramming_tpu_torch.models import PPO, PPOConfig
+    from minigrid_dynamicprogramming_tpu_torch.models import ppo as tppo
+    from minigrid_dynamicprogramming_tpu_torch.models.nets import ActorCritic, init_params
+
+    cfg = PPOConfig(num_envs=GLOO_LEARN_B, rollout_len=GLOO_LEARN_T, epochs=2,
+                    num_minibatches=GLOO_LEARN_MB)
+    ppo = PPO(make(GLOO_ENV), cfg, device=device, group=group)
+    model = init_params(ActorCritic(num_actions=ppo.env.action_dim, compute_dtype=torch.float32),
+                        torch.Generator().manual_seed(GLOO_LEARN_SEED)).to(ppo.device)
+    optimizer = torch.optim.Adam(model.parameters(), lr=cfg.lr, eps=1e-5, capturable=True)
+    ts = ppo.init(GLOO_LEARN_SEED)._replace(model=model, optimizer=optimizer)
+    lanes = slice(None) if group is None else group.slice(cfg.num_envs)
+
+    def t(name):
+        return torch.from_numpy(np.ascontiguousarray(data["traj_" + name][:, lanes])).to(ppo.device)
+
+    traj = tppo.Trajectory(obs={k: t("obs_" + k) for k in ("image", "direction", "mission")},
+                           **{k: t(k) for k in tppo.Trajectory._fields[1:]})
+    last = torch.from_numpy(np.ascontiguousarray(data["traj_last"][lanes])).to(ppo.device)
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+             torch.are_deterministic_algorithms_enabled())
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        m = ppo._learn(ts, traj, last)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags[:2]
+        torch.use_deterministic_algorithms(flags[2])
+    params = torch.cat([p.detach().reshape(-1) for p in model.parameters()]).cpu().numpy()
+    return np.array([float(x) for x in m]), params, dict(ppo.captures)
+
+
 def one_rank_nccl(make, card: str) -> dict:
     """Phase 18, first leg: a one-rank NCCL group against the ungrouped
     path on the same card."""
@@ -1676,28 +1770,47 @@ def one_rank_nccl(make, card: str) -> dict:
         out.update(episodes=int(b.episodes), steps=b.steps)
         del runs, a, b
 
-        # PPO: the grouped update equals the ungrouped one from the same
-        # seed bit for bit, with deterministic algorithms (the embeddings'
-        # backward sums with atomics otherwise).
-        cfg = PPOConfig(num_envs=PPO_B, rollout_len=PPO_T, epochs=2, num_minibatches=PPO_MB)
-        models, metrics = [], []
+        # PPO at config 5's width: the grouped update (the trajectory
+        # all-gathered, the learner's all-reduces in its graph) equals the
+        # ungrouped one from the same seed bit for bit, with deterministic
+        # algorithms (the embeddings' backward sums with atomics
+        # otherwise).  Then each learner once more, timed.
+        cfg = PPOConfig(num_envs=NCCL_PPO_B, rollout_len=PPO_T, epochs=2, num_minibatches=PPO_MB)
+        params, metrics, ms, peaks, learn_peaks, gathered, captures = [], [], [], [], [], [], []
         torch.use_deterministic_algorithms(True, warn_only=True)
         try:
             for grp in (None, group):
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
                 ppo = PPO(make(PPO_ENV), cfg, device=DEVICE, group=grp)
                 ts, m = ppo.update(ppo.init(3))
-                models.append(ts.model)
                 metrics.append([float(x) for x in m])
-                # One rank: both loops graphed, the grouped one's
-                # all-reduces captured in its learner's graph.
+                params.append([p.detach().clone() for p in ts.model.parameters()])
+                peaks.append(torch.cuda.max_memory_allocated())
+                t, peak = learner_ms(ppo, ts)
+                ms.append(t)
+                learn_peaks.append(peak)
+                gathered.append(ppo.gather_bytes)
+                captures.append(dict(ppo.captures))
+                # Both loops graphed at one rank, the grouped learner's
+                # all-reduces captured in its graph.
                 require(ppo.captures == {"collector": 1, "learner": 1}, f"PPO captures {ppo.captures}")
                 del ppo, ts
         finally:
             torch.use_deterministic_algorithms(False)
-        grouped_diff = params_diff(models[1], models[0])
-        out.update(ppo_grouped_diff=grouped_diff, ppo_metrics=metrics)
-        print(f"[nccl] PPO update, {PPO_B} envs: max|param diff| grouped-ungrouped "
-              f"{grouped_diff:.4g}; metrics {metrics}", flush=True)
+        grouped_diff = max(float((p - q).abs().max()) for p, q in zip(params[1], params[0]))
+        out.update(ppo_grouped_diff=grouped_diff, ppo_metrics=metrics, ppo_num_envs=NCCL_PPO_B,
+                   learner_ms={"ungrouped": ms[0], "grouped": ms[1]},
+                   peak_bytes={"ungrouped": peaks[0], "grouped": peaks[1]},
+                   learner_peak_bytes={"ungrouped": learn_peaks[0], "grouped": learn_peaks[1]},
+                   gather_bytes=gathered[1], ppo_captures=captures)
+        print(f"[nccl] PPO update, {NCCL_PPO_B} envs, T={PPO_T}: max|param diff| grouped-ungrouped "
+              f"{grouped_diff:.4g}; learner ms an update ungrouped {ms[0]:.4f} grouped {ms[1]:.4f}; "
+              f"gathered {gathered[1]} B; peak of the first update {peaks[0]} / {peaks[1]} B, "
+              f"of the timed learner {learn_peaks[0]} / {learn_peaks[1]} B; captures {captures}; "
+              f"metrics {metrics}", flush=True)
+        require(gathered[0] == 0 and gathered[1] > 0, "the grouped learner all-gathers")
         require(all(np.isfinite(metrics[-1])), "finite one-rank NCCL PPO metrics")
         require(grouped_diff == 0, "the one-rank NCCL update equal to the ungrouped one bit for bit")
     finally:
@@ -1707,11 +1820,13 @@ def one_rank_nccl(make, card: str) -> dict:
 
 
 # One rank of the two-rank gloo group, both on cuda:0 (NCCL refuses two
-# ranks on one card); it imports only the port.
+# ranks on one card); it imports only the port and this script's learner.
 GLOO_WORKER = f"""
 import sys
+sys.path.insert(0, {str(Path(__file__).resolve().parent)!r})
 import numpy as np
 import torch
+from chip_smoke import learn_on_trajectory
 from minigrid_dynamicprogramming_tpu_torch import make
 from minigrid_dynamicprogramming_tpu_torch.bridge import from_numpy, to_numpy
 from minigrid_dynamicprogramming_tpu_torch.models import PPO, PPOConfig
@@ -1730,6 +1845,7 @@ res = L._lane_scan(make("{GLOO_ENV}"), None, L.shard_lanes(pool, group), {GLOO_B
                    {POOL_ROUNDS}, L.shard_batch(actions, group, axis=1), group)
 ppo = PPO(make("{PPO_ENV}"), PPOConfig(num_envs=4, rollout_len=8), group=group)
 ts, m = ppo.update(ppo.init(1))
+learn_metrics, learn_params, learn_captures = learn_on_trajectory(data, group, None)
 np.savez(
     out,
     **{{"final_" + k: v for k, v in to_numpy(res.final_state).items()}},
@@ -1738,6 +1854,9 @@ np.savez(
     total_reward=res.total_reward.cpu().numpy(),
     ppo_metrics=np.array([float(x) for x in m]),
     ppo_params=torch.cat([p.detach().reshape(-1).float() for p in ts.model.parameters()]).cpu().numpy(),
+    ppo_captures=np.array([ppo.captures["collector"], ppo.captures["learner"]]),
+    learn_metrics=learn_metrics, learn_params=learn_params,
+    learn_captures=np.array([learn_captures["collector"], learn_captures["learner"]]),
 )
 torch.distributed.destroy_process_group()
 print("gloo rank", rank, "ok", flush=True)
@@ -1758,9 +1877,11 @@ def two_rank_gloo(make) -> dict:
     actions = np.random.default_rng(11).integers(0, env.action_dim, (GLOO_T, GLOO_B)).astype(np.int64)
     single = L._lane_scan(env, None, pool, GLOO_B, GLOO_T, "pool", POOL_ROUNDS,
                           torch.from_numpy(actions).to(DEVICE))
+    data = learn_trajectory()
+    want_metrics, want_params, one_captures = learn_on_trajectory(data, None, DEVICE)
     with tempfile.TemporaryDirectory() as tmp:
         inputs = os.path.join(tmp, "inputs.npz")
-        np.savez(inputs, actions=actions, **{"pool_" + k: v for k, v in to_numpy(pool).items()})
+        np.savez(inputs, actions=actions, **data, **{"pool_" + k: v for k, v in to_numpy(pool).items()})
         outs = [os.path.join(tmp, f"rank{r}.npz") for r in range(2)]
         addr = free_address()
         t0 = time.perf_counter()
@@ -1800,8 +1921,26 @@ def two_rank_gloo(make) -> dict:
     require(np.array_equal(dumps[0]["total_reward"], dumps[1]["total_reward"]), "total reward equal on both ranks")
     require(np.array_equal(dumps[0]["ppo_metrics"], dumps[1]["ppo_metrics"]), "PPO metrics equal on both ranks")
     require(np.array_equal(dumps[0]["ppo_params"], dumps[1]["ppo_params"]), "PPO parameters equal on both ranks")
+    # The learner on the fixed trajectory: two eager gloo ranks against the
+    # one-process learner on the card (graphed).
+    learn_err = max(float(np.abs(d["learn_params"] - want_params).max()) for d in dumps)
+    metric_err = max(float((np.abs(d["learn_metrics"] - want_metrics)
+                            / np.maximum(np.abs(want_metrics), 1e-7 / GLOO_LEARN_RTOL)).max())
+                     for d in dumps)
+    captures = {"update": dumps[0]["ppo_captures"].tolist(), "learn": dumps[0]["learn_captures"].tolist(),
+                "one_process_learn": [one_captures["collector"], one_captures["learner"]]}
+    print(f"[gloo] _learn at {GLOO_LEARN_B} envs, minibatches of {GLOO_LEARN_B // GLOO_LEARN_MB}: "
+          f"max|param diff| two ranks - one process {learn_err:.4g}, metrics rel {metric_err:.4g}; "
+          f"captures [collector, learner] {captures}", flush=True)
+    require(learn_err <= GLOO_LEARN_ATOL, f"gloo _learn parameters within {GLOO_LEARN_ATOL}")
+    require(metric_err <= GLOO_LEARN_RTOL, f"gloo _learn metrics within {GLOO_LEARN_RTOL} relative")
+    for d in dumps:
+        require(d["ppo_captures"].tolist() == [1, 0] and d["learn_captures"].tolist() == [0, 0],
+                "gloo: the collector graphed, the learner eager by rule")
+    require(one_captures == {"collector": 0, "learner": 1}, "the one-process learner graphed")
     out = {"s": s, "scalars": want_scalars, "total_reward": float(single.total_reward),
-           "ppo_metrics": dumps[0]["ppo_metrics"].tolist()}
+           "ppo_metrics": dumps[0]["ppo_metrics"].tolist(), "learn_param_err": learn_err,
+           "learn_metric_rel_err": metric_err, "captures": captures}
     print(f"[gloo] two ranks on one card, {GLOO_ENV} B={GLOO_B} T={GLOO_T}: slices equal, {out}", flush=True)
     return out
 

@@ -105,8 +105,8 @@ def ppo_counts(env_id: str = "BabyAI-GoToDoor-v0") -> dict:
     with torch.no_grad():
         _, value = ts.model(ppo._final(c)[1])
     mb = ppo._minibatch_carry(ts, c.traj, value)
-    ppo._learn_step(mb, c.traj, ts.model, ts.optimizer)  # Adam's state made
-    minibatch = count(lambda: ppo._learn_step(mb, c.traj, ts.model, ts.optimizer)).total
+    ppo._learn_step(mb, ts.model, ts.optimizer)  # Adam's state made
+    minibatch = count(lambda: ppo._learn_step(mb, ts.model, ts.optimizer)).total
 
     def remainder():
         _, last_obs = ppo._final(c)

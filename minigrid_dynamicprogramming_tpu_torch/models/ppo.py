@@ -22,16 +22,29 @@ envs are split over the ranks (``num_envs`` stays the global count), the
 parameters are replicated, and an update computes what the one-process
 update computes:
 
+* after GAE (each rank on its own ``(T, B / N)`` envs), one all-gather
+  an update puts the learner's inputs (observation, actions, log-probs,
+  values, advantages, returns) of all ``num_envs`` envs on every rank,
+  global env ``e = r * B / N + j`` of rank r's column j;
 * the minibatches are global: every rank draws the same permutation of
-  all ``num_envs`` from the learner generator, seeded alike on every rank,
-  and takes the members it holds (their count varies and may be 0; such a
-  rank still joins every collective);
+  all ``num_envs`` from the learner generator, seeded alike on every rank;
+  minibatch ``i`` of epoch ``e`` is positions ``[i * mb, (i + 1) * mb)`` of
+  ``perms[e]``, ``mb = num_envs // num_minibatches``, as in JAX;
+* a rank's share of a minibatch has a fixed size, ``S = ceil(mb / N)``
+  rows (``minibatch_shares``): rank r takes positions ``r * S`` up to
+  ``min((r + 1) * S, mb)`` of the minibatch at weight 1.0, and pads the
+  rest of its ``S`` with the minibatch's first row at weight 0.0, so every
+  row of the minibatch counts once over the ranks;
 * the advantage is normalized by the minibatch's global mean and
-  standard deviation (summed over the ranks);
-* each loss term is the rank's sum over its rows divided by the global
-  minibatch size, so the summed gradients are those of the global mean;
-  they are summed in one flat buffer before the global-norm clip;
+  standard deviation (weighted sums over the ranks);
+* each loss term is the rank's weighted sum over its rows divided by the
+  summed weight (the global minibatch size), so the summed gradients are
+  those of the global mean; they are summed in one flat buffer before the
+  global-norm clip;
 * the metrics are global.
+
+Without a group, or at one rank, no row is padded and every weight is
+1.0, so the ungrouped learner runs the same step on its own rows.
 
 The collector's draws (the policy's actions, the pool or the regenerated
 layouts, the hooks') come from the rank's generator, seeded from ``(seed,
@@ -44,9 +57,9 @@ minibatch loop each a ``lax.scan``.  Here each loop has a step that reads
 and writes only tensors of fixed address, its index on the device: the
 collector's (``_collect_step``: the observation of the carried lanes, the
 policy's draw, the env step, auto-reset, the step's row of the
-trajectory) and the learner's (``_learn_step``: the minibatch's envs
-through the epoch's permutation, the loss, its backward, the clip and
-Adam, the step's loss terms).  On a CUDA device each step is captured
+trajectory) and the learner's (``_learn_step``: the rank's share of the
+minibatch's envs through the epoch's permutation, the loss, its backward,
+the clip and Adam, the step's loss terms).  On a CUDA device each step is captured
 once as a CUDA graph (``lanes.capture_step``) and replayed,
 ``rollout_len`` and ``epochs * num_minibatches`` times an update; on the
 CPU the same steps run in Python loops, as they do on any device in
@@ -59,11 +72,18 @@ tensors were replaced (``load_state_dict``).  A failed capture raises.
 The collector is graphed in every autoreset mode: in ``"regen"`` its
 step generates a fresh batch of layouts with ``env.generate``, which
 copies no host data and reads nothing back (its constant tables are made
-by the capture's warm-up).  One loop stays eager on every device, by
-rule: the learner of a group of more than one rank (a rank's share of a
-global minibatch has a size that depends on the permutation).  On the card the
-optimizer is Adam with ``capturable=True`` (its step count on the
-device), in the graphed and the eager update alike.
+by the capture's warm-up).  The learner's graph holds its collectives
+(the advantage's moments, the flat gradient) where the group's backend
+can capture them: without a group and under NCCL it is graphed, at any
+number of ranks; under gloo, whose collectives on CUDA tensors go through
+the host, it stays eager, by rule (``sharding.captures_collectives``,
+decided once in ``__init__``).  Every rank then captures, warms up and
+replays in step, each collective of the warm-up run once before the
+capture.  The trajectory's all-gather runs in the eager prologue with GAE
+and the permutations: it is once an update, where the graph's step is
+replayed ``epochs * num_minibatches`` times.  On the card the optimizer
+is Adam with ``capturable=True`` (its step count on the device), in the
+graphed and the eager update alike.
 
 Run from the repository root (on the card by default)::
 
@@ -84,7 +104,9 @@ from minigrid_dynamicprogramming_tpu_torch.models.nets import ActorCritic, init_
 from minigrid_dynamicprogramming_tpu_torch.parallel import lanes as L
 from minigrid_dynamicprogramming_tpu_torch.parallel.sharding import (
     EnvGroup,
+    all_gather,
     all_reduce,
+    captures_collectives,
     rank_seed,
     replicated,
 )
@@ -173,38 +195,58 @@ def sample_actions(logits: torch.Tensor, generator: torch.Generator) -> torch.Te
 
 
 def ppo_loss(
-    model: ActorCritic, cfg: PPOConfig, mb, group: Optional[EnvGroup] = None
+    model: ActorCritic,
+    cfg: PPOConfig,
+    mb,
+    group: Optional[EnvGroup] = None,
+    weight: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Tuple]:
     """The clipped PPO loss of one minibatch ``(obs, action, old_logp,
     old_value, adv, ret)`` (flat leading axis); returns ``(loss,
-    (policy_loss, value_loss, entropy, approx_kl))``.
+    (policy_loss, value_loss, entropy, approx_kl))``.  Every mean is a sum
+    weighted by ``weight`` (1.0 a row by default) over the summed weight.
 
-    With a ``group``, ``mb`` is this rank's rows of a global minibatch (any
-    number, 0 included): the advantage is normalized by the global mean
-    and standard deviation, and each term is the rank's sum over its rows
-    divided by the global row count, so the terms and their gradients sum
-    over the ranks to the global minibatch's."""
+    With a ``group``, ``mb`` is this rank's share of a global minibatch:
+    the count, the advantage's mean and its standard deviation are
+    weighted sums over the ranks, and each term is the rank's weighted sum
+    divided by the global count, so the terms and their gradients sum over
+    the ranks to the global minibatch's.  A row at weight 0 counts
+    nowhere."""
     obs, action, old_logp, old_value, adv, ret = mb
+    if weight is None:
+        weight = torch.ones_like(adv)
     logits, value = model(obs)
     logp_all = F.log_softmax(logits, dim=-1)
     logp = logp_all.gather(-1, action[:, None]).squeeze(-1)
     ratio = torch.exp(logp - old_logp)
     # The minibatch's size, mean and (two-pass, uncorrected) deviation.
-    count = torch.full((), adv.numel(), dtype=adv.dtype, device=adv.device)
-    moments = all_reduce(torch.stack([count, adv.sum()]), group)
+    moments = all_reduce(torch.stack([weight.sum(), (weight * adv).sum()]), group)
     n = moments[0]
     mean = moments[1] / n
-    std = (all_reduce(((adv - mean) ** 2).sum(), group) / n).sqrt()
+    std = (all_reduce((weight * (adv - mean) ** 2).sum(), group) / n).sqrt()
     adv = (adv - mean) / (std + 1e-8)
     pg1 = ratio * adv
     pg2 = ratio.clamp(1 - cfg.clip_eps, 1 + cfg.clip_eps) * adv
-    policy_loss = -torch.minimum(pg1, pg2).sum() / n
+    policy_loss = -(weight * torch.minimum(pg1, pg2)).sum() / n
     v_clipped = old_value + (value - old_value).clamp(-cfg.clip_eps, cfg.clip_eps)
-    value_loss = 0.5 * torch.maximum((value - ret) ** 2, (v_clipped - ret) ** 2).sum() / n
-    entropy = -(logp_all.exp() * logp_all).sum() / n
+    value_loss = 0.5 * (weight * torch.maximum((value - ret) ** 2, (v_clipped - ret) ** 2)).sum() / n
+    entropy = -(weight * (logp_all.exp() * logp_all).sum(-1)).sum() / n
     loss = policy_loss + cfg.vf_coef * value_loss - cfg.ent_coef * entropy
-    approx_kl = (old_logp - logp).sum() / n
+    approx_kl = (weight * (old_logp - logp)).sum() / n
     return loss, (policy_loss, value_loss, entropy, approx_kl)
+
+
+def minibatch_shares(minibatch: int, world: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each rank's share of a global minibatch of ``minibatch`` rows, of one
+    size ``S = ceil(minibatch / world)`` on every rank: rank r takes
+    positions ``r * S`` up to ``min((r + 1) * S, minibatch)`` at weight 1.0
+    and pads the rest of its ``S`` with position 0 at weight 0.0.  Returns
+    ``(positions, weights)``, ``(world, S)`` int64 and float32 on the CPU;
+    over the ranks, every position is taken once at weight 1.0."""
+    size = -(-minibatch // world)
+    positions = torch.arange(world * size).view(world, size)
+    real = positions < minibatch
+    return torch.where(real, positions, 0), real.to(torch.float32)
 
 
 def all_reduce_grads_(params, group: EnvGroup) -> None:
@@ -242,13 +284,21 @@ class _Rollout(NamedTuple):
 
 
 class _Minibatches(NamedTuple):
-    """The learner's carry, each tensor at a fixed address: the
-    advantages and returns of the rollout, every epoch's permutation of
-    the ``num_envs`` envs, the minibatch step's index ``k`` on the device
-    and each step's five loss terms (loss, policy, value, entropy, KL)."""
+    """The learner's carry, each tensor at a fixed address: this rank's
+    advantages and returns, the learner's inputs of all ``num_envs`` envs,
+    every epoch's permutation of them, the minibatch step's index ``k`` on
+    the device and each step's five loss terms (loss, policy, value,
+    entropy, KL).
+
+    ``batch`` is ``(obs, actions, logps, values, advantages, returns)``,
+    each flat over its rows ``(N, T, B / N)``: the row of step t of global
+    env e is ``(e // (B / N)) * T * B / N + t * B / N + e % (B / N)``.  With
+    a group it is the all-gather's buffers; without one (N = 1), the
+    trajectory's own tensors and the carry's advantages and returns."""
 
     advantages: torch.Tensor  # (T, B) f32
     returns: torch.Tensor  # (T, B) f32
+    batch: tuple  # (T * num_envs, ...) each
     perms: torch.Tensor  # (epochs, num_envs) i64
     k: torch.Tensor  # () i64
     terms: torch.Tensor  # (epochs * num_minibatches, 5) f32
@@ -267,6 +317,15 @@ def _map_traj(fn, traj: Trajectory) -> Trajectory:
 
 def _traj_tensors(traj: Trajectory) -> list:
     return [*traj.obs.values(), *traj[1:]]
+
+
+def _map_batch(fn, batch: tuple) -> tuple:
+    """``fn`` over a learner batch ``(obs, actions, ...)``."""
+    return ({k: fn(v) for k, v in batch[0].items()}, *(fn(x) for x in batch[1:]))
+
+
+def _batch_tensors(batch: tuple) -> list:
+    return [*batch[0].values(), *batch[1:]]
 
 
 class PPO:
@@ -297,12 +356,18 @@ class PPO:
             self.device, self.rank, self.world = group.device, group.rank, group.world_size
             group.slice(config.num_envs)  # raises unless the envs divide over the ranks
         self.num_envs = config.num_envs // self.world  # this rank's
+        # This rank's share of a global minibatch, fixed at construction:
+        # its positions in the minibatch and each row's weight, t-major.
+        positions, weights = minibatch_shares(config.num_envs // config.num_minibatches, self.world)
+        self._share = positions[self.rank].to(self.device)
+        self._row_weight = weights[self.rank].repeat(config.rollout_len).to(self.device)
         self._skip = L._skip_fields(env.params)
         hooked = env.pre_step_lanes is not None or env.post_step_lanes is not None
         self._hook_draws = hooked and env.hook_rng
         # Whether an update replays its loops as CUDA graphs: on a CUDA
-        # device, but for the loops that stay eager by rule.
+        # device; the learner only where a graph can hold its collectives.
         self._capture = self.device.type == "cuda"
+        self._capture_learner = captures_collectives(group)
         # The carries, made at first use; the trajectory is both's.
         self._traj: Optional[Trajectory] = None
         self._rollout: Optional[_Rollout] = None
@@ -312,6 +377,7 @@ class PPO:
         self.captures = {"collector": 0, "learner": 0}
         self.capture_ms = {"collector": 0.0, "learner": 0.0}
         self.pool_bytes = {"collector": 0, "learner": 0}
+        self.gather_bytes = 0  # the all-gather's buffers, with a group
 
     # -- initialization ------------------------------------------------------
     def init(self, seed: int = 0) -> TrainState:
@@ -502,12 +568,14 @@ class PPO:
     def _minibatch_carry(self, ts: TrainState, traj: Trajectory,
                          last_value: torch.Tensor) -> _Minibatches:
         """The learner's carry, made at first use, for ``traj``: its GAE,
-        the epochs' permutations from the learner generator, step 0."""
-        cfg, dev = self.config, self.device
+        the learner's inputs of all envs (all-gathered over a group), the
+        epochs' permutations from the learner generator, step 0."""
+        cfg, dev, group = self.config, self.device, self.group
         if self._minibatches is None:
             self._minibatches = _Minibatches(
                 advantages=torch.empty_like(traj.values),
                 returns=torch.empty_like(traj.values),
+                batch=None,
                 perms=torch.empty((cfg.epochs, cfg.num_envs), dtype=torch.int64, device=dev),
                 k=torch.zeros((), dtype=torch.int64, device=dev),
                 terms=torch.empty((cfg.epochs * cfg.num_minibatches, 5), device=dev),
@@ -518,40 +586,48 @@ class PPO:
         )
         mb.advantages.copy_(advantages)
         mb.returns.copy_(returns)
+        local = (traj.obs, traj.actions, traj.logps, traj.values, mb.advantages, mb.returns)
+        if group is None:
+            # One rank's rows are its own tensors', flat.
+            batch = _map_batch(lambda x: x.flatten(0, 1), local)
+        else:
+            batch = mb.batch
+            if batch is None:  # the all-gather's buffers, made at first use
+                batch = _map_batch(
+                    lambda x: x.new_empty((self.world * x.shape[0] * x.shape[1], *x.shape[2:])), local
+                )
+                self.gather_bytes = sum(x.nbytes for x in _batch_tensors(batch))
+            for out, x in zip(_batch_tensors(batch), _batch_tensors(local)):
+                all_gather(out, x, group)
+        mb = self._minibatches = mb._replace(batch=batch)
         for e in range(cfg.epochs):
             mb.perms[e] = torch.randperm(cfg.num_envs, generator=ts.learner_generator, device=dev)
         mb.k.zero_()
         return mb
 
-    def _learn_step(self, mb: _Minibatches, traj: Trajectory, model: ActorCritic,
+    def _learn_step(self, mb: _Minibatches, model: ActorCritic,
                     optimizer: torch.optim.Optimizer) -> None:
-        """Minibatch step ``mb.k``: its envs through the epoch's
-        permutation, the clipped loss, its gradients (summed over the
-        group's ranks), the global-norm clip and Adam; the loss terms
-        written at ``k``.  With one rank it reads and writes only tensors
-        of fixed address (the model's, the optimizer's and the carry's)."""
-        cfg, group = self.config, self.group
+        """Minibatch step ``mb.k``: this rank's share of the global
+        minibatch (``S`` envs through the epoch's permutation, all steps,
+        with their weights), the clipped loss, its gradients (summed over
+        the group's ranks), the global-norm clip and Adam; the loss terms
+        written at ``k``.  Every rank runs it alike, on ``T * S`` rows; it
+        reads and writes only tensors of fixed address (the model's, the
+        optimizer's, the carry's and the share's)."""
+        cfg, T, per = self.config, self.config.rollout_len, self.num_envs
         k = mb.k.view(1)
-        idx = mb.perms.view(-1, cfg.num_envs // cfg.num_minibatches).index_select(0, k)[0]
-        if self.world > 1:
-            # The members of the global minibatch this rank holds, as its
-            # own env indices.
-            lo = self.rank * self.num_envs
-            idx = idx[(idx >= lo) & (idx < lo + self.num_envs)] - lo
-
-        def take(x):
-            # (T, B, ...) -> (T * mb, ...): the minibatch's envs, all steps.
-            if isinstance(x, dict):
-                return {name: take(a) for name, a in x.items()}
-            return x.index_select(1, idx).flatten(0, 1)
-
-        batch = (traj.obs, traj.actions, traj.logps, traj.values, mb.advantages, mb.returns)
-        loss, aux = ppo_loss(model, cfg, tuple(take(x) for x in batch), group)
+        envs = mb.perms.view(-1, cfg.num_envs // cfg.num_minibatches).index_select(0, k)[0]
+        envs = envs.index_select(0, self._share)
+        # Their rows of the batch, step-major: (T, S) -> (T * S,).
+        steps = torch.arange(T, device=envs.device)[:, None] * per
+        rows = ((envs // per) * (T * per) + envs % per + steps).flatten()
+        batch = _map_batch(lambda x: x.index_select(0, rows), mb.batch)
+        loss, aux = ppo_loss(model, cfg, batch, self.group, self._row_weight)
         params = list(model.parameters())
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        if group is not None:
-            all_reduce_grads_(params, group)
+        if self.group is not None:
+            all_reduce_grads_(params, self.group)
         clip_by_global_norm_(params, cfg.max_grad_norm)
         optimizer.step()
         mb.terms.index_copy_(0, k, torch.stack([loss.detach(), *(a.detach() for a in aux)])[None])
@@ -573,19 +649,17 @@ class PPO:
         """GAE, then epochs x minibatches of clipped PPO steps on ``traj``
         (this rank's envs, ``(T, B / N, ...)``): the minibatch step
         replayed as a CUDA graph, or, ``eager`` or where the learner is not
-        graphed, called in a Python loop."""
+        graphed (a gloo group's), called in a Python loop."""
         cfg = self.config
         n_steps = cfg.epochs * cfg.num_minibatches
-        # A group of more than one rank stays eager: a rank's share of a
-        # global minibatch has a size that depends on the permutation.
-        graphed = self._capture and not eager and self.world == 1 and n_steps > 0
+        graphed = self._capture and self._capture_learner and not eager and n_steps > 0
         if graphed:
             traj = self._fixed_traj(traj)
         mb = self._minibatch_carry(ts, traj, last_value)
         model, optimizer = ts.model, ts.optimizer
 
         def step():
-            self._learn_step(mb, traj, model, optimizer)
+            self._learn_step(mb, model, optimizer)
 
         if not graphed:
             for _ in range(n_steps):

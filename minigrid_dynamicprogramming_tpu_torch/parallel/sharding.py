@@ -6,7 +6,8 @@ every device; here each rank of a process group drives one device and
 holds a contiguous slice of the env axis: rank r of N holds envs
 ``[r*B/N, (r+1)*B/N)``, the layout JAX's ``P("env")`` gives.  Stepping
 needs no communication (the envs are independent); collectives appear only
-in the metric reductions and the learner's gradient all-reduce.
+in the metric reductions, the learner's all-gather of the trajectory and
+its gradient all-reduce.
 
 :class:`EnvGroup` takes the place of the mesh: the process group, this
 rank, the world size and the device the rank's tensors live on.
@@ -108,6 +109,30 @@ def all_reduce(t: torch.Tensor, group: Optional[EnvGroup]) -> torch.Tensor:
     if group is not None:
         dist.all_reduce(t, group=group.group)
     return t
+
+
+def all_gather(out: torch.Tensor, t: torch.Tensor, group: EnvGroup) -> torch.Tensor:
+    """Every rank's ``t`` into ``out``, a contiguous tensor of
+    ``world_size`` times ``t``'s elements: viewed as ``(world_size,
+    *t.shape)``, it holds rank r's ``t`` at ``[r]``.  Every rank gives the
+    same shape.  Returns ``out``."""
+    # The one call of fixed size; torch renames it all_gather_single.
+    gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+    gather(out.view(-1, *t.shape[1:]), t.contiguous(), group=group.group)
+    return out
+
+
+def captures_collectives(group: Optional[EnvGroup]) -> bool:
+    """Whether a CUDA graph can hold the group's collectives on its
+    device: NCCL's run on the card's streams and can; gloo's on CUDA
+    tensors go through the host and cannot.  True without a group, which
+    has none."""
+    if group is None:
+        return True
+    backend = dist.get_backend(group.group)
+    # One backend ("nccl"), or one a device type ("cpu:gloo,cuda:nccl").
+    per_type = dict(b.split(":") for b in backend.split(",") if ":" in b)
+    return per_type.get(group.device.type, backend) == "nccl"
 
 
 def rank_seed(seed: int, rank: int) -> int:

@@ -45,7 +45,9 @@ the same step in a Python loop (``_lane_scan_eager``) bit for bit on
 DoorKey-8x8 (both autoreset modes, drawn and given actions),
 Dynamic-Obstacles-8x8 (ball moves drawn in the graph) and GoToLocal, and
 leaves its generator where the loop does; a second rollout in the same
-process, after another, gives the first one's result.  PPO on the card
+process, after another, gives the first one's result; a one-rank NCCL
+group's PPO update (its learner graphed with its all-reduces) equals the
+ungrouped one bit for bit.  PPO on the card
 replays its collector and minibatch steps as CUDA graphs: the graphed
 update's trajectory, final state, reset counts and generator equal the
 eager update's (``PPO._update_eager``) bit for bit on GoToDoor,
@@ -530,6 +532,41 @@ def test_one_rank_nccl_rollout_equals_ungrouped(card):
 
 
 @pytest.mark.cuda
+def test_one_rank_nccl_ppo_update_equals_ungrouped(card, deterministic):
+    """A one-rank NCCL group's PPO updates, with deterministic algorithms:
+    the trajectory all-gathered, the learner captured once with its
+    all-reduces (the advantage's moments, the flat gradient) in its graph;
+    two updates' metrics, then the parameters and Adam's state, equal the
+    ungrouped run's from the same seed bit for bit."""
+    import torch.distributed as dist
+
+    from minigrid_dynamicprogramming_tpu_torch.parallel import distributed
+    from minigrid_dynamicprogramming_tpu_torch.parallel.scaling import free_port
+
+    distributed.initialize(f"127.0.0.1:{free_port()}", 1, 0, local_device_ids=[0], max_retries=1,
+                           backend="nccl", timeout_s=120)
+    try:
+        group = distributed.global_env_group()
+        runs = []
+        for grp in (None, group):
+            ppo = _ppo_on_card(card, "BabyAI-GoToDoor-v0", group=grp)
+            ts = ppo.init(4)
+            seen = []
+            for _ in range(2):
+                ts, m = ppo.update(ts)
+                seen += [x.clone() for x in m]
+            assert all(torch.isfinite(x).all() for x in m), m
+            assert ppo.captures == {"collector": 1, "learner": 1}, ppo.captures
+            assert (ppo.gather_bytes > 0) == (grp is not None)
+            runs.append(seen + [x.detach().clone() for x in _learner_state(ts)])
+        ungrouped, grouped = runs
+        for k, (x, y) in enumerate(zip(grouped, ungrouped)):
+            assert torch.equal(x, y), k
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
 def test_checkpoint_round_trip_on_card(card, tmp_path):
     """A PPO train state on the card: model, optimizer, env state, pool and
     both generators restored equal, each tensor back on the card; the
@@ -698,13 +735,13 @@ def test_zero_horizon_captures_nothing(card):
 _PPO_IDS = ["BabyAI-GoToDoor-v0", "MiniGrid-DoorKey-5x5-v0", "MiniGrid-Dynamic-Obstacles-8x8-v0"]
 
 
-def _ppo_on_card(card, env_id: str, epochs: int = 2, autoreset: str = "pool"):
+def _ppo_on_card(card, env_id: str, epochs: int = 2, autoreset: str = "pool", group=None):
     from minigrid_dynamicprogramming_tpu_torch.models import PPO, PPOConfig
 
     env = port.make(env_id)
     env.params = env.params.replace(max_steps=min(env.params.max_steps, 24))  # lanes reset
     return PPO(env, PPOConfig(num_envs=2048, rollout_len=32, epochs=epochs, num_minibatches=4,
-                              autoreset=autoreset), device=card)
+                              autoreset=autoreset), device=card, group=group)
 
 
 def _next_draw(g: torch.Generator) -> torch.Tensor:

@@ -132,7 +132,7 @@ def test_learner_step_reads_nothing_to_the_host(env_id):
     ts.optimizer.step = unchecked_step
     with mode:
         for _ in range(ppo.config.epochs * ppo.config.num_minibatches):
-            ppo._learn_step(mb, traj, ts.model, ts.optimizer)
+            ppo._learn_step(mb, ts.model, ts.optimizer)
     assert int(mb.k) == 4 and bool(torch.isfinite(mb.terms).all())
     assert any(not torch.equal(p, q) for p, q in zip(ts.model.parameters(), before))
 
