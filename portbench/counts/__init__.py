@@ -1,0 +1,1 @@
+"""Part of the benchmark of the PyTorch port (see ``portbench/harness.py``)."""
