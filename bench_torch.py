@@ -56,6 +56,7 @@ from minigrid_dynamicprogramming_tpu_torch.dp import tabular_obstructed as TO
 from minigrid_dynamicprogramming_tpu_torch.dp import tabular_twokey as TT
 from minigrid_dynamicprogramming_tpu_torch.models import PPO, PPOConfig
 from minigrid_dynamicprogramming_tpu_torch.parallel.lanes import lane_rollout
+from minigrid_dynamicprogramming_tpu_torch.utils import profiling
 
 # The reference's single-env CPU rate on DoorKey-8x8 (BASELINE.md).
 REFERENCE_STEPS_PER_S = 10_145.0
@@ -303,8 +304,8 @@ def _smi() -> dict:
 
 def _launches() -> dict:
     return {
-        "vi": cuda_vi.cuda_value_iteration.launches,
-        "key_vi": dict(cuda_vi.cuda_key_value_iteration.route_launches),
+        "vi": profiling.counter("vi.launches"),
+        "key_vi": {r: profiling.counter(f"key_vi.launches.{r}") for r in cuda_vi.ROUTES},
     }
 
 

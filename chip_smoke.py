@@ -195,7 +195,8 @@ Phases (any failure raises, exits nonzero and prints no "ok" line):
    plain value iteration, then B1, at JAX's sizes (1024 DoorKey-8x8
    layouts from seed 7, two door slots, 128 sweeps); B1's V equal to the
    plain V exactly; the Chrome trace holds B1's kernel and the CLI's
-   ``annotate`` ranges; the CLI's two rates printed, JAX's
+   ``span`` ranges, and ``spans.json`` their records and each rollout's
+   in-graph step; the CLI's two rates printed, JAX's
    ``batched_env_steps_per_s`` from the "regen" rollout and
    ``lane_env_steps_per_s`` from the "pool" one.
 21. the headline bench: ``bench_torch.main`` in-process, its rollouts and
@@ -649,6 +650,23 @@ def next_draw(g: torch.Generator) -> torch.Tensor:
     return torch.randint(0, 1 << 30, (16,), generator=g, device=DEVICE)
 
 
+def capture_counts() -> dict:
+    """The rollout's capture counters (``utils/profiling.py``): captures,
+    their host ms and their memory pools' bytes, summed so far."""
+    from minigrid_dynamicprogramming_tpu_torch.utils import profiling
+
+    return {k: profiling.counter(f"lanes.{k}") for k in ("captures", "capture_ms", "pool_bytes")}
+
+
+def captured_since(before: dict) -> dict:
+    """The captures since ``before`` (``capture_counts``), their host ms
+    and their memory pools' bytes."""
+    now = capture_counts()
+    return {"captures": now["captures"] - before["captures"],
+            "capture_ms": now["capture_ms"] - before["capture_ms"],
+            "graph_pool_bytes": now["pool_bytes"] - before["pool_bytes"]}
+
+
 def scan_graphed_and_eager(env, L, pool, b: int, horizon: int, autoreset: str, rounds: int,
                            start, what: str) -> tuple:
     """``horizon`` steps from ``pool`` by ``_lane_scan`` (the step captured
@@ -656,22 +674,23 @@ def scan_graphed_and_eager(env, L, pool, b: int, horizon: int, autoreset: str, r
     same step in a Python loop), graphed then eager, each drawing from a
     generator in state ``start``: the results equal bit for bit, as do
     the generators' next draws.  Returns (graphed s, eager s, the eager
-    result) on the host clock."""
+    result, the graphed run's capture ms and pool bytes) on the host
+    clock."""
     runs = []
     for graphed in (True, False):
         g = torch.Generator(device=DEVICE).set_state(start)
         scan = L._lane_scan if graphed else L._lane_scan_eager
-        captures = L._lane_scan.captures
+        before = capture_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = scan(env, g, pool, b, horizon, autoreset, rounds)
         torch.cuda.synchronize()
-        runs.append((time.perf_counter() - t0, res, next_draw(g)))
-        require(L._lane_scan.captures == captures + graphed, "one capture a graphed scan")
-    (g_s, g_res, g_next), (e_s, e_res, e_next) = runs
+        runs.append((time.perf_counter() - t0, res, next_draw(g), captured_since(before)))
+        require(runs[-1][3]["captures"] == graphed, "one capture a graphed scan")
+    (g_s, g_res, g_next, capture), (e_s, e_res, e_next, _) = runs
     rollouts_equal(L, g_res, e_res, f"{what}: graphed against eager")
     require(torch.equal(g_next, e_next), f"{what}: the generator's next draw")
-    return g_s, e_s, e_res
+    return g_s, e_s, e_res, {k: capture[k] for k in ("capture_ms", "graph_pool_bytes")}
 
 
 def graph_against_eager(env, L, card: str) -> dict:
@@ -679,11 +698,11 @@ def graph_against_eager(env, L, card: str) -> dict:
     graphed and eager (``scan_graphed_and_eager``).  Host seconds and ms
     a step of each run, the capture's ms and its memory pool's bytes."""
     pool = L._lane_pool(env, gen(2), ROLLOUT_B, "pool", POOL_ROUNDS, torch.device(DEVICE))
-    g_s, e_s, res = scan_graphed_and_eager(env, L, pool, ROLLOUT_B, ROLLOUT_T, "pool",
+    g_s, e_s, res, capture = scan_graphed_and_eager(env, L, pool, ROLLOUT_B, ROLLOUT_T, "pool",
                                            POOL_ROUNDS, gen(3).get_state(), "graph")
     require(int(res.resets_per_env.min()) >= 1, "every lane reset")
     runs = [{"graphed": True, "s": g_s, "ms_per_step": 1e3 * g_s / ROLLOUT_T,
-             "capture_ms": L._lane_scan.capture_ms, "graph_pool_bytes": L._lane_scan.pool_bytes},
+             **capture},
             {"graphed": False, "s": e_s, "ms_per_step": 1e3 * e_s / ROLLOUT_T}]
     out = {"B": ROLLOUT_B, "T": ROLLOUT_T, "pool_rounds": POOL_ROUNDS, "card": card, "runs": runs}
     print(
@@ -744,6 +763,7 @@ def family_rollouts(make, L, card: str, ids, runs: dict, seed: int, workers,
         pooled = env_id.startswith(("MiniGrid-MultiRoom", "BabyAI-"))
         g = gen(seed + k)
         g_again = torch.Generator(device=DEVICE).set_state(g.get_state())
+        before = capture_counts()
         t0 = time.perf_counter()
         res = L.lane_rollout(env, g, B, T, pool_rounds=R, device=DEVICE)
         torch.cuda.synchronize()
@@ -757,8 +777,9 @@ def family_rollouts(make, L, card: str, ids, runs: dict, seed: int, workers,
             "failures": int(res.failures), "total_reward": float(res.total_reward),
             "card": card,
         }
-        captures, entry["capture_ms"] = L._lane_scan.captures, L._lane_scan.capture_ms
-        entry["graph_pool_bytes"] = L._lane_scan.pool_bytes
+        capture = captured_since(before)
+        entry["capture_ms"], entry["graph_pool_bytes"] = capture["capture_ms"], capture["graph_pool_bytes"]
+        before = capture_counts()
         # The same pool and the run's actions, drawn again from the
         # generator's state (hooks that draw nothing leave it alone).
         t0 = time.perf_counter()
@@ -781,7 +802,7 @@ def family_rollouts(make, L, card: str, ids, runs: dict, seed: int, workers,
             eager = L._lane_scan_eager(env, g_eager, pool, B, T, "pool", R)
             torch.cuda.synchronize()
             eager_s = time.perf_counter() - t1
-            require(L._lane_scan.captures == captures, f"{env_id}: the eager loop captures nothing")
+            require(captured_since(before)["captures"] == 0, f"{env_id}: the eager loop captures nothing")
             rollouts_equal(L, res, eager, f"{env_id}: graphed against eager")
             require(torch.equal(next_draw(g), next_draw(g_eager)),
                     f"{env_id}: the generators' next draws equal")
@@ -2031,11 +2052,12 @@ def host_tools(make, card: str) -> dict:
 
 def cli_dp(card: str) -> tuple:
     """Phase 20: the CLI's --dp inside its --trace; returns (reports, the
-    trace's kernel and range names found)."""
+    trace's kernel and range names found, the spans' names and counts)."""
+    import collections
     import tempfile
 
     from minigrid_dynamicprogramming_tpu_torch import benchmark
-    from minigrid_dynamicprogramming_tpu_torch.utils.profiling import TRACE_FILE
+    from minigrid_dynamicprogramming_tpu_torch.utils.profiling import SPANS_FILE, TRACE_FILE
 
     with tempfile.TemporaryDirectory() as tmp:
         reports = benchmark.main([
@@ -2044,22 +2066,31 @@ def cli_dp(card: str) -> tuple:
         ])
         with open(f"{tmp}/{TRACE_FILE}") as f:
             events = json.load(f)["traceEvents"]
+        with open(f"{tmp}/{SPANS_FILE}") as f:
+            records = json.load(f)["records"]
     kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
     names = {e.get("name") for e in events}
     vi = sorted(k for k in kernels if "vi_kernel" in k)
-    ranges = sorted(n for n in ("dp/layouts", "dp/value_iteration", "reset", "regen_rollout",
-                                "lane_rollout") if n in names)
-    print(f"[cli --dp] {len(events)} trace events, {len(kernels)} kernel names; B1: {vi}; ranges {ranges}",
-          flush=True)
+    cli_spans = ("dp/layouts", "dp/value_iteration", "reset", "regen_rollout", "lane_rollout")
+    ranges = sorted(n for n in cli_spans if n in names)
+    spans = collections.Counter(r["name"] for r in records)
+    print(f"[cli --dp] {len(events)} trace events, {len(kernels)} kernel names; B1: {vi}; ranges {ranges}; "
+          f"spans {dict(spans)}", flush=True)
     require(vi, "the trace holds B1's kernel")
-    require(len(ranges) == 5, "the trace holds the CLI's annotate ranges")
+    require(len(ranges) == 5, "the trace holds the CLI's span ranges")
+    require(all(spans[n] >= 1 for n in cli_spans), "spans.json holds the CLI's spans")
+    # Each rollout (timed and warm-up) replays its stamped step graph.
+    graphed = [r for r in records if r["name"] == "lanes.step" and r["attrs"].get("graph")]
+    require(graphed and all(r["count"] == 8 and r["device_ms"] > 0 for r in graphed),
+            "spans.json holds each rollout's in-graph step, 8 replays a call")
     bench = reports["benchmark"]
     print(f"[cli] batched_env_steps_per_s {bench['batched_env_steps_per_s']} (the regen rollout), "
           f"lane_env_steps_per_s {bench['lane_env_steps_per_s']} (the pool rollout), "
           f"{bench['batch']} envs x {bench['horizon']} steps ({card})", flush=True)
     require(bench["batched_env_steps_per_s"] > 0 and bench["lane_env_steps_per_s"] > 0,
             "the CLI reports both rollouts' rates")
-    return reports, {"vi_kernels": vi, "ranges": ranges, "events": len(events), "card": card}
+    return reports, {"vi_kernels": vi, "ranges": ranges, "events": len(events), "spans": dict(spans),
+                     "card": card}
 
 
 def bench_line(card: str) -> dict:
@@ -2224,12 +2255,11 @@ def regen_rollouts(make, card: str) -> list:
     for k, (env_id, b, horizon) in enumerate(REGEN_ROLLOUTS):
         env = make(env_id)
         pool = L._lane_pool(env, gen(40 + k), b, "regen", 1, torch.device(DEVICE))
-        g_s, e_s, e_res = scan_graphed_and_eager(env, L, pool, b, horizon, "regen", 1,
+        g_s, e_s, e_res, capture = scan_graphed_and_eager(env, L, pool, b, horizon, "regen", 1,
                                                  gen(50 + k).get_state(), f"regen {env_id}")
         require(int(e_res.episodes) > 0, f"regen {env_id}: episodes")
         row = {"env": env_id, "B": b, "T": horizon, "graphed_ms_per_step": 1e3 * g_s / horizon,
-               "eager_ms_per_step": 1e3 * e_s / horizon, "capture_ms": L._lane_scan.capture_ms,
-               "graph_pool_bytes": L._lane_scan.pool_bytes, "episodes": int(e_res.episodes),
+               "eager_ms_per_step": 1e3 * e_s / horizon, **capture, "episodes": int(e_res.episodes),
                "min_resets": int(e_res.resets_per_env.min()), "card": card}
         print(f"[regen rollout] {env_id} B={b} T={horizon}: graphed and eager equal bit for bit, "
               f"generators too; ms a step graphed {row['graphed_ms_per_step']:.4f} (capture "
@@ -2341,22 +2371,19 @@ def run(args, t_start: float, workers) -> int:
     from minigrid_dynamicprogramming_tpu_torch.dp import tabular as T
     from minigrid_dynamicprogramming_tpu_torch.dp import tabular_key as TK
     from minigrid_dynamicprogramming_tpu_torch.parallel import lanes as L
+    from minigrid_dynamicprogramming_tpu_torch.utils import profiling
 
-    counters = {"vi": cuda_vi.cuda_value_iteration, "key_vi": cuda_vi.cuda_key_value_iteration}
-    key_routes = cuda_vi.cuda_key_value_iteration.route_launches
+    counters = {"vi": "vi.launches", "key_vi": "key_vi.launches",
+                **{f"key_vi_{r}": f"key_vi.launches.{r}" for r in cuda_vi.ROUTES}}
 
     def drive(part, fn):
-        """Run one part of the main path with every launch count set to 0
-        just before it; returns (fn's result, the counts just after), the
-        key-domain kernel's split by route as "key_vi_<route>"."""
-        for c in counters.values():
-            c.launches = 0
-        for r in key_routes:
-            key_routes[r] = 0
+        """Run one part of the main path; returns (fn's result, the launches
+        it added to ``utils/profiling.py``'s counters), the key-domain
+        kernel's split by route as "key_vi_<route>"."""
+        before = {name: profiling.counter(c) for name, c in counters.items()}
         out = fn()
         torch.cuda.synchronize()
-        counts = {name: c.launches for name, c in counters.items()}
-        counts.update({f"key_vi_{r}": n for r, n in key_routes.items()})
+        counts = {name: profiling.counter(c) - before[name] for name, c in counters.items()}
         print(f"[main path] {part}: launches {counts}", flush=True)
         require(not counts["key_vi_global"], f"{part}: no route launches the global kernel")
         return out, counts
@@ -2382,7 +2409,7 @@ def run(args, t_start: float, workers) -> int:
     torch.cuda.synchronize()
     g = gen(1)
     g_pool = torch.Generator(device=DEVICE).set_state(g.get_state())
-    captures = L._lane_scan.captures
+    before = capture_counts()
     t0 = time.perf_counter()
     res, _ = drive(
         "rollout",
@@ -2391,8 +2418,9 @@ def run(args, t_start: float, workers) -> int:
         ),
     )
     rollout_s = time.perf_counter() - t0
-    require(L._lane_scan.captures == captures + 1, "the rollout captured its step as one CUDA graph")
-    capture_ms, graph_pool_bytes = L._lane_scan.capture_ms, L._lane_scan.pool_bytes
+    capture = captured_since(before)
+    require(capture["captures"] == 1, "the rollout captured its step as one CUDA graph")
+    capture_ms, graph_pool_bytes = capture["capture_ms"], capture["graph_pool_bytes"]
     # The same pool again, from the same generator state, timed and checked.
     t0 = time.perf_counter()
     pool = L._lane_pool(env, g_pool, ROLLOUT_B, "pool", POOL_ROUNDS, torch.device(DEVICE))

@@ -16,8 +16,10 @@ call at B=1.  On a card every time is read after
 ``benchmark_dp`` sizes), the plain PyTorch version and then the CUDA
 kernel (``dp/cuda_vi.py:cuda_value_iteration``, the counterpart of JAX's
 Pallas kernel); the kernel runs on a card only.  ``--trace DIR`` writes a
-Chrome trace of the whole run to ``DIR/trace.json``; ``--telemetry``
-prints the generator's acceptance report for ``--env-id``.
+Chrome trace of the whole run to ``DIR/trace.json`` and, beside it, the
+run's spans and counters (``utils/profiling.py``: the CLI's own spans, the
+rollouts' ``lanes.*`` and ``generator.generate``) to ``DIR/spans.json``;
+``--telemetry`` prints the generator's acceptance report for ``--env-id``.
 
 Run: ``python -m minigrid_dynamicprogramming_tpu_torch.benchmark --env-id ...``
 (``--device cpu`` for the CPU).
@@ -36,7 +38,7 @@ from minigrid_dynamicprogramming_tpu_torch.core.state import resolve_device
 from minigrid_dynamicprogramming_tpu_torch.dp import cuda_vi, tabular
 from minigrid_dynamicprogramming_tpu_torch.parallel.lanes import lane_rollout, supports_lanes
 from minigrid_dynamicprogramming_tpu_torch.render import render_frame, render_pov
-from minigrid_dynamicprogramming_tpu_torch.utils.profiling import annotate, trace
+from minigrid_dynamicprogramming_tpu_torch.utils.profiling import span, trace
 
 DP_ENV, DP_SEED, DP_MAX_DOORS, DP_GAMMA = "MiniGrid-DoorKey-8x8-v0", 7, 2, 0.995
 
@@ -59,7 +61,7 @@ def benchmark(
     clock = _clock(dev)
 
     # --- env.reset at B=1 (benchmark.py:16-21) ----------------------------
-    with annotate("reset"):
+    with span("reset"):
         obs, state = env.reset(gen(0), 1, dev)  # warm-up
         t0 = clock()
         for i in range(num_resets):
@@ -67,7 +69,7 @@ def benchmark(
         reset_ms = (clock() - t0) * 1000 / num_resets
 
     # --- full-frame rendering FPS (benchmark.py:24-29) --------------------
-    with annotate("render_frame"):
+    with span("render_frame"):
         frame = render_frame(env.params, state, tile_size)  # warm-up, builds the tile table
         t0 = clock()
         for _ in range(num_frames):
@@ -75,7 +77,7 @@ def benchmark(
         render_fps = num_frames / (clock() - t0)
 
     # --- agent-view FPS: step + POV render (benchmark.py:31-47) -----------
-    with annotate("agent_view"):
+    with span("agent_view"):
         g = gen(1)
         s = env.step(state, 0, g)[1]
         img = render_pov(env.params, s, tile_size)
@@ -86,7 +88,7 @@ def benchmark(
         agent_view_fps = num_frames / (clock() - t0)
 
     # --- batched env-steps/s: the "regen" rollout, JAX's headline ---------
-    with annotate("regen_rollout"):
+    with span("regen_rollout"):
         lane_rollout(env, gen(2), batch, horizon, "regen", device=dev)  # warm-up
         t0 = clock()
         res = lane_rollout(env, gen(3), batch, horizon, "regen", device=dev)
@@ -96,7 +98,7 @@ def benchmark(
     # --- the lane engine's pool autoreset ----------------------------------
     lane_steps_per_s = None
     if supports_lanes(env):
-        with annotate("lane_rollout"):
+        with span("lane_rollout"):
             lane_rollout(env, gen(4), batch, horizon, "pool", device=dev)  # warm-up
             t0 = clock()
             res = lane_rollout(env, gen(5), batch, horizon, "pool", device=dev)
@@ -166,9 +168,9 @@ def benchmark_dp(
     CPU), else the plain PyTorch version."""
     dev = resolve_device(device)
     clock = _clock(dev)
-    with annotate("dp/layouts"):
+    with span("dp/layouts"):
         layouts = dp_layouts(env_id, batch, dev)
-    with annotate("dp/value_iteration"):
+    with span("dp/value_iteration"):
         dp_solve(layouts, n_sweeps, use_kernel)  # warm-up
         t0 = clock()
         dp_solve(layouts, n_sweeps, use_kernel)
@@ -201,7 +203,7 @@ def main(argv=None) -> dict:
     )
     p.add_argument(
         "--trace", metavar="LOGDIR", default=None,
-        help="write a Chrome trace of the run to LOGDIR/trace.json",
+        help="write a Chrome trace of the run to LOGDIR/trace.json, its spans to LOGDIR/spans.json",
     )
     p.add_argument(
         "--telemetry", action="store_true",

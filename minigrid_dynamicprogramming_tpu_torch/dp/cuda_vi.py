@@ -36,11 +36,14 @@ What bounds each kernel on an H100, and what its design does about it, is
 noted at the top of its ``.cu`` file.  A wrapper checks its inputs, then
 runs the plain version for tensors on the CPU and launches its kernel for
 CUDA tensors (raising if the launch fails; there is no fallback, and no
-other route is tried).  Each wrapper counts its launches in a plain
-integer attribute, ``cuda_value_iteration.launches``, so a run can show
-that it went through the kernel; ``cuda_key_value_iteration.route_launches``
-splits its count by route.  Like ``pallas_vi``, the wrappers return V
-only: the policy is one plain backup over it.
+other route is tried).  Each wrapper counts its launches in a counter of
+``utils/profiling.py``, ``vi.launches`` and ``key_vi.launches``, so a run
+can show that it went through the kernel; ``key_vi.launches.<route>``
+splits the key-domain count by route.  ``cuda_key_value_iteration`` is
+the span ``dp.vi``, holding ``dp.masks`` (:func:`key_vi_masks`) and
+``dp.kernel`` (the launch, its ``route`` an attribute).  Like
+``pallas_vi``, the wrappers return V only: the policy is one plain backup
+over it.
 
 Each kernel's launch plan (which thread owns which states, how many
 layouts or key rows a block holds, its shared memory) is mirrored here in
@@ -63,6 +66,7 @@ from minigrid_dynamicprogramming_tpu_torch import _kernels
 from minigrid_dynamicprogramming_tpu_torch.dp import tabular, tabular_key
 from minigrid_dynamicprogramming_tpu_torch.dp.tabular import _DIRS, TabularLayout, _num_cfg
 from minigrid_dynamicprogramming_tpu_torch.dp.tabular_key import KeyTabularLayout
+from minigrid_dynamicprogramming_tpu_torch.utils import profiling
 
 __all__ = ["cuda_value_iteration", "cuda_key_value_iteration", "key_vi_route"]
 
@@ -242,7 +246,7 @@ def _vi_kernel(masks, gamma: float, n_sweeps: int, shape) -> torch.Tensor:
         walk_front.data_ptr(), cell_flags.data_ptr(), door_slot.data_ptr(),
         toggle_cfg.data_ptr(), v.data_ptr(), b, C, D, h, w, lpb, G, gamma, n_sweeps,
     )
-    cuda_value_iteration.launches += 1
+    profiling.count("vi.launches")
     return v
 
 
@@ -259,8 +263,6 @@ def cuda_value_iteration(
     shape = (b, _num_cfg(layouts.n_doors), 4, h, w)
     return _vi_kernel(vi_masks(layouts), gamma, n_sweeps, shape)
 
-
-cuda_value_iteration.launches = 0
 
 
 # --- B2: key-position domain -------------------------------------------------
@@ -604,14 +606,15 @@ def _key_vi_kernel(masks, gamma: float, n_sweeps: int, shape) -> torch.Tensor:
     route :func:`key_vi_route` gives the shape, and count the launch."""
     _, K, C, _, h, w = shape
     route, n = key_vi_route(K, C, h * w)
-    if route == "cluster":
-        v = _key_vi_kernel_cluster(masks, gamma, n_sweeps, shape, n)
-    elif route == "wide":
-        v = _key_vi_kernel_wide(masks, gamma, n_sweeps, shape, n)
-    else:
-        v = _key_vi_kernel_grid(masks, gamma, n_sweeps, shape, n)
-    cuda_key_value_iteration.launches += 1
-    cuda_key_value_iteration.route_launches[route] += 1
+    with profiling.span("dp.kernel", route=route):
+        if route == "cluster":
+            v = _key_vi_kernel_cluster(masks, gamma, n_sweeps, shape, n)
+        elif route == "wide":
+            v = _key_vi_kernel_wide(masks, gamma, n_sweeps, shape, n)
+        else:
+            v = _key_vi_kernel_grid(masks, gamma, n_sweeps, shape, n)
+    profiling.count("key_vi.launches")
+    profiling.count(f"key_vi.launches.{route}")
     return v
 
 
@@ -622,15 +625,14 @@ def cuda_key_value_iteration(
     ``tabular_key.key_value_iteration``'s V."""
     dev = _check_layouts(layouts, _KEY_LAYOUT_SPEC)
     _check_run(gamma, n_sweeps)
-    if dev.type == "cpu":
-        return tabular_key.key_vi_values(layouts, gamma, n_sweeps)
-    D = layouts.n_doors
-    if D > 7:
-        raise ValueError(f"the key-domain kernel takes at most 7 doors, got {D}")
-    b, h, w = layouts.base_walk.shape
-    shape = (b, h * w + 1, 1 << D, 4, h, w)
-    return _key_vi_kernel(key_vi_masks(layouts), gamma, n_sweeps, shape)
-
-
-cuda_key_value_iteration.launches = 0
-cuda_key_value_iteration.route_launches = dict.fromkeys(ROUTES, 0)
+    with profiling.span("dp.vi"):
+        if dev.type == "cpu":
+            return tabular_key.key_vi_values(layouts, gamma, n_sweeps)
+        D = layouts.n_doors
+        if D > 7:
+            raise ValueError(f"the key-domain kernel takes at most 7 doors, got {D}")
+        b, h, w = layouts.base_walk.shape
+        shape = (b, h * w + 1, 1 << D, 4, h, w)
+        with profiling.span("dp.masks"):
+            masks = key_vi_masks(layouts)
+        return _key_vi_kernel(masks, gamma, n_sweeps, shape)

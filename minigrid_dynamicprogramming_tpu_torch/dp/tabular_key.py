@@ -43,6 +43,7 @@ from minigrid_dynamicprogramming_tpu_torch.dp.tabular import (
     _shift_from,
     _slot_door_id,
 )
+from minigrid_dynamicprogramming_tpu_torch.utils import profiling
 
 __all__ = [
     "KeyTabularLayout",
@@ -89,86 +90,88 @@ def extract_key_layout(
 
     ``target_type``/``target_color`` (ints or (B,) tensors) select the
     pickup-terminal object; -1/-1 means a goal-reaching task.  The target's
-    cell is not walkable; the key's cell is handled per key-loc."""
-    obj = state.grid_obj
-    b, h, w = obj.shape
-    hw = h * w
-    dev = obj.device
-    is_door = obj == OBJ_DOOR
-    is_key = obj == OBJ_KEY
-    base_walk = (
-        (obj == OBJ_EMPTY)
-        | (obj == OBJ_FLOOR)
-        | (obj == OBJ_GOAL)
-        | (obj == OBJ_LAVA)
-        | is_key
-        | is_door
-    )
-    # A carried key may be dropped only on a literally empty front cell.
-    base_empty = (obj == OBJ_EMPTY) | is_key
+    cell is not walkable; the key's cell is handled per key-loc.  Span
+    ``dp.extract``."""
+    with profiling.span("dp.extract"):
+        obj = state.grid_obj
+        b, h, w = obj.shape
+        hw = h * w
+        dev = obj.device
+        is_door = obj == OBJ_DOOR
+        is_key = obj == OBJ_KEY
+        base_walk = (
+            (obj == OBJ_EMPTY)
+            | (obj == OBJ_FLOOR)
+            | (obj == OBJ_GOAL)
+            | (obj == OBJ_LAVA)
+            | is_key
+            | is_door
+        )
+        # A carried key may be dropped only on a literally empty front cell.
+        base_empty = (obj == OBJ_EMPTY) | is_key
 
-    slots, slot_valid = _door_slots(is_door.reshape(b, hw), max_doors)
-    door_pos = torch.stack(
-        [
-            torch.where(slot_valid, slots % w, -1),
-            torch.where(slot_valid, slots // w, -1),
-        ],
-        dim=-1,
-    ).to(torch.int32)
-    door_id = _slot_door_id(slots, slot_valid, hw).reshape(b, h, w)
-    overflow = is_door & (door_id < 0)
-    base_walk = base_walk & ~(overflow & (state.grid_state != STATE_OPEN))
+        slots, slot_valid = _door_slots(is_door.reshape(b, hw), max_doors)
+        door_pos = torch.stack(
+            [
+                torch.where(slot_valid, slots % w, -1),
+                torch.where(slot_valid, slots // w, -1),
+            ],
+            dim=-1,
+        ).to(torch.int32)
+        door_id = _slot_door_id(slots, slot_valid, hw).reshape(b, h, w)
+        overflow = is_door & (door_id < 0)
+        base_walk = base_walk & ~(overflow & (state.grid_state != STATE_OPEN))
 
-    door_init = torch.where(
-        slot_valid, _at(state.grid_state, door_pos).to(torch.int32), STATE_OPEN
-    ).to(torch.int32)
+        door_init = torch.where(
+            slot_valid, _at(state.grid_state, door_pos).to(torch.int32), STATE_OPEN
+        ).to(torch.int32)
 
-    kidx, has_key_cell = _first_index(is_key.reshape(b, hw))
-    carrying_key = state.carrying_obj == OBJ_KEY
-    key0 = torch.where(
-        has_key_cell, kidx, torch.where(carrying_key, hw, -1)
-    ).to(torch.int32)
-    key_color = torch.where(
-        has_key_cell,
-        state.grid_color.reshape(b, hw).gather(1, kidx[:, None])[:, 0],
-        state.carrying_color,
-    ).to(torch.int32)
-    door_color = _at(state.grid_color, door_pos).to(torch.int32)
-    door_unlockable = slot_valid & (door_color == key_color[:, None])
+        kidx, has_key_cell = _first_index(is_key.reshape(b, hw))
+        carrying_key = state.carrying_obj == OBJ_KEY
+        key0 = torch.where(
+            has_key_cell, kidx, torch.where(carrying_key, hw, -1)
+        ).to(torch.int32)
+        key_color = torch.where(
+            has_key_cell,
+            state.grid_color.reshape(b, hw).gather(1, kidx[:, None])[:, 0],
+            state.carrying_color,
+        ).to(torch.int32)
+        door_color = _at(state.grid_color, door_pos).to(torch.int32)
+        door_unlockable = slot_valid & (door_color == key_color[:, None])
 
-    # Target object: first cell matching (type, color); its cell blocks.
-    def per_env(v):
-        return torch.as_tensor(v, dtype=torch.int32, device=dev).reshape(-1, 1, 1)
+        # Target object: first cell matching (type, color); its cell blocks.
+        def per_env(v):
+            return torch.as_tensor(v, dtype=torch.int32, device=dev).reshape(-1, 1, 1)
 
-    t_type, t_color = per_env(target_type), per_env(target_color)
-    is_target = (
-        (obj.to(torch.int32) == t_type)
-        & (state.grid_color.to(torch.int32) == t_color)
-        & (t_type >= 0)
-    )
-    tidx, has_target = _first_index(is_target.reshape(b, hw))
-    target_pos = torch.where(
-        has_target[:, None], torch.stack([tidx % w, tidx // w], dim=-1), -1
-    ).to(torch.int32)
-    ys = torch.arange(h, dtype=torch.int32, device=dev)[:, None]
-    xs = torch.arange(w, dtype=torch.int32, device=dev)[None, :]
-    target_cell = (xs == target_pos[:, 0, None, None]) & (
-        ys == target_pos[:, 1, None, None]
-    )
-    base_walk = base_walk & ~target_cell
+        t_type, t_color = per_env(target_type), per_env(target_color)
+        is_target = (
+            (obj.to(torch.int32) == t_type)
+            & (state.grid_color.to(torch.int32) == t_color)
+            & (t_type >= 0)
+        )
+        tidx, has_target = _first_index(is_target.reshape(b, hw))
+        target_pos = torch.where(
+            has_target[:, None], torch.stack([tidx % w, tidx // w], dim=-1), -1
+        ).to(torch.int32)
+        ys = torch.arange(h, dtype=torch.int32, device=dev)[:, None]
+        xs = torch.arange(w, dtype=torch.int32, device=dev)[None, :]
+        target_cell = (xs == target_pos[:, 0, None, None]) & (
+            ys == target_pos[:, 1, None, None]
+        )
+        base_walk = base_walk & ~target_cell
 
-    return KeyTabularLayout(
-        base_walk=base_walk,
-        base_empty=base_empty,
-        goal=obj == OBJ_GOAL,
-        lava=obj == OBJ_LAVA,
-        target_pos=target_pos,
-        door_pos=door_pos,
-        door_id=door_id,
-        door_init=door_init,
-        door_unlockable=door_unlockable,
-        key0=key0,
-    )
+        return KeyTabularLayout(
+            base_walk=base_walk,
+            base_empty=base_empty,
+            goal=obj == OBJ_GOAL,
+            lava=obj == OBJ_LAVA,
+            target_pos=target_pos,
+            door_pos=door_pos,
+            door_id=door_id,
+            door_init=door_init,
+            door_unlockable=door_unlockable,
+            key0=key0,
+        )
 
 
 def _front_index(h: int, w: int, dxy, device) -> torch.Tensor:
@@ -345,8 +348,9 @@ def key_greedy_policy(
     v: torch.Tensor, layout: KeyTabularLayout, gamma: float
 ) -> torch.Tensor:
     """The first best action of one backup over V (from either the plain
-    version or the kernel): int8 of V's shape."""
-    return _backup(v, layout, gamma).argmax(dim=1).to(torch.int8)
+    version or the kernel): int8 of V's shape.  Span ``dp.policy``."""
+    with profiling.span("dp.policy"):
+        return _backup(v, layout, gamma).argmax(dim=1).to(torch.int8)
 
 
 def key_state_index(layout: KeyTabularLayout, state: EnvState):

@@ -26,6 +26,7 @@ CPU the same step runs in a Python loop (``_lane_scan_eager``).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from dataclasses import dataclass
@@ -62,6 +63,7 @@ from minigrid_dynamicprogramming_tpu_torch.core.state import (
 )
 from minigrid_dynamicprogramming_tpu_torch.ops.step import success_reward
 from minigrid_dynamicprogramming_tpu_torch.parallel.sharding import EnvGroup, all_reduce, shard_batch
+from minigrid_dynamicprogramming_tpu_torch.utils import profiling
 
 _U8 = torch.uint8
 
@@ -578,7 +580,10 @@ def lane_rollout(
     ``batch_size / N`` lanes on ``group.device`` (``device`` is not read),
     its layouts and actions drawn from its own ``generator`` (or its slice
     of ``actions``); the step needs no communication, and the result's
-    scalars are summed over the ranks (``_lane_scan``)."""
+    scalars are summed over the ranks (``_lane_scan``).
+
+    Spans (``utils/profiling.py``): the call is ``lanes.rollout``, holding
+    ``lanes.pool`` (its ``generator.generate``) and ``_lane_scan``'s."""
     if group is not None:
         mine = group.slice(batch_size)  # raises unless the batch divides
         dev, lanes = group.device, mine.stop - mine.start
@@ -586,10 +591,14 @@ def lane_rollout(
             actions = shard_batch(actions, group, axis=1)
     else:
         dev, lanes = resolve_device(device), batch_size
-    pool = _lane_pool(env, generator, lanes, autoreset, pool_rounds, dev)
-    return _lane_scan(
-        env, generator, pool, lanes, horizon, autoreset, pool_rounds, actions, group
-    )
+    if dev.type == "cuda" and profiling.is_tracing():
+        profiling.load_stamps(dev)
+    with profiling.span("lanes.rollout"):
+        with profiling.span("lanes.pool"):
+            pool = _lane_pool(env, generator, lanes, autoreset, pool_rounds, dev)
+        return _lane_scan(
+            env, generator, pool, lanes, horizon, autoreset, pool_rounds, actions, group
+        )
 
 
 def shard_lanes(ls: LaneState, group: EnvGroup) -> LaneState:
@@ -619,7 +628,8 @@ def _lane_pool(
     if not supports_lanes(env):
         raise ValueError(f"{env.env_id}: the lane engine does not cover its hooks")
     rounds = _rounds(autoreset, pool_rounds)
-    flat = env.generate(generator, env.params, rounds * batch_size, device)
+    with profiling.span("generator.generate"):
+        flat = env.generate(generator, env.params, rounds * batch_size, device)
     return stack_rounds(flat, batch_size, rounds)
 
 
@@ -667,16 +677,19 @@ def _clone_lanes(ls: LaneState) -> LaneState:
     return LaneState(**{name: getattr(ls, name).clone() for name in _FIELDS})
 
 
-def capture_step(step, warmup, device, generator: Optional[torch.Generator] = None):
+def capture_step(step, warmup, device, generator: Optional[torch.Generator] = None,
+                 stamps: Optional[profiling.GraphStamps] = None):
     """``step()`` captured as a CUDA graph in a memory pool of its own;
     each replay of the graph runs it once.  ``warmup()`` runs first, on a
     side stream, so that what a first call sets up lazily is not set up
     inside the capture; it must leave every tensor that ``step`` reads as
     it found it.  ``generator``, where ``step`` draws from it, is put back
     after the warm-up and registered with the graph, so the replays draw
-    what as many eager calls would.  A failed capture raises.  Returns
-    ``(graph, capture_ms, pool_bytes)``: the capture's host time and the
-    bytes its memory pool holds."""
+    what as many eager calls would.  With ``stamps``, the ``graph_span``s
+    of ``step`` stamp into it while tracing is on, and ``stamps.graph_nodes``
+    is set to the graph's nodes less the stamps.  A failed capture raises.
+    Returns ``(graph, capture_ms, pool_bytes)``: the capture's host time
+    and the bytes its memory pool holds."""
     saved = None if generator is None else generator.get_state()
     side = torch.cuda.Stream(device)
     side.wait_stream(torch.cuda.current_stream(device))
@@ -686,16 +699,21 @@ def capture_step(step, warmup, device, generator: Optional[torch.Generator] = No
     if generator is not None:
         generator.set_state(saved)
 
-    graph = torch.cuda.CUDAGraph()
+    graph = torch.cuda.CUDAGraph(keep_graph=stamps is not None)
     if generator is not None:
         graph.register_generator_state(generator)
     torch.cuda.synchronize(device)
     torch.cuda.empty_cache()
     reserved = torch.cuda.memory_reserved(device)
     t0 = time.perf_counter()
-    with torch.cuda.graph(graph):
+    capturing = contextlib.nullcontext() if stamps is None else stamps.capturing()
+    with torch.cuda.graph(graph), capturing:
         step()
+    if stamps is not None:
+        graph.instantiate()
     capture_ms = 1e3 * (time.perf_counter() - t0)
+    if stamps is not None:
+        stamps.graph_nodes = profiling.graph_nodes(graph) - stamps.kernels
     return graph, capture_ms, torch.cuda.memory_reserved(device) - reserved
 
 
@@ -756,69 +774,97 @@ class _Scan:
         )
 
     def step(self, c: _Carry) -> None:
-        """One step of JAX's scan body, in its order, on the carry ``c``."""
+        """One step of JAX's scan body, in its order, on the carry ``c``.
+        Its parts are ``graph_span``s: ``lanes.step`` holds
+        ``lanes.transition``, ``generator.generate`` ("regen"),
+        ``lanes.select`` and ``lanes.observation``; the write-back is
+        ``lanes.step``'s own time."""
         env = self.env
         t = c.t.view(1)
-        if self.actions is None:
-            act = torch.randint(
-                0, env.action_dim, (self.batch_size,), generator=self.generator,
-                device=self.device, dtype=torch.int32,
-            )
-        else:
-            act = self.actions.index_select(0, t)[0]
-        ls, reward, term = step_lanes_env(env, c.ls, act, self.hook_gen)
-        done = term | ls.truncated
-        reset_count = c.reset_count + done.to(torch.int32)
-        if self.autoreset == "pool":
-            fresh = _select_pool(self.pool, reset_count % self.rounds, self.rounds, self.skip)
-        elif self.autoreset == "regen":
-            fresh = to_lanes(
-                env.generate(self.generator, env.params, self.batch_size, self.device)
-            )
-        else:
-            fresh = self.init_ls
-        ls = _select_lanes(done, fresh, ls, self.skip)
-        obj, color, obj_state, vis = obs_lanes(env.params, ls)
-        seen = (obj.to(torch.int64) + color + obj_state) * vis
-        c.checksums.index_copy_(0, t, seen.sum().view(1))
-        c.rewards.index_copy_(0, t, reward.sum().view(1))
-        c.dones.index_copy_(0, t, done.sum().view(1))
-        c.wins.index_copy_(0, t, (term & (reward > 0)).sum().view(1))
-        c.ends.index_copy_(0, t, term.sum().view(1))
-        # A field the step left alone is the carry's own tensor: its copy
-        # onto itself does nothing.
-        for name in _FIELDS:
-            getattr(c.ls, name).copy_(getattr(ls, name))
-        c.reset_count.copy_(reset_count)
-        c.t.add_(1)
+        with profiling.graph_span("lanes.step"):
+            with profiling.graph_span("lanes.transition"):
+                if self.actions is None:
+                    act = torch.randint(
+                        0, env.action_dim, (self.batch_size,), generator=self.generator,
+                        device=self.device, dtype=torch.int32,
+                    )
+                else:
+                    act = self.actions.index_select(0, t)[0]
+                ls, reward, term = step_lanes_env(env, c.ls, act, self.hook_gen)
+                done = term | ls.truncated
+                reset_count = c.reset_count + done.to(torch.int32)
+            if self.autoreset == "regen":
+                with profiling.graph_span("generator.generate"):
+                    flat = env.generate(self.generator, env.params, self.batch_size, self.device)
+            with profiling.graph_span("lanes.select"):
+                if self.autoreset == "pool":
+                    fresh = _select_pool(self.pool, reset_count % self.rounds, self.rounds, self.skip)
+                elif self.autoreset == "regen":
+                    fresh = to_lanes(flat)
+                else:
+                    fresh = self.init_ls
+                ls = _select_lanes(done, fresh, ls, self.skip)
+            with profiling.graph_span("lanes.observation"):
+                obj, color, obj_state, vis = obs_lanes(env.params, ls)
+                seen = (obj.to(torch.int64) + color + obj_state) * vis
+                c.checksums.index_copy_(0, t, seen.sum().view(1))
+                c.rewards.index_copy_(0, t, reward.sum().view(1))
+                c.dones.index_copy_(0, t, done.sum().view(1))
+                c.wins.index_copy_(0, t, (term & (reward > 0)).sum().view(1))
+                c.ends.index_copy_(0, t, term.sum().view(1))
+            # A field the step left alone is the carry's own tensor: its copy
+            # onto itself does nothing.
+            for name in _FIELDS:
+                getattr(c.ls, name).copy_(getattr(ls, name))
+            c.reset_count.copy_(reset_count)
+            c.t.add_(1)
 
     def run_eager(self) -> None:
-        for _ in range(self.horizon):
-            self.step(self.carry)
+        with profiling.span("lanes.replay"):
+            for _ in range(self.horizon):
+                self.step(self.carry)
 
-    def capture(self) -> torch.cuda.CUDAGraph:
-        """``step`` on the carry, captured as a CUDA graph (``capture_step``);
-        each replay is one step.  The warm-up steps a copy of the carry."""
+    def capture(self, stamps: Optional[profiling.GraphStamps] = None):
+        """``step`` on the carry, captured as a CUDA graph (``capture_step``,
+        into ``stamps`` where given); each replay is one step.  The warm-up
+        steps a copy of the carry.  Counts ``lanes.captures`` and adds to
+        ``lanes.capture_ms`` and ``lanes.pool_bytes``.  Returns ``(graph,
+        pool_bytes)``."""
         draws = self.actions is None or self.hook_gen is not None or self.autoreset == "regen"
-        graph, _lane_scan.capture_ms, _lane_scan.pool_bytes = capture_step(
+        graph, capture_ms, pool_bytes = capture_step(
             lambda: self.step(self.carry),
             lambda: self.step(self.carry.clone()),
             self.device,
             self.generator if draws else None,
+            stamps,
         )
-        _lane_scan.captures += 1
-        return graph
+        profiling.count("lanes.captures")
+        profiling.count("lanes.capture_ms", capture_ms)
+        profiling.count("lanes.pool_bytes", pool_bytes)
+        return graph, pool_bytes
 
     def run_graph(self) -> None:
-        """The step captured once and replayed ``horizon`` times; the
-        graph and its pool are freed before the call returns.  A horizon
-        of 0 captures nothing (its outputs have no slot to write)."""
+        """The step captured once (``lanes.capture``) and replayed
+        ``horizon`` times (``lanes.replay``); the graph and its pool are
+        freed before the call returns.  While tracing is on the capture
+        holds the step's stamps, and ``lanes.capture`` carries the pool's
+        bytes, the graph's nodes less the stamps (``graph_nodes``) and the
+        stamps (``stamp_nodes``).  A horizon of 0 captures nothing (its
+        outputs have no slot to write)."""
         if not self.horizon:
             return
-        graph = self.capture()
+        with profiling.span("lanes.capture") as rec:
+            stamps = None if rec is None else profiling.GraphStamps(self.device)
+            graph, pool_bytes = self.capture(stamps)
+            if rec is not None:
+                rec.attrs.update(pool_bytes=pool_bytes, graph_nodes=stamps.graph_nodes,
+                                 stamp_nodes=stamps.kernels)
         try:
-            for _ in range(self.horizon):
-                graph.replay()
+            with profiling.span("lanes.replay"):
+                for _ in range(self.horizon):
+                    graph.replay()
+                if stamps is not None:
+                    stamps.emit()
         finally:
             graph.reset()
 
@@ -861,9 +907,10 @@ def _lane_scan(
     replayed ``horizon`` times, as JAX compiles its scan into one program;
     elsewhere it runs in a Python loop (``_lane_scan_eager``).  Both give
     the same result bit for bit, and leave ``generator`` at the same
-    state.  ``_lane_scan.captures`` counts the captures, and
-    ``capture_ms`` and ``pool_bytes`` hold the last one's host time and
-    its memory pool's size.
+    state.  The counters ``lanes.captures``, ``lanes.capture_ms`` and
+    ``lanes.pool_bytes`` (``utils/profiling.py``) sum the captures, their
+    host time and their memory pools' bytes.  The closing sums are
+    ``lanes.result``.
 
     With a ``group``, ``pool`` and ``actions`` are this rank's
     ``batch_size`` lanes; ``total_reward``, ``episodes``, ``successes``,
@@ -875,12 +922,8 @@ def _lane_scan(
         scan.run_graph()
     else:
         scan.run_eager()
-    return scan.result(group)
-
-
-_lane_scan.captures = 0
-_lane_scan.capture_ms = 0.0
-_lane_scan.pool_bytes = 0
+    with profiling.span("lanes.result"):
+        return scan.result(group)
 
 
 def _lane_scan_eager(

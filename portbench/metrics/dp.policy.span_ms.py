@@ -1,0 +1,9 @@
+"""Mean device ms a call of the port's span ``dp.policy``
+(``key_greedy_policy``), as the profiled solve calls run it back to back
+(``portbench/spans.py``)."""
+
+from portbench import spans
+
+
+def read(trace: dict):
+    return spans.per_call_ms(trace, "dp.policy")

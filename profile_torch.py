@@ -4,7 +4,7 @@ update, spend their time, on one CUDA card.
 
 Run from the repository root, on a machine with a card:
 
-    python3 profile_torch.py [--out results.json]
+    python3 profile_torch.py [--tracing-cost] [--out results.json]
 
 It works at the rollout's batch, B=65536, with four pool rounds, and prints
 the card's name and power limit, then:
@@ -41,17 +41,24 @@ the card's name and power limit, then:
   4096 frames: tile rows moved as bytes against the same rows moved as
   int64 words, CUDA-event means over 10 calls, timed bytes, words, words,
   bytes, three times over.
+
+With ``--tracing-cost`` it does one thing only: tracing off against on
+(``profile_tracing``), a rollout call and a key-domain solve in turns.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import statistics
 import subprocess
 import sys
 import time
 
 import torch
+
+from minigrid_dynamicprogramming_tpu_torch.utils import profiling
 
 ENV_ID = "MiniGrid-DoorKey-8x8-v0"
 BATCH, STEPS, POOL_ROUNDS = 65536, 32, 4
@@ -140,10 +147,12 @@ def profile_regen(results: dict, env_id: str = ENV_ID, b: int = BATCH, steps: in
     profiled(lambda: L._lane_scan_eager(env, g, pool, b, steps, "regen", 1),
              f"{label} eager rollout loop, {env_id}, B={b}, per step", steps, out, trace_eager)
     scan = L._Scan(env, g, pool, b, 2 * steps, "regen", 1, None)
-    graph = scan.capture()
-    out.update(capture_ms=L._lane_scan.capture_ms, graph_pool_bytes=L._lane_scan.pool_bytes)
-    print(f"[{label} graph] captured in {L._lane_scan.capture_ms:.3f} ms, its memory pool "
-          f"{L._lane_scan.pool_bytes} bytes", flush=True)
+    ms0 = profiling.counter("lanes.capture_ms")
+    graph, pool_bytes = scan.capture()
+    capture_ms = profiling.counter("lanes.capture_ms") - ms0
+    out.update(capture_ms=capture_ms, graph_pool_bytes=pool_bytes)
+    print(f"[{label} graph] captured in {capture_ms:.3f} ms, its memory pool "
+          f"{pool_bytes} bytes", flush=True)
 
     def replay():
         for _ in range(steps):
@@ -248,13 +257,90 @@ def profile_render_rows(results: dict) -> None:
           f"int64 words ms {out['words_ms']}", flush=True)
 
 
+def profile_tracing(results: dict, calls: int = 4) -> None:
+    """What ``utils/profiling.py``'s tracing costs on the benchmark's
+    paths: a DoorKey-8x8 ``lane_rollout`` call (B=65536, T=768, given
+    actions; "pool" and "regen") and a DoorKey-16x16 key-domain solve (256
+    states, 256 sweeps, ``max_doors=1``: extraction, VI, policy), each
+    called ``calls`` times with ``tracing()`` off and as often on, in turns
+    (off, on, on, off, ...), host ms to a synchronised end; the stamps a
+    traced step's graph holds, the stamped step's device ms, and each
+    span's device ms and count in the last traced call (no profiler)."""
+    from minigrid_dynamicprogramming_tpu_torch import make
+    from minigrid_dynamicprogramming_tpu_torch.dp import cuda_vi
+    from minigrid_dynamicprogramming_tpu_torch.dp import tabular_key as TK
+    from minigrid_dynamicprogramming_tpu_torch.parallel import lanes as L
+
+    dev = torch.device("cuda")
+    env = make(ENV_ID)
+    horizon = 768
+    acts = torch.randint(0, env.action_dim, (horizon, BATCH), dtype=torch.int32, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    env16 = make("MiniGrid-DoorKey-16x16-v0")
+    states = env16.generate(torch.Generator(device=dev).manual_seed(2), env16.params, 256, dev)
+
+    def rollout(mode):
+        g = torch.Generator(device=dev).manual_seed(3)
+        return lambda: L.lane_rollout(env, g, BATCH, horizon, mode, POOL_ROUNDS, actions=acts,
+                                      device=dev)
+
+    def solve():
+        layout = TK.extract_key_layout(states, max_doors=1)
+        v = cuda_vi.cuda_key_value_iteration(layout, 0.995, 256)
+        return TK.key_greedy_policy(v, layout, 0.995)
+
+    out = results["tracing"] = {}
+    for label, fn in (("rollout pool", rollout("pool")), ("rollout regen", rollout("regen")),
+                      ("solve 16x16", solve)):
+        ms = {False: [], True: []}
+        for i in range(calls + 1):
+            for traced in ((False, True) if i % 2 == 0 else (True, False)):
+                profiling.clear()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with profiling.tracing() if traced else contextlib.nullcontext():
+                    fn()
+                torch.cuda.synchronize()
+                if i:  # the first round warms up (the stamps' build and load)
+                    ms[traced].append(1e3 * (time.perf_counter() - t0))
+        recs = profiling.records()
+        profiling.clear()
+        row = out[label] = {
+            "off_ms": ms[False], "on_ms": ms[True],
+            "off_median_ms": statistics.median(ms[False]),
+            "on_median_ms": statistics.median(ms[True]),
+        }
+        spans = row["spans"] = {}  # name: [device ms, count] in the last traced call
+        for r in recs:
+            total = spans.setdefault(r["name"] + (" (graph)" if r["attrs"].get("graph") else ""), [0.0, 0])
+            total[0] += r["device_ms"]
+            total[1] += r["count"]
+            if r["name"] == "lanes.capture":
+                row.update(stamp_nodes=r["attrs"]["stamp_nodes"], graph_nodes=r["attrs"]["graph_nodes"])
+            if r["name"] == "lanes.step" and r["attrs"].get("graph"):
+                row["traced_step_ms"] = r["device_ms"] / r["count"]
+        print(f"[tracing] {label}: off {row['off_median_ms']:.3f} ms, on {row['on_median_ms']:.3f} ms "
+              f"(medians of {calls}); off {ms[False]}, on {ms[True]}; stamps "
+              f"{row.get('stamp_nodes')} beside {row.get('graph_nodes')} nodes, the traced step "
+              f"{row.get('traced_step_ms')} ms; spans {spans}", flush=True)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write the results as JSON to this file")
+    parser.add_argument("--tracing-cost", action="store_true",
+                        help="only time tracing off against on (profile_tracing)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_torch: no CUDA card is available", file=sys.stderr)
         return 1
+    if args.tracing_cost:
+        results = {}
+        profile_tracing(results)
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(results, f, indent=1)
+        return 0
     from minigrid_dynamicprogramming_tpu_torch import make
     from minigrid_dynamicprogramming_tpu_torch.parallel import lanes as L
 
@@ -298,11 +384,12 @@ def main(argv=None) -> int:
     # The step as the rollout runs it on the card: captured once, then
     # replayed; profiled() replays it twice over ``steps`` steps.
     scan = L._Scan(env, g, pool, b, 2 * steps, "pool", POOL_ROUNDS, None)
-    graph = scan.capture()
-    results["capture_ms"] = L._lane_scan.capture_ms
-    results["graph_pool_bytes"] = L._lane_scan.pool_bytes
-    print(f"[graph] captured in {L._lane_scan.capture_ms:.3f} ms, its memory pool "
-          f"{L._lane_scan.pool_bytes} bytes", flush=True)
+    ms0 = profiling.counter("lanes.capture_ms")
+    graph, pool_bytes = scan.capture()
+    results["capture_ms"] = profiling.counter("lanes.capture_ms") - ms0
+    results["graph_pool_bytes"] = pool_bytes
+    print(f"[graph] captured in {results['capture_ms']:.3f} ms, its memory pool "
+          f"{pool_bytes} bytes", flush=True)
 
     def replay():
         for _ in range(steps):

@@ -48,6 +48,7 @@ from minigrid_dynamicprogramming_tpu_torch.core.state import EnvState
 from minigrid_dynamicprogramming_tpu_torch.dp import cuda_vi
 from minigrid_dynamicprogramming_tpu_torch.dp import tabular as ttab
 from minigrid_dynamicprogramming_tpu_torch.dp import tabular_key as tkey
+from minigrid_dynamicprogramming_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
@@ -68,9 +69,9 @@ def test_cuda_vi_plain_path_matches_pallas_interpret():
     jlay = jax.vmap(partial(jtab.extract_layout, max_doors=1))(jstates)
     with pltpu.force_tpu_interpret_mode():
         want = pallas_value_iteration(jlay, gamma=GAMMA, n_sweeps=48)
-    before = cuda_vi.cuda_value_iteration.launches
+    before = profiling.counter("vi.launches")
     got = cuda_vi.cuda_value_iteration(ttab.extract_layout(tstates, 1), GAMMA, 48)
-    assert cuda_vi.cuda_value_iteration.launches == before  # CPU: no kernel
+    assert profiling.counter("vi.launches") == before  # CPU: no kernel
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
@@ -81,9 +82,9 @@ def test_cuda_key_vi_plain_path_matches_pallas_interpret():
         jv_pl = pallas_key_value_iteration(jlay, gamma=GAMMA, n_sweeps=48)
     tlay = tkey.extract_key_layout(tstates, 1)
     assert (np.asarray(jv_pl) > 0).any()
-    before = cuda_vi.cuda_key_value_iteration.launches
+    before = profiling.counter("key_vi.launches")
     got = cuda_vi.cuda_key_value_iteration(tlay, GAMMA, 48)
-    assert cuda_vi.cuda_key_value_iteration.launches == before
+    assert profiling.counter("key_vi.launches") == before
     np.testing.assert_allclose(got.numpy(), np.asarray(jv_pl), rtol=0, atol=1e-6)
 
 

@@ -2,8 +2,8 @@
 ``tests/test_guards.py`` holds its own (``device_audit`` probes a TPU
 backend and is not ported): the checked step and reset, the NaN/Inf
 tripwire, the acceptance telemetry (loop mode on BabyAI and MultiRoom,
-the structural fallback, JAX's report keys), the trace, and the
-``KernelTimer`` report."""
+the structural fallback, JAX's report keys), and the trace with its
+spans."""
 
 from __future__ import annotations
 
@@ -24,7 +24,7 @@ from minigrid_dynamicprogramming_tpu_torch.utils.guards import (
     checked_step,
     debug_mode,
 )
-from minigrid_dynamicprogramming_tpu_torch.utils.profiling import TRACE_FILE, KernelTimer, annotate, trace
+from minigrid_dynamicprogramming_tpu_torch.utils.profiling import SPANS_FILE, TRACE_FILE, span, trace
 from minigrid_dynamicprogramming_tpu_torch.utils.telemetry import (
     GenStats,
     generation_acceptance,
@@ -131,26 +131,15 @@ def test_profiler_trace_writes_events(tmp_path):
     env = port.make("MiniGrid-Empty-8x8-v0")
     logdir = str(tmp_path / "trace")
     with trace(logdir):
-        with annotate("reset"):
+        with span("reset", batch=4):
             env.reset(torch.Generator().manual_seed(0), 4, "cpu")
     with open(os.path.join(logdir, TRACE_FILE)) as f:
         events = json.load(f)["traceEvents"]
     names = {e.get("name") for e in events}
-    assert "reset" in names, "the annotated range is in the trace"
+    assert "reset" in names, "the span's range is in the trace"
     assert any(str(n).startswith("aten::") for n in names), "operators are in the trace"
-
-
-def test_kernel_timer_report():
-    env, state = _reset("MiniGrid-Empty-8x8-v0", 4)
-    timer = KernelTimer()
-    _, state = timer.run("reset", env.reset, torch.Generator().manual_seed(0), 4, "cpu", units=4)
-    for i in range(5):
-        state = timer.run("step", env.step, state, 2, units=4)[1]
-    with timer.section("idle"):
-        pass
-    rep = timer.report()
-    assert rep["reset"]["calls"] == 1
-    assert rep["step"]["calls"] == 5
-    assert rep["step"]["seconds"] > 0
-    assert rep["step"]["per_s"] > 0
-    assert rep["idle"]["per_s"] == 0.0
+    with open(os.path.join(logdir, SPANS_FILE)) as f:
+        spans = json.load(f)
+    (rec,) = [r for r in spans["records"] if r["name"] == "reset"]
+    assert rec["attrs"] == {"batch": 4} and rec["count"] == 1 and rec["device_ms"] > 0
+    assert set(spans) == {"records", "dropped", "counters"}

@@ -76,6 +76,7 @@ from minigrid_dynamicprogramming_tpu_torch.dp import cuda_vi
 from minigrid_dynamicprogramming_tpu_torch.dp import tabular as ttab
 from minigrid_dynamicprogramming_tpu_torch.dp import tabular_key as tkey
 from minigrid_dynamicprogramming_tpu_torch.parallel import lanes as tlanes
+from minigrid_dynamicprogramming_tpu_torch.utils import profiling
 
 GAMMA = 0.995
 
@@ -111,10 +112,10 @@ def test_vi_kernel_equals_plain(card, env_id, max_doors):
     layouts = ttab.extract_layout(_states(card, env_id, 37, seed=0), max_doors)
     C = 2 * 3**max_doors
     assert cuda_vi.vi_walk_bits(C) == {1: 32, 2: 32, 3: 64, 4: 0}[max_doors]
-    before = cuda_vi.cuda_value_iteration.launches
+    before = profiling.counter("vi.launches")
     got = cuda_vi.cuda_value_iteration(layouts, GAMMA, 96)
     torch.cuda.synchronize()
-    assert cuda_vi.cuda_value_iteration.launches == before + 1
+    assert profiling.counter("vi.launches") == before + 1
     want = ttab.value_iteration(layouts, GAMMA, 96)[0]
     assert (want > 0).any()
     torch.testing.assert_close(got, want, rtol=0, atol=0)
@@ -129,10 +130,10 @@ def test_vi_kernel_run_time_size_equals_plain(card, env_id, max_doors):
     """Grid sizes with no compile-time instance, lava in the layouts."""
     layouts = ttab.extract_layout(_states(card, env_id, 13, seed=6), max_doors)
     assert layouts.lava.any() or env_id == "MiniGrid-FourRooms-v0"
-    before = cuda_vi.cuda_value_iteration.launches
+    before = profiling.counter("vi.launches")
     got = cuda_vi.cuda_value_iteration(layouts, GAMMA, 64)
     torch.cuda.synchronize()
-    assert cuda_vi.cuda_value_iteration.launches == before + 1
+    assert profiling.counter("vi.launches") == before + 1
     want = ttab.value_iteration(layouts, GAMMA, 64)[0]
     assert (want > 0).any()
     torch.testing.assert_close(got, want, rtol=0, atol=0)
@@ -172,12 +173,12 @@ def _key_vi_on_route(layouts, n_sweeps: int, route):
     ``key_vi_route`` result) and counted one launch there."""
     b, h, w = layouts.base_walk.shape
     assert cuda_vi.key_vi_route(h * w + 1, 1 << layouts.n_doors, h * w) == route
-    before = dict(cuda_vi.cuda_key_value_iteration.route_launches)
-    total = cuda_vi.cuda_key_value_iteration.launches
+    before = {r: profiling.counter(f"key_vi.launches.{r}") for r in cuda_vi.ROUTES}
+    total = profiling.counter("key_vi.launches")
     got = cuda_vi.cuda_key_value_iteration(layouts, GAMMA, n_sweeps)
     torch.cuda.synchronize()
-    assert cuda_vi.cuda_key_value_iteration.launches == total + 1
-    after = cuda_vi.cuda_key_value_iteration.route_launches
+    assert profiling.counter("key_vi.launches") == total + 1
+    after = {r: profiling.counter(f"key_vi.launches.{r}") for r in cuda_vi.ROUTES}
     assert {r: after[r] - before[r] for r in after} == {
         r: int(r == route[0]) for r in cuda_vi.ROUTES
     }
@@ -657,14 +658,14 @@ def _rollout_pair(card, env_id: str, autoreset: str, given: bool, seed: int):
     runs = []
     for graphed in (True, False):
         g = torch.Generator(device=card).manual_seed(seed)
-        captures = tlanes._lane_scan.captures
+        captures = profiling.counter("lanes.captures")
         if graphed:
             res = tlanes.lane_rollout(env, g, b, horizon, autoreset, rounds, actions=acts,
                                       device=card)
         else:
             pool = tlanes._lane_pool(env, g, b, autoreset, rounds, card)
             res = tlanes._lane_scan_eager(env, g, pool, b, horizon, autoreset, rounds, acts)
-        assert tlanes._lane_scan.captures == captures + graphed
+        assert profiling.counter("lanes.captures") == captures + graphed
         runs.append((res, torch.randint(0, 1 << 30, (16,), generator=g, device=card)))
     return runs
 
@@ -724,12 +725,97 @@ def test_zero_horizon_captures_nothing(card):
     """A rollout of no steps has no step to capture: it returns its pool's
     round 0 and counts nothing."""
     env = port.make("MiniGrid-DoorKey-8x8-v0")
-    captures = tlanes._lane_scan.captures
+    captures = profiling.counter("lanes.captures")
     res = tlanes.lane_rollout(env, torch.Generator(device=card).manual_seed(1), 256, 0,
                               device=card)
-    assert tlanes._lane_scan.captures == captures
+    assert profiling.counter("lanes.captures") == captures
     assert res.steps == 0 and int(res.episodes) == 0 and int(res.obs_checksum) == 0
     assert int(res.final_state.step_count.max()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("autoreset", ["pool", "regen"])
+def test_traced_rollout_stamps_each_part_of_the_step(card, autoreset):
+    """A graphed DoorKey-8x8 rollout under ``tracing()``: each in-graph
+    span counts ``horizon`` replayed steps, and once more as an eager span
+    in the capture's warm-up step; the parts' sum is at most the step's;
+    the result equals the untraced call's bit for bit; the untraced call
+    keeps no record, and its capture holds the traced one's nodes less the
+    stamps, two a span."""
+    env = port.make("MiniGrid-DoorKey-8x8-v0")
+    b, horizon, rounds = 4096, 100, 2
+    parts = ["lanes.step", "lanes.transition", "lanes.select", "lanes.observation"]
+    if autoreset == "regen":
+        parts.append("generator.generate")
+
+    def run():
+        g = torch.Generator(device=card).manual_seed(9)
+        return tlanes.lane_rollout(env, g, b, horizon, autoreset, rounds, device=card)
+
+    profiling.clear()
+    off = run()
+    assert profiling.records() == []
+    with profiling.tracing():
+        on = run()
+    recs = profiling.records()
+    profiling.clear()
+    _assert_rollouts_equal(on, off)
+    by_id = {r["id"]: r for r in recs}
+    (cap,) = [r for r in recs if r["name"] == "lanes.capture"]
+
+    def within_capture(r):
+        while r["parent"] is not None:
+            r = by_id[r["parent"]]
+            if r["name"] == "lanes.capture":
+                return True
+        return False
+
+    for name in parts:
+        graphed = [r for r in recs if r["name"] == name and r["attrs"].get("graph")]
+        warmup = [r for r in recs if r["name"] == name and within_capture(r)]
+        assert len(graphed) == 1 and graphed[0]["count"] == horizon, name
+        assert len(warmup) == 1 and warmup[0]["count"] == 1, name
+        assert graphed[0]["device_ms"] > 0, name
+    (step,) = [r for r in recs if r["name"] == "lanes.step" and r["attrs"].get("graph")]
+    children = [r for r in recs if r["parent"] == step["id"]]
+    assert {r["name"] for r in children} == set(parts[1:])
+    assert sum(r["device_ms"] for r in children) <= step["device_ms"]
+    assert cap["attrs"]["stamp_nodes"] == 2 * len(parts)
+
+    g = torch.Generator(device=card).manual_seed(9)
+    pool = tlanes._lane_pool(env, g, b, autoreset, rounds, card)
+    scan = tlanes._Scan(env, g, pool, b, horizon, autoreset, rounds, None)
+    stamps = profiling.GraphStamps(card)
+    graph, _ = scan.capture(stamps)
+    graph.reset()
+    assert stamps.kernels == 0
+    assert stamps.graph_nodes == cap["attrs"]["graph_nodes"] > 0
+
+
+@pytest.mark.cuda
+def test_traced_solve_spans_its_layers(card):
+    """The key-domain solve under ``tracing()``: ``dp.extract``, ``dp.vi``
+    holding ``dp.masks`` and ``dp.kernel`` (its route), ``dp.policy``, each
+    timed by CUDA events, and the same V and policy as untraced."""
+    states = _states(card, "MiniGrid-DoorKey-16x16-v0", 8, seed=3)
+
+    def solve():
+        layout = tkey.extract_key_layout(states, 1)
+        v = cuda_vi.cuda_key_value_iteration(layout, GAMMA, 64)
+        return v, tkey.key_greedy_policy(v, layout, GAMMA)
+
+    profiling.clear()
+    v_off, pol_off = solve()
+    with profiling.tracing():
+        v_on, pol_on = solve()
+    recs = {r["name"]: r for r in profiling.records()}
+    profiling.clear()
+    assert torch.equal(v_on, v_off) and torch.equal(pol_on, pol_off)
+    assert set(recs) == {"dp.extract", "dp.vi", "dp.masks", "dp.kernel", "dp.policy"}
+    assert recs["dp.masks"]["parent"] == recs["dp.kernel"]["parent"] == recs["dp.vi"]["id"]
+    assert recs["dp.kernel"]["attrs"] == {"route": "wide"}
+    assert all(r["device_ms"] > 0 for r in recs.values())
+    assert recs["dp.masks"]["device_ms"] + recs["dp.kernel"]["device_ms"] <= recs["dp.vi"]["device_ms"]
 
 
 _PPO_IDS = ["BabyAI-GoToDoor-v0", "MiniGrid-DoorKey-5x5-v0", "MiniGrid-Dynamic-Obstacles-8x8-v0"]
