@@ -20,6 +20,14 @@ Phases (any failure raises, exits nonzero and prints no "ok" line):
    loop), graphed then eager, from generators in the same state: every
    result, and each generator's next draw, equal bit for bit; ms a step
    of each run, capture ms, the pool's bytes.
+2b. the observation kernel: ``obs_checksum_lanes`` (``csrc/obs.cu``, the
+   rollout step's observation and checksum in one launch) on DoorKey-8x8
+   states of the headline's shape, 65536 lanes stepped by random actions,
+   against the plain ``obs_lanes`` and its sum every few steps (difference
+   0); the kernel's ms (100 launches captured in a CUDA graph and
+   replayed, as the rollout runs it), its bound by bytes, the plain
+   version's ms eager and captured the same way; its launches in phase
+   2's rollout (the capture's warm-up and the capture: 2).
 3. B1: ``tabular.solve`` on 1024 DoorKey-8x8 layouts, 128 sweeps, at
    max_doors 1 and 2; the kernel's V must equal the plain version's
    exactly.  Then the kernel's other two ways of holding walkability, also
@@ -275,6 +283,7 @@ FAMILY_RUNS = {
 }
 FAMILY_OTHER = (4096, 64, 2)
 CPU_LANES = 256  # lanes of each family's rollout replayed on the CPU
+VIEW_STEPS, VIEW_CHECK_EVERY = 40, 5  # phase 2b: steps taken, and how often checked
 REPLAY_WORKERS = 5  # processes for the replays
 DYN_OBS_STEPS = 64  # steps of the DynamicObstacles reward and ball checks
 # The RoomGrid families (phase 8), by id prefix; (B, T, pool rounds) of the
@@ -715,6 +724,89 @@ def graph_against_eager(env, L, card: str) -> dict:
         flush=True,
     )
     return out
+
+
+def graphed_ms(fn, n: int = 100, reps: int = 10) -> float:
+    """Device ms of one ``fn()`` as a CUDA graph replays it: ``n`` calls
+    captured into one graph, its replay timed ``reps`` times (median)
+    over ``n``."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    try:
+        return cuda_ms(graph.replay, reps) / n
+    finally:
+        graph.reset()
+
+
+def obs_kernel(env, L, ptxas, launches: float) -> dict:
+    """Phase 2b: ``obs_checksum_lanes`` (``csrc/obs.cu``) against the plain
+    ``obs_lanes`` and its sum on VIEW_STEPS stepped DoorKey-8x8 states of
+    ROLLOUT_B lanes, then timed beside its bound and the plain version.
+    ``launches``: the kernel's launches in phase 2's rollout.  Returns the
+    kernels-line row."""
+    dev = torch.device(DEVICE)
+    params = env.params
+    h, w, b = params.height, params.width, ROLLOUT_B
+    g = gen(4)
+    ls = L.to_lanes(env.generate(g, params, b, dev))
+    out = torch.zeros(1, dtype=torch.int64, device=dev)
+    t = torch.zeros(1, dtype=torch.int64, device=dev)
+
+    def kernel():
+        L.obs_checksum_lanes(params, ls, out, t)
+
+    def plain():
+        obj, color, obj_state, vis = L.obs_lanes(params, ls)
+        out.index_add_(0, t, ((obj.to(torch.int64) + color + obj_state) * vis).sum().view(1))
+
+    err, carrying = 0, 0
+    for step in range(VIEW_STEPS):
+        act = torch.randint(0, env.action_dim, (b,), generator=g, device=dev, dtype=torch.int32)
+        ls, _, _ = L.step_lanes_env(env, ls, act)
+        if step % VIEW_CHECK_EVERY == VIEW_CHECK_EVERY - 1:
+            out.zero_()
+            kernel()
+            got = int(out[0])
+            out.zero_()
+            plain()
+            err = max(err, abs(got - int(out[0])))
+            carrying = max(carrying, int((ls.carrying_obj != 1).sum()))  # 1: OBJ_EMPTY
+    require(err == 0, "the observation kernel equals the plain checksum")
+    require(carrying > 0, "some lanes carry the key")
+    kernel_ms = graphed_ms(kernel)
+    plain_graph_ms = graphed_ms(plain, n=4)
+    plain_ms = cuda_ms(plain, 5)
+    # Each plane's byte of every lane and cell once, the agent's five
+    # scalars, the step index and the slot.
+    nbytes = 3 * h * w * b + b * (3 * 4 + 2) + 2 * 8
+    bound_ms, bound_by = bound(nbytes, 0)
+    row = {
+        "name": "obs", "route": "cuda", "source": f"{CSRC}/obs.cu", "replaces": None,
+        "launches": launches, "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+        "plain_graphed_ms": plain_graph_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None, "kernel_only_ms": kernel_ms, "lanes": b, "checked_states":
+        VIEW_STEPS // VIEW_CHECK_EVERY, "lanes_carrying": carrying,
+        "design": "a thread a lane, 128 lanes a block; the block's three planes staged in "
+        "shared memory as one word a cell and lane; the visibility sweep in 64-bit registers, "
+        "row by row; one atomic add a block",
+        "compiled": compiled(ptxas, "obs_checksum_kernelILi7ELb1E"),
+    }
+    print(
+        f"[obs] B={b} DoorKey-8x8: max|kernel - plain| {err} over {row['checked_states']} "
+        f"stepped states ({carrying} lanes carrying); kernel {kernel_ms:.5f} ms in a graph, "
+        f"bound {bound_ms:.5f} ms by {bound_by} ({kernel_ms / bound_ms:.1f}x), plain "
+        f"{plain_ms:.4f} ms eager, {plain_graph_ms:.4f} ms in a graph; phase 2's rollout "
+        f"launched it {launches:g} times; {row['compiled']}",
+        flush=True,
+    )
+    return row
 
 
 def replay_summary(L, params, final, resets) -> dict:
@@ -2410,6 +2502,7 @@ def run(args, t_start: float, workers) -> int:
     g = gen(1)
     g_pool = torch.Generator(device=DEVICE).set_state(g.get_state())
     before = capture_counts()
+    obs_before = profiling.counter("obs.launches")
     t0 = time.perf_counter()
     res, _ = drive(
         "rollout",
@@ -2418,6 +2511,8 @@ def run(args, t_start: float, workers) -> int:
         ),
     )
     rollout_s = time.perf_counter() - t0
+    obs_launches = profiling.counter("obs.launches") - obs_before
+    require(obs_launches == 2, "the rollout launched the observation kernel in its capture")
     capture = captured_since(before)
     require(capture["captures"] == 1, "the rollout captured its step as one CUDA graph")
     capture_ms, graph_pool_bytes = capture["capture_ms"], capture["graph_pool_bytes"]
@@ -2474,6 +2569,9 @@ def run(args, t_start: float, workers) -> int:
             flush=True,
         )
         kernels.append(row)
+
+    # 2b. The observation kernel at the headline's shape.
+    kernels.append(obs_kernel(env, L, ptxas, obs_launches))
 
     # 3. B1 through solve, at one and two door slots, on the same layouts.
     solved = {}

@@ -13,7 +13,10 @@ BossLevel) it prints the operators of one step of the lane-major rollout
 (``lanes._Scan.step``, the step that the card captures as a CUDA graph,
 with its writes into the carry; a field's copy onto itself is counted
 but launches nothing) and of its parts: the core transition, the id's
-post-step hook (the BabyAI verifier), the observation.  Then those of one sweep of the two-key
+post-step hook (the BabyAI verifier), the observation (plain here; on a card
+the step launches it and its checksum as one kernel, ``csrc/obs.cu``, so
+the step's count there is its count here less ``obs_checksum_lanes``'s,
+plus one).  Then those of one sweep of the two-key
 domain on an UnlockToUnlock layout, and how many of them write a full
 (N, K1, K2, Cd, H, W) block; then PPO's on BabyAI-GoToDoor: the
 collector's step and the minibatch step (each one CUDA graph on the
@@ -81,6 +84,9 @@ def step_counts(env_id: str) -> dict:
         "core transition": count(lambda: L.step_lanes(env.params, ls, act)).total,
         "observation": count(lambda: L.obs_lanes(env.params, ls)).total,
     }
+    slot = torch.zeros(1, dtype=torch.int64)
+    checksum = count(lambda: L.obs_checksum_lanes(env.params, ls, slot, slot.new_zeros(1))).total
+    out["rollout step on a card"] = out["rollout step"] - checksum + 1
     if env.post_step_lanes is not None:
         hook = env.post_step_lanes
         out["post-step hook"] = count(lambda: hook(env.params, None, ls, new, act, reward, term)).total

@@ -21,19 +21,26 @@ JAX runs a rollout's horizon as one compiled ``lax.scan``.  Here one step
 of it (``_Scan.step``) reads and writes only tensors of fixed address,
 with its step index on the device, so that on a CUDA device
 ``_lane_scan`` captures it once as a CUDA graph and replays it; on the
-CPU the same step runs in a Python loop (``_lane_scan_eager``).
+CPU the same step runs in a Python loop (``_lane_scan_eager``).  On a
+CUDA device the step's observation and its checksum are one hand-written
+kernel (``csrc/obs.cu``, :func:`obs_checksum_lanes`); everywhere else,
+and in ``obs_lanes`` and ``obs_image_lanes`` on any device, they are
+plain code.
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
+import functools
 import time
 from dataclasses import dataclass
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from minigrid_dynamicprogramming_tpu_torch import _kernels
 from minigrid_dynamicprogramming_tpu_torch.core.constants import (
     ACT_DROP,
     ACT_FORWARD,
@@ -450,6 +457,70 @@ def _process_vis_lanes(see: torch.Tensor, v: int) -> torch.Tensor:
     return bits.reshape(v * v, -1).to(torch.bool)
 
 
+def obs_checksum_lanes(params: EnvParams, ls: LaneState, out: torch.Tensor, t: torch.Tensor) -> None:
+    """Adds the observation checksum of ``ls``, the sum over its lanes and
+    view cells of ``(obj + color + state) * vis`` from :func:`obs_lanes`,
+    into ``out[t]`` (``out`` int64, ``t`` a one-element int64 index on its
+    device).
+
+    On a CUDA device it is one launch of ``csrc/obs.cu`` on the current
+    stream (:func:`obs_instance` picks the kernel's instance; counters
+    ``obs.launches`` and ``obs.launches.<instance>``): it checks the
+    tensors it reads and raises on any other input, and on views wider
+    than ``MAX_VIEW``; there is no fallback.  Elsewhere it runs the plain
+    :func:`obs_lanes` and sums."""
+    if ls.grid_obj.device.type != "cuda":
+        obj, color, obj_state, vis = obs_lanes(params, ls)
+        seen = (obj.to(torch.int64) + color + obj_state) * vis
+        out.index_add_(0, t, seen.sum().view(1))
+        return
+    v, h, w = params.agent_view_size, params.height, params.width
+    if v > MAX_VIEW:
+        raise ValueError(f"agent_view_size {v} exceeds the visibility sweep's {MAX_VIEW}")
+    b = ls.agent_x.shape[0]
+    dev = ls.grid_obj.device
+    args = [
+        (ls.grid_obj, _U8, (h * w, b)), (ls.grid_color, _U8, (h * w, b)),
+        (ls.grid_state, _U8, (h * w, b)), (ls.agent_x, torch.int32, (b,)),
+        (ls.agent_y, torch.int32, (b,)), (ls.agent_dir, torch.int32, (b,)),
+        (ls.carrying_obj, _U8, (b,)), (ls.carrying_color, _U8, (b,)),
+        (out, torch.int64, (out.numel(),)), (t, torch.int64, (1,)),
+    ]
+    for x, dtype, shape in args:
+        if (x.device != dev or x.dtype != dtype or tuple(x.shape) != shape
+                or not x.is_contiguous()):
+            raise ValueError(
+                f"obs_checksum_lanes: want contiguous {dtype} {shape} on {dev}, got "
+                f"{x.dtype} {tuple(x.shape)} on {x.device} (contiguous: {x.is_contiguous()})"
+            )
+    with torch.cuda.device(dev):
+        err = _obs_launch()(
+            *(x.data_ptr() for x, _, _ in args), b, h, w, v, int(params.see_through_walls),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"obs_checksum_launch failed: CUDA error {err}")
+    profiling.count("obs.launches")
+    profiling.count(f"obs.launches.{obs_instance(v)}")
+
+
+def obs_instance(v: int) -> str:
+    """The instance of ``csrc/obs.cu`` that a view of ``v`` columns takes:
+    ``v7``, the view's width a template parameter, else ``vrt``, given at
+    run time."""
+    return "v7" if v == 7 else "vrt"
+
+
+@functools.cache
+def _obs_launch():
+    """``csrc/obs.cu``'s entry point, built and loaded at its first call:
+    the capture's warm-up step, before any graph or span of the step."""
+    fn = _kernels.library("obs").obs_checksum_launch
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def obs_image_lanes(params: EnvParams, ls: LaneState) -> torch.Tensor:
     """(B, view, view, 3) uint8 batch in the reference's ``[x, y]`` layout."""
     v = params.agent_view_size
@@ -667,7 +738,7 @@ class _Carry(NamedTuple):
     dones: torch.Tensor  # (T,) i64
     wins: torch.Tensor  # (T,) i64
     ends: torch.Tensor  # (T,) i64
-    checksums: torch.Tensor  # (T,) i64
+    checksums: torch.Tensor  # (T,) i64, zeroed: the step adds into slot t
 
     def clone(self) -> "_Carry":
         return _Carry(_clone_lanes(self.ls), *(x.clone() for x in self[1:]))
@@ -761,7 +832,8 @@ class _Scan:
 
         # The carried state is a copy: the step writes into it, and in
         # "cached" mode it reads the pool's round 0 as its fresh layouts
-        # ("regen" generates them every step).
+        # ("regen" generates them every step).  The step adds its
+        # observation checksum into its slot, so the slots start at 0.
         self.carry = _Carry(
             ls=_clone_lanes(self.init_ls),
             reset_count=torch.zeros(batch_size, dtype=torch.int32, device=dev),
@@ -770,7 +842,7 @@ class _Scan:
             dones=empty(torch.int64),
             wins=empty(torch.int64),
             ends=empty(torch.int64),
-            checksums=empty(torch.int64),
+            checksums=torch.zeros(horizon, dtype=torch.int64, device=dev),
         )
 
     def step(self, c: _Carry) -> None:
@@ -805,9 +877,7 @@ class _Scan:
                     fresh = self.init_ls
                 ls = _select_lanes(done, fresh, ls, self.skip)
             with profiling.graph_span("lanes.observation"):
-                obj, color, obj_state, vis = obs_lanes(env.params, ls)
-                seen = (obj.to(torch.int64) + color + obj_state) * vis
-                c.checksums.index_copy_(0, t, seen.sum().view(1))
+                obs_checksum_lanes(env.params, ls, c.checksums, t)
                 c.rewards.index_copy_(0, t, reward.sum().view(1))
                 c.dones.index_copy_(0, t, done.sum().view(1))
                 c.wins.index_copy_(0, t, (term & (reward > 0)).sum().view(1))

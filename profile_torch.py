@@ -10,8 +10,10 @@ It works at the rollout's batch, B=65536, with four pool rounds, and prints
 the card's name and power limit, then:
 
 * the device time of each part of a rollout step (transition, autoreset
-  select, observation and checksum), each timed alone with CUDA events on
-  the same state, over 32 repetitions;
+  select, observation and checksum: the plain ``obs_lanes`` and its sum,
+  and ``obs_checksum_lanes``, the one kernel that the step launches on a
+  card), each timed alone with CUDA events on the same state, over 32
+  repetitions;
 * for 32 steps of the rollout loop, eager (``lanes._lane_scan_eager``) and
   as the rollout runs on a card (the step captured once as a CUDA graph,
   then replayed a step at a time): the wall time per step without the
@@ -365,12 +367,17 @@ def main(argv=None) -> int:
         obj, color, obj_state, vis = L.obs_lanes(params, ls)
         return ((obj.to(torch.int64) + color + obj_state) * vis).sum()
 
+    slot = torch.zeros(1, dtype=torch.int64, device=dev)
+
     parts = {
         "transition (step_lanes)": lambda: L.step_lanes_env(env, ls, act),
         "autoreset select": lambda: L._select_lanes(
             done, L._select_pool(pool, resets % POOL_ROUNDS, POOL_ROUNDS, skip), ls, skip
         ),
         "observation + checksum": observe,
+        "observation + checksum (csrc/obs.cu)": lambda: L.obs_checksum_lanes(
+            params, ls, slot, slot.new_zeros(1)
+        ),
     }
     results = {"card": card, "batch": b, "steps": steps, "parts_ms": {}}
     for name, fn in parts.items():

@@ -60,7 +60,12 @@ runs ``generate`` inside those graphs: every registered id's generator,
 captured once and replayed, equals an eager call from the same generator
 state at B=64; the regen rollout (DoorKey-8x8, drawn and given actions,
 Dynamic-Obstacles-8x8 and GoToLocal) and PPO's regen update equal their
-eager runs bit for bit.
+eager runs bit for bit.  The rollout step's observation checksum is one
+kernel on the card (``csrc/obs.cu``): it equals the plain ``obs_lanes``
+sum bit for bit on stepped states of DoorKey-8x8 and 16x16 (staged in
+shared memory and read from device memory), a see-through id, a BabyAI
+id and views of 3, 9 and 63 columns, refuses a view of 65, and a graphed
+rollout through it equals an eager one through the plain path.
 """
 
 from __future__ import annotations
@@ -700,6 +705,108 @@ def test_graphed_rollout_equals_eager(card, env_id, autoreset, given):
     _assert_rollouts_equal(graphed, eager)
     assert torch.equal(g_next, e_next)
     assert int(eager.episodes) > 0
+
+
+def _stepped_lanes(card, env_id: str, b: int, view: int, seed: int):
+    """``b`` lanes of ``env_id`` (its view cut or widened to ``view``)
+    stepped 24 times by random actions, so that agents have turned, moved
+    and opened; then a third of them carry a random object of a random
+    colour, for the overlay at the agent's cell."""
+    env = port.make(env_id)
+    env.params = env.params.replace(agent_view_size=view)
+    g = torch.Generator(device=card).manual_seed(seed)
+    ls = tlanes.to_lanes(env.generate(g, env.params, b, card))
+    for _ in range(24):
+        act = torch.randint(0, env.action_dim, (b,), generator=g, device=card, dtype=torch.int32)
+        ls, _, _ = tlanes.step_lanes_env(env, ls, act, g)
+    held = torch.randint(0, 3, (b,), generator=g, device=card) == 0
+
+    def draw(lo, hi):
+        return torch.randint(lo, hi, (b,), generator=g, device=card).to(torch.uint8)
+
+    ls = ls.replace(carrying_obj=torch.where(held, draw(5, 8), ls.carrying_obj),
+                    carrying_color=torch.where(held, draw(0, 6), ls.carrying_color))
+    return env, ls
+
+
+def _plain_checksum(params, ls) -> int:
+    obj, color, obj_state, vis = tlanes.obs_lanes(params, ls)
+    return int(((obj.to(torch.int64) + color + obj_state) * vis).sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env_id,view,b", [
+    ("MiniGrid-DoorKey-8x8-v0", 7, 4096),
+    ("MiniGrid-DoorKey-8x8-v0", 7, 1001),  # a part block, bytes staged one a load
+    ("MiniGrid-DoorKey-16x16-v0", 7, 4096),  # 256 cells: read from device memory
+    ("MiniGrid-Empty-8x8-v0", 7, 4096),  # see_through_walls
+    ("BabyAI-GoToLocal-v0", 7, 4096),
+    ("MiniGrid-DoorKey-8x8-v0", 3, 4096),
+    ("MiniGrid-DoorKey-8x8-v0", 9, 4096),
+    ("MiniGrid-DoorKey-16x16-v0", 9, 2050),
+    ("MiniGrid-DoorKey-8x8-v0", 63, 1024),
+    ("MiniGrid-Empty-8x8-v0", 63, 1024),
+])
+def test_obs_kernel_equals_plain(card, env_id, view, b):
+    """``obs_checksum_lanes`` on the card (one launch of ``csrc/obs.cu``,
+    counted under its instance) adds the plain path's checksum into its
+    slot, bit for bit, and leaves the other slots alone."""
+    env, ls = _stepped_lanes(card, env_id, b, view, seed=view + b)
+    inst = tlanes.obs_instance(view)
+    before = profiling.counter("obs.launches"), profiling.counter(f"obs.launches.{inst}")
+    out = torch.full((3,), 5, dtype=torch.int64, device=card)
+    tlanes.obs_checksum_lanes(env.params, ls, out, torch.ones(1, dtype=torch.int64, device=card))
+    assert out.tolist() == [5, 5 + _plain_checksum(env.params, ls), 5]
+    assert (profiling.counter("obs.launches"), profiling.counter(f"obs.launches.{inst}")) == (
+        before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+def test_obs_kernel_refuses_other_inputs(card):
+    """A view wider than ``MAX_VIEW``, a plane of another type or a
+    strided plane raise before any launch."""
+    env, ls = _stepped_lanes(card, "MiniGrid-DoorKey-8x8-v0", 256, 7, seed=1)
+    out = torch.zeros(2, dtype=torch.int64, device=card)
+    t = torch.zeros(1, dtype=torch.int64, device=card)
+    launches = profiling.counter("obs.launches")
+    with pytest.raises(ValueError, match="exceeds"):
+        tlanes.obs_checksum_lanes(env.params.replace(agent_view_size=65), ls, out, t)
+    with pytest.raises(ValueError, match="contiguous"):
+        tlanes.obs_checksum_lanes(env.params, ls.replace(grid_obj=ls.grid_obj.to(torch.int32)),
+                                  out, t)
+    wide = torch.cat([ls.grid_color, ls.grid_color], dim=1)[:, ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        tlanes.obs_checksum_lanes(env.params, ls.replace(grid_color=wide), out, t)
+    assert profiling.counter("obs.launches") == launches
+    assert out.tolist() == [0, 0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("autoreset", ["pool", "regen"])
+def test_graphed_rollout_goes_through_obs_kernel(card, monkeypatch, autoreset):
+    """The graphed rollout launches ``csrc/obs.cu`` twice (the capture's
+    warm-up and the capture itself) and replays it every step; its result
+    equals, bit for bit, the eager loop's with the plain observation in
+    the kernel's place."""
+    env = port.make("MiniGrid-DoorKey-8x8-v0")
+    env.params = env.params.replace(max_steps=64)
+    b, horizon, rounds = 2048, 96, 3
+    g = torch.Generator(device=card).manual_seed(4)
+    launches = profiling.counter("obs.launches.v7")
+    graphed = tlanes.lane_rollout(env, g, b, horizon, autoreset, rounds, device=card)
+    assert profiling.counter("obs.launches.v7") == launches + 2
+
+    def plain(params, ls, out, t):
+        obj, color, obj_state, vis = tlanes.obs_lanes(params, ls)
+        out.index_add_(0, t, ((obj.to(torch.int64) + color + obj_state) * vis).sum().view(1))
+
+    monkeypatch.setattr(tlanes, "obs_checksum_lanes", plain)
+    g = torch.Generator(device=card).manual_seed(4)
+    pool = tlanes._lane_pool(env, g, b, autoreset, rounds, card)
+    eager = tlanes._lane_scan_eager(env, g, pool, b, horizon, autoreset, rounds)
+    assert profiling.counter("obs.launches.v7") == launches + 2
+    _assert_rollouts_equal(graphed, eager)
+    assert int(eager.episodes) > 0 and int(eager.obs_checksum) > 0
 
 
 @pytest.mark.cuda
