@@ -85,6 +85,15 @@ replayed ``epochs * num_minibatches`` times.  On the card the optimizer
 is Adam with ``capturable=True`` (its step count on the device), in the
 graphed and the eager update alike.
 
+Spans (``utils/profiling.py``): an update is ``ppo.update``, holding
+``ppo.collector``, ``ppo.bootstrap`` (the last observation's value) and
+``ppo.learner`` (GAE, the permutations, the minibatch steps and the
+metrics); each loop is ``ppo.<loop>.replay`` and each capture
+``ppo.<loop>.capture``.  The steps' parts are ``graph_span``s, stamped
+into a graph captured while tracing is on; a kept graph is captured again
+when tracing has been switched on or off since, so an untraced update
+replays no stamp.
+
 Run from the repository root (on the card by default)::
 
     python -m minigrid_dynamicprogramming_tpu_torch.models.ppo --env-id MiniGrid-Empty-8x8-v0
@@ -110,6 +119,7 @@ from minigrid_dynamicprogramming_tpu_torch.parallel.sharding import (
     rank_seed,
     replicated,
 )
+from minigrid_dynamicprogramming_tpu_torch.utils import profiling
 
 AUTORESETS = ("pool", "cached", "regen")
 # One lane engine serves both of JAX's collectors.
@@ -427,11 +437,15 @@ class PPO:
         return self._update(ts, eager=True)
 
     def _update(self, ts: TrainState, eager: bool) -> Tuple[TrainState, UpdateMetrics]:
-        c = self._run_collector(ts, eager)
-        env_state, last_obs = self._final(c)
-        with torch.no_grad():
-            _, last_value = ts.model(last_obs)
-        metrics = self._learn(ts, c.traj, last_value, eager)
+        with profiling.span("ppo.update"):
+            with profiling.span("ppo.collector"):
+                c = self._run_collector(ts, eager)
+            with profiling.span("ppo.bootstrap"):
+                env_state, last_obs = self._final(c)
+                with torch.no_grad():
+                    _, last_value = ts.model(last_obs)
+            with profiling.span("ppo.learner"):
+                metrics = self._learn(ts, c.traj, last_value, eager)
         return (
             ts._replace(
                 env_state=env_state,
@@ -497,33 +511,40 @@ class PPO:
         """One step of JAX's rollout body, in its order, on the carry
         ``c``: the observation of the carried lanes, the policy's draw, the
         env step and auto-reset.  It reads the model's parameters in
-        place, the pool and the generator, and writes nothing but ``c``."""
+        place, the pool and the generator, and writes nothing but ``c``.
+        Its parts are ``graph_span``s: ``ppo.collect.step`` holds
+        ``ppo.collect.observation``, ``ppo.collect.policy`` (the forward,
+        the draw and its log-probability) and ``ppo.collect.env`` (the env
+        step, auto-reset and the trajectory's writes)."""
         env, p = self.env, self.env.params
         t = c.t.view(1)
-        with torch.no_grad():
-            obs = env.observation_lanes(c.ls)
-            for k, x in obs.items():
-                c.traj.obs[k].index_copy_(0, t, x[None])
-            logits, value = model(obs)
-            action = sample_actions(logits, g)
-            logp = logits.log_softmax(-1).gather(1, action[:, None])[:, 0]
-            ls, reward, term = L.step_lanes_env(env, c.ls, action, g if self._hook_draws else None)
-            done = term | ls.truncated
-            reset_count = c.reset_count + done.to(torch.int32)
-            if pool is None:
-                fresh = L.to_lanes(env.generate(g, p, self.num_envs, self.device))
-            else:
-                rounds = pool.agent_dir.shape[0]
-                fresh = L._select_pool(pool, reset_count % rounds, rounds, self._skip)
-            ls = L._select_lanes(done, fresh, ls, self._skip)
-            for buf, x in zip(c.traj[1:], (action, logp, value, reward, done)):
-                buf.index_copy_(0, t, x[None])
-            # A field the step left alone is the carry's own tensor: its
-            # copy onto itself does nothing.
-            for name in L._FIELDS:
-                getattr(c.ls, name).copy_(getattr(ls, name))
-            c.reset_count.copy_(reset_count)
-            c.t.add_(1)
+        with torch.no_grad(), profiling.graph_span("ppo.collect.step"):
+            with profiling.graph_span("ppo.collect.observation"):
+                obs = env.observation_lanes(c.ls)
+            with profiling.graph_span("ppo.collect.policy"):
+                logits, value = model(obs)
+                action = sample_actions(logits, g)
+                logp = logits.log_softmax(-1).gather(1, action[:, None])[:, 0]
+            with profiling.graph_span("ppo.collect.env"):
+                ls, reward, term = L.step_lanes_env(env, c.ls, action, g if self._hook_draws else None)
+                done = term | ls.truncated
+                reset_count = c.reset_count + done.to(torch.int32)
+                if pool is None:
+                    fresh = L.to_lanes(env.generate(g, p, self.num_envs, self.device))
+                else:
+                    rounds = pool.agent_dir.shape[0]
+                    fresh = L._select_pool(pool, reset_count % rounds, rounds, self._skip)
+                ls = L._select_lanes(done, fresh, ls, self._skip)
+                for k, x in obs.items():
+                    c.traj.obs[k].index_copy_(0, t, x[None])
+                for buf, x in zip(c.traj[1:], (action, logp, value, reward, done)):
+                    buf.index_copy_(0, t, x[None])
+                # A field the step left alone is the carry's own tensor: its
+                # copy onto itself does nothing.
+                for name in L._FIELDS:
+                    getattr(c.ls, name).copy_(getattr(ls, name))
+                c.reset_count.copy_(reset_count)
+                c.t.add_(1)
 
     def _run_collector(self, ts: TrainState, eager: bool) -> _Rollout:
         """The rollout from ``ts`` in the carry: its step replayed as a
@@ -537,32 +558,53 @@ class PPO:
             self._collect_step(c, model, pool, g)
 
         if eager or not self._capture:
-            for _ in range(self.config.rollout_len):
-                step()
+            with profiling.span("ppo.collector.replay"):
+                for _ in range(self.config.rollout_len):
+                    step()
             return c
         # The warm-up steps the carry itself; it is loaded again after.  In
         # "regen" the pool is None.
-        graph = self._graph("collector", (model, *model.parameters(), pool, g), step, step, g)
+        self._graph("collector", (model, *model.parameters(), pool, g), step, step, g)
         self._load(c, ts)
-        for _ in range(self.config.rollout_len):
-            graph.replay()
+        self._replay("collector", self.config.rollout_len)
         return c
 
-    def _graph(self, name: str, reads: tuple, step, warmup, generator=None) -> torch.cuda.CUDAGraph:
-        """The graph ``name``, captured anew unless the one kept was
-        captured reading the same objects ``reads``."""
+    def _graph(self, name: str, reads: tuple, step, warmup, generator=None) -> None:
+        """Keeps the graph ``name``, captured anew unless the one kept was
+        captured reading the same objects ``reads``, with stamps in it
+        while tracing is on and without them while it is off.  A capture is
+        the span ``ppo.<name>.capture`` (``lanes.capture_in_span``); it
+        counts ``ppo.captures.<name>``."""
+        stamped = profiling.is_tracing()
         kept = self._graphs.pop(name, None)
-        if kept is not None and _same(reads, kept[1]):
+        if kept is not None and _same(reads, kept[1]) and (kept[2] is not None) == stamped:
             self._graphs[name] = kept
-            return kept[0]
+            return
         if kept is not None:
             kept[0].reset()
-        graph, self.capture_ms[name], self.pool_bytes[name] = L.capture_step(
-            step, warmup, self.device, generator
-        )
+        if stamped:
+            profiling.load_stamps(self.device)
+
+        def capture(stamps):
+            graph, self.capture_ms[name], self.pool_bytes[name] = L.capture_step(
+                step, warmup, self.device, generator, stamps
+            )
+            return graph, self.pool_bytes[name]
+
+        graph, stamps = L.capture_in_span(f"ppo.{name}.capture", self.device, capture)
         self.captures[name] += 1
-        self._graphs[name] = (graph, reads)
-        return graph
+        profiling.count(f"ppo.captures.{name}")
+        self._graphs[name] = (graph, reads, stamps)
+
+    def _replay(self, name: str, n: int) -> None:
+        """The kept graph ``name`` replayed ``n`` times (``ppo.<name>.replay``),
+        then its stamps' records, if it holds stamps."""
+        graph, _, stamps = self._graphs[name]
+        with profiling.span(f"ppo.{name}.replay"):
+            for _ in range(n):
+                graph.replay()
+            if stamps is not None:
+                stamps.emit()
 
     # -- the learner ---------------------------------------------------------
     def _minibatch_carry(self, ts: TrainState, traj: Trajectory,
@@ -613,25 +655,32 @@ class PPO:
         the group's ranks), the global-norm clip and Adam; the loss terms
         written at ``k``.  Every rank runs it alike, on ``T * S`` rows; it
         reads and writes only tensors of fixed address (the model's, the
-        optimizer's, the carry's and the share's)."""
+        optimizer's, the carry's and the share's).  Its parts are
+        ``graph_span``s: ``ppo.minibatch`` holds ``ppo.forward`` (the
+        gather, the forward and the loss), ``ppo.backward`` (with the
+        group's all-reduce) and ``ppo.optimizer`` (the clip and Adam)."""
         cfg, T, per = self.config, self.config.rollout_len, self.num_envs
         k = mb.k.view(1)
-        envs = mb.perms.view(-1, cfg.num_envs // cfg.num_minibatches).index_select(0, k)[0]
-        envs = envs.index_select(0, self._share)
-        # Their rows of the batch, step-major: (T, S) -> (T * S,).
-        steps = torch.arange(T, device=envs.device)[:, None] * per
-        rows = ((envs // per) * (T * per) + envs % per + steps).flatten()
-        batch = _map_batch(lambda x: x.index_select(0, rows), mb.batch)
-        loss, aux = ppo_loss(model, cfg, batch, self.group, self._row_weight)
-        params = list(model.parameters())
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        if self.group is not None:
-            all_reduce_grads_(params, self.group)
-        clip_by_global_norm_(params, cfg.max_grad_norm)
-        optimizer.step()
-        mb.terms.index_copy_(0, k, torch.stack([loss.detach(), *(a.detach() for a in aux)])[None])
-        mb.k.add_(1)
+        with profiling.graph_span("ppo.minibatch"):
+            with profiling.graph_span("ppo.forward"):
+                envs = mb.perms.view(-1, cfg.num_envs // cfg.num_minibatches).index_select(0, k)[0]
+                envs = envs.index_select(0, self._share)
+                # Their rows of the batch, step-major: (T, S) -> (T * S,).
+                steps = torch.arange(T, device=envs.device)[:, None] * per
+                rows = ((envs // per) * (T * per) + envs % per + steps).flatten()
+                batch = _map_batch(lambda x: x.index_select(0, rows), mb.batch)
+                loss, aux = ppo_loss(model, cfg, batch, self.group, self._row_weight)
+            params = list(model.parameters())
+            with profiling.graph_span("ppo.backward"):
+                optimizer.zero_grad(set_to_none=True)
+                loss.backward()
+                if self.group is not None:
+                    all_reduce_grads_(params, self.group)
+            with profiling.graph_span("ppo.optimizer"):
+                clip_by_global_norm_(params, cfg.max_grad_norm)
+                optimizer.step()
+            mb.terms.index_copy_(0, k, torch.stack([loss.detach(), *(a.detach() for a in aux)])[None])
+            mb.k.add_(1)
 
     def _fixed_traj(self, traj: Trajectory) -> Trajectory:
         """The trajectory at the carry's addresses: ``traj`` copied into
@@ -662,15 +711,16 @@ class PPO:
             self._learn_step(mb, model, optimizer)
 
         if not graphed:
-            for _ in range(n_steps):
-                step()
+            with profiling.span("ppo.learner.replay"):
+                for _ in range(n_steps):
+                    step()
         else:
-            graph = self._graph("learner", self._learner_reads(model, optimizer), step,
-                                lambda: self._warm_up_learner(step, mb, model, optimizer))
+            self._graph("learner", self._learner_reads(model, optimizer), step,
+                        lambda: self._warm_up_learner(step, mb, model, optimizer))
             # A first capture made Adam's state, which the graph now reads.
-            self._graphs["learner"] = (graph, self._learner_reads(model, optimizer))
-            for _ in range(n_steps):
-                graph.replay()
+            graph, _, stamps = self._graphs["learner"]
+            self._graphs["learner"] = (graph, self._learner_reads(model, optimizer), stamps)
+            self._replay("learner", n_steps)
         return self._metrics(traj, mb)
 
     def _metrics(self, traj: Trajectory, mb: _Minibatches) -> UpdateMetrics:

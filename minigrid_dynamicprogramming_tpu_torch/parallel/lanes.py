@@ -788,6 +788,23 @@ def capture_step(step, warmup, device, generator: Optional[torch.Generator] = No
     return graph, capture_ms, torch.cuda.memory_reserved(device) - reserved
 
 
+def capture_in_span(name: str, device, capture):
+    """``capture(stamps)``, which returns ``(graph, pool_bytes)``, inside the
+    span ``name``.  While tracing is on, ``stamps`` is a new
+    ``GraphStamps`` that the graph's ``graph_span``s stamp into, and the
+    span carries the pool's bytes, the graph's nodes less the stamps
+    (``graph_nodes``) and the stamps (``stamp_nodes``); while it is off,
+    ``stamps`` is None.  Returns ``(graph, stamps)``: the caller replays the
+    graph, then calls ``stamps.emit()`` where it is not None."""
+    with profiling.span(name) as rec:
+        stamps = None if rec is None else profiling.GraphStamps(device)
+        graph, pool_bytes = capture(stamps)
+        if rec is not None:
+            rec.attrs.update(pool_bytes=pool_bytes, graph_nodes=stamps.graph_nodes,
+                             stamp_nodes=stamps.kernels)
+    return graph, stamps
+
+
 class _Scan:
     """One rollout's scan: ``_lane_scan``'s set-up, and its step, which
     reads the pool, the given actions and the generator, and writes
@@ -917,18 +934,12 @@ class _Scan:
         """The step captured once (``lanes.capture``) and replayed
         ``horizon`` times (``lanes.replay``); the graph and its pool are
         freed before the call returns.  While tracing is on the capture
-        holds the step's stamps, and ``lanes.capture`` carries the pool's
-        bytes, the graph's nodes less the stamps (``graph_nodes``) and the
-        stamps (``stamp_nodes``).  A horizon of 0 captures nothing (its
-        outputs have no slot to write)."""
+        holds the step's stamps, and ``lanes.capture`` carries the
+        attributes of ``capture_in_span``.  A horizon of 0 captures nothing
+        (its outputs have no slot to write)."""
         if not self.horizon:
             return
-        with profiling.span("lanes.capture") as rec:
-            stamps = None if rec is None else profiling.GraphStamps(self.device)
-            graph, pool_bytes = self.capture(stamps)
-            if rec is not None:
-                rec.attrs.update(pool_bytes=pool_bytes, graph_nodes=stamps.graph_nodes,
-                                 stamp_nodes=stamps.kernels)
+        graph, stamps = capture_in_span("lanes.capture", self.device, self.capture)
         try:
             with profiling.span("lanes.replay"):
                 for _ in range(self.horizon):

@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import copy
 import ctypes
 import functools
 import itertools
@@ -328,6 +329,12 @@ class GraphStamps:
         self._stamp(slot, 1)
 
     def emit(self) -> None:
+        """The records read a copy of the sums taken now, and the buffer is
+        zeroed: a graph kept across calls counts each call's replays
+        afresh."""
+        frozen = copy.copy(self)
+        frozen.buf, frozen._host = self.buf.clone(), None
+        self.buf.zero_()
         parent = RECORDER.innermost()
         now = time.time_ns()
         ids = [next(RECORDER.ids) for _ in self.slots]
@@ -336,7 +343,7 @@ class GraphStamps:
             RECORDER.add(Record(
                 ids[slot], name,
                 ids[up] if up is not None else (parent.id if parent else None), request,
-                parent.start_ns if parent else now, {"graph": True}, now, 0, (self, slot),
+                parent.start_ns if parent else now, {"graph": True}, now, 0, (frozen, slot),
             ))
 
     def totals(self, slot: int) -> tuple:

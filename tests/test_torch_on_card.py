@@ -1029,6 +1029,46 @@ def test_generate_graph_equals_eager(card, env_id):
 
 
 @pytest.mark.cuda
+def test_traced_ppo_update_stamps_its_steps(card):
+    """GoToDoor's graphed update under ``tracing()``: both kept graphs are
+    captured again with stamps; each update's records count its own
+    replays (32 collector steps, 8 minibatch steps), each step's parts
+    under it and within its time; an untraced update captures both again
+    without stamps and keeps no record."""
+    ppo = _ppo_on_card(card, _PPO_IDS[0])
+    ts, _ = ppo.update(ppo.init(0))
+    assert ppo.captures == {"collector": 1, "learner": 1}
+    profiling.clear()
+    with profiling.tracing():
+        for n in range(2):
+            ts, _ = ppo.update(ts)
+            recs = profiling.records()
+            profiling.clear()
+            assert ppo.captures == {"collector": 2, "learner": 2}
+            by_id = {r["id"]: r for r in recs}
+            for loop, name, count, parts in (
+                ("collector", "ppo.collect.step", 32,
+                 {"ppo.collect.observation", "ppo.collect.policy", "ppo.collect.env"}),
+                ("learner", "ppo.minibatch", 8, {"ppo.forward", "ppo.backward", "ppo.optimizer"}),
+            ):
+                (step,) = [r for r in recs if r["name"] == name and r["attrs"].get("graph")]
+                assert by_id[step["parent"]]["name"] == f"ppo.{loop}.replay"
+                assert step["count"] == count and step["device_ms"] > 0, (n, name)
+                children = [r for r in recs if r["parent"] == step["id"]]
+                assert {r["name"] for r in children} == parts
+                assert all(r["count"] == count for r in children)
+                assert sum(r["device_ms"] for r in children) <= step["device_ms"]
+                caps = [r for r in recs if r["name"] == f"ppo.{loop}.capture"]
+                if n == 0:
+                    assert caps and caps[0]["attrs"]["graph_nodes"] > 0
+                else:
+                    assert not caps
+    ppo.update(ts)
+    assert ppo.captures == {"collector": 3, "learner": 3}
+    assert profiling.records() == []
+
+
+@pytest.mark.cuda
 def test_ppo_captures_once_per_train_state(card, tmp_path):
     """Seven updates capture each graph once; an optimizer state restored
     from a checkpoint (new tensors) captures the learner again, a

@@ -67,9 +67,10 @@ class _Replays:
         pass
 
 
-def _capture_on_cpu(step, warmup, device, generator=None):
+def _capture_on_cpu(step, warmup, device, generator=None, stamps=None):
     """``lanes.capture_step`` without the card: the warm-up, the generator
-    put back, then a graph whose replay calls ``step``."""
+    put back, then a graph whose replay calls ``step`` (tracing is off, so
+    ``stamps`` is None)."""
     saved = None if generator is None else generator.get_state()
     warmup()
     if generator is not None:
