@@ -28,6 +28,16 @@ Phases (any failure raises, exits nonzero and prints no "ok" line):
    replayed, as the rollout runs it), its bound by bytes, the plain
    version's ms eager and captured the same way; its launches in phase
    2's rollout (the capture's warm-up and the capture: 2).
+2c. the step kernel: ``step_lanes_kernel`` (``csrc/step.cu``, the rollout
+   step's transition, autoreset and write-back in one launch, in place) at
+   the pool cell's shape (DoorKey-8x8, 65536 lanes, four pool rounds) and
+   at the regen cell's (a fresh generated batch, batch-first), the lanes'
+   step counts spread over the limit: STEP_CHECK_STEPS steps by the kernel
+   step and by the plain step on the same carry, every carry and
+   generator state equal bit for bit; the kernel alone (100 launches in a
+   CUDA graph) beside its bound by bytes (``step_bytes``); in the pool
+   mode the whole step, kernel path and plain path, in a graph; its
+   launches in phase 2's rollout (2).
 3. B1: ``tabular.solve`` on 1024 DoorKey-8x8 layouts, 128 sweeps, at
    max_doors 1 and 2; the kernel's V must equal the plain version's
    exactly.  Then the kernel's other two ways of holding walkability, also
@@ -284,6 +294,7 @@ FAMILY_RUNS = {
 FAMILY_OTHER = (4096, 64, 2)
 CPU_LANES = 256  # lanes of each family's rollout replayed on the CPU
 VIEW_STEPS, VIEW_CHECK_EVERY = 40, 5  # phase 2b: steps taken, and how often checked
+STEP_CHECK_STEPS = 40  # phase 2c: steps held against the plain step
 REPLAY_WORKERS = 5  # processes for the replays
 DYN_OBS_STEPS = 64  # steps of the DynamicObstacles reward and ball checks
 # The RoomGrid families (phase 8), by id prefix; (B, T, pool rounds) of the
@@ -807,6 +818,118 @@ def obs_kernel(env, L, ptxas, launches: float) -> dict:
         flush=True,
     )
     return row
+
+
+def step_bytes(params, b: int, resets: float) -> int:
+    """The least bytes one kernel step moves at DoorKey's flags (no box,
+    mark, aux or mission plane): each lane reads its int32 action, its
+    position, direction and step count (int32) and what it carries (two
+    u8), and one 32-byte sector of each of the three planes at its front
+    cell; it writes its direction, step count, reward (four bytes each) and
+    its two done flags.  Each of ``resets`` lanes reads its reset count and
+    fresh layout (three u8 planes and its scalars) and writes them.  The
+    front cell's rare writes, and a move's position, are left out."""
+    hw = params.height * params.width
+    lane = 4 + 4 * 4 + 2 + 3 * 32 + 3 * 4 + 2
+    # Planes; x, y, dir; carried; its marks; step count; flags; reset count.
+    fresh = 3 * hw + 3 * 4 + 4 * 1 + 4 + 4 + 2 + 4
+    return int(b * lane + resets * 2 * fresh)
+
+
+def step_kernel(env, L, ptxas, launches: float) -> list:
+    """Phase 2c: ``step_lanes_kernel`` (``csrc/step.cu``) against the plain
+    step at ROLLOUT_B lanes of DoorKey-8x8, in "pool" (POOL_ROUNDS rounds)
+    and "regen" (this step's generated batch), then timed alone in a CUDA
+    graph beside its bound by bytes (``step_bytes``), and, in "pool", the
+    whole step of each path in a graph.  ``launches``: its launches in
+    phase 2's rollout.  Returns the kernels-line rows."""
+    dev = torch.device(DEVICE)
+    params, b = env.params, ROLLOUT_B
+    rows = []
+    for mode in ("pool", "regen"):
+        g = gen(6)
+        pool = L._lane_pool(env, g, b, mode, POOL_ROUNDS, dev)
+        scan = L._Scan(env, g, pool, b, STEP_CHECK_STEPS, mode, POOL_ROUNDS, None)
+        require(scan.path == "kernel", "DoorKey-8x8 takes the kernel step on the card")
+        c = scan.carry
+        # Mid-rollout lanes: about one in max_steps reaches the limit a step.
+        c.ls.step_count.copy_(torch.randint(0, params.max_steps, (b,), generator=g, device=dev,
+                                            dtype=torch.int32))
+        plain, kernel = c.clone(), c.clone()
+        for i in range(STEP_CHECK_STEPS):
+            start = g.get_state()
+            scan.step_plain(plain)
+            after = g.get_state()
+            g.set_state(start)
+            scan.step_kernel(kernel)
+            require(torch.equal(g.get_state(), after), f"step {mode} {i}: the generator's state")
+            for n in L._FIELDS:
+                require(torch.equal(getattr(kernel.ls, n), getattr(plain.ls, n)),
+                        f"step {mode} {i}: {n} equal")
+            for n in ("reset_count", "t", "dones", "wins", "ends", "checksums"):
+                require(torch.equal(getattr(kernel, n), getattr(plain, n)), f"step {mode} {i}: {n}")
+            require(torch.equal(kernel.rewards[:i + 1], plain.rewards[:i + 1]),
+                    f"step {mode} {i}: reward")
+        resets_checked = int(plain.dones.sum())
+        require(resets_checked > 0, f"step {mode}: lanes reset")
+
+        # The kernel alone: a fixed fresh source, 100 launches of 100 action
+        # draws, one slot; the lanes go on from the checked state, and reset
+        # at the checked steps' rate.
+        fresh = pool if mode == "pool" else env.generate(g, params, b, dev)
+        acts = torch.randint(0, env.action_dim, (100, b), generator=g, device=dev,
+                             dtype=torch.int32)
+        t = torch.zeros(1, dtype=torch.int64, device=dev)
+        counts = torch.zeros(3, 1, dtype=torch.int64, device=dev)
+        calls = [0]
+        resets = resets_checked / STEP_CHECK_STEPS
+
+        def launch(c=kernel):
+            i = calls[0] % len(acts)
+            calls[0] += 1
+            L.step_lanes_kernel(params, c.ls, c.reset_count, fresh, scan.rounds, acts[i], t,
+                                scan.reward, counts[0], counts[1], counts[2], mode)
+
+        kernel_ms = graphed_ms(launch)
+        bound_ms, bound_by = bound(step_bytes(params, b, resets), 0)
+        row = {
+            "name": f"step_{mode}", "route": "cuda", "source": f"{CSRC}/step.cu", "replaces": None,
+            "launches": launches if mode == "pool" else None, "max_abs_err": 0, "ms": kernel_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "kernel_only_ms": kernel_ms, "lanes": b, "checked_steps": STEP_CHECK_STEPS,
+            "checked_resets": resets_checked, "resets_per_step": resets,
+            "design": "a thread a lane, 128 lanes a block, lane-major; the step, its autoreset "
+            "and its write-back in place; the front cell stored only where it changes; each "
+            "warp copies its done lanes' fresh layouts, a round's loads before its stores; one "
+            "atomic a block and count",
+            "compiled": compiled(ptxas, f"step_kernelILb{int(mode == 'regen')}E"),
+        }
+        if mode == "pool":
+            # Whole steps in a graph, given actions at slot 0: the kernel path
+            # and the plain one (transition, select, write-back, four sums).
+            timed = L._Scan(env, None, pool, b, 1, mode, POOL_ROUNDS, acts[:1].contiguous())
+            tc = kernel.clone()
+
+            def whole(step):
+                tc.t.zero_()
+                step(tc)
+
+            row["step_ms"] = graphed_ms(lambda: whole(timed.step_kernel))
+            row["plain_step_ms"] = graphed_ms(lambda: whole(timed.step_plain), n=4)
+            row["plain_ms"] = row["plain_step_ms"]
+        print(
+            f"[step {mode}] B={b} DoorKey-8x8: kernel equals plain bit for bit over "
+            f"{STEP_CHECK_STEPS} steps ({resets_checked} resets); kernel {kernel_ms:.5f} ms in a "
+            f"graph ({resets:.1f} resets a launch), bound {bound_ms:.5f} ms by {bound_by} "
+            f"({kernel_ms / bound_ms:.1f}x)"
+            + (f"; whole step {row['step_ms']:.5f} ms, plain step {row['plain_step_ms']:.5f} ms"
+               if mode == "pool" else "")
+            + f"; {row['compiled']}",
+            flush=True,
+        )
+        rows.append(row)
+        del scan, plain, kernel, pool, fresh
+    return rows
 
 
 def replay_summary(L, params, final, resets) -> dict:
@@ -2503,6 +2626,7 @@ def run(args, t_start: float, workers) -> int:
     g_pool = torch.Generator(device=DEVICE).set_state(g.get_state())
     before = capture_counts()
     obs_before = profiling.counter("obs.launches")
+    step_before = profiling.counter("lanes.step_kernel.launches")
     t0 = time.perf_counter()
     res, _ = drive(
         "rollout",
@@ -2513,6 +2637,8 @@ def run(args, t_start: float, workers) -> int:
     rollout_s = time.perf_counter() - t0
     obs_launches = profiling.counter("obs.launches") - obs_before
     require(obs_launches == 2, "the rollout launched the observation kernel in its capture")
+    step_launches = profiling.counter("lanes.step_kernel.launches") - step_before
+    require(step_launches == 2, "the rollout launched the step kernel in its capture")
     capture = captured_since(before)
     require(capture["captures"] == 1, "the rollout captured its step as one CUDA graph")
     capture_ms, graph_pool_bytes = capture["capture_ms"], capture["graph_pool_bytes"]
@@ -2572,6 +2698,8 @@ def run(args, t_start: float, workers) -> int:
 
     # 2b. The observation kernel at the headline's shape.
     kernels.append(obs_kernel(env, L, ptxas, obs_launches))
+    # 2c. The step kernel at the rollout cells' shapes.
+    kernels.extend(step_kernel(env, L, ptxas, step_launches))
 
     # 3. B1 through solve, at one and two door slots, on the same layouts.
     solved = {}

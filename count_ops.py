@@ -16,7 +16,10 @@ but launches nothing) and of its parts: the core transition, the id's
 post-step hook (the BabyAI verifier), the observation (plain here; on a card
 the step launches it and its checksum as one kernel, ``csrc/obs.cu``, so
 the step's count there is its count here less ``obs_checksum_lanes``'s,
-plus one).  Then those of one sweep of the two-key
+plus one; for an id with no hook, such as DoorKey, the card's step is
+instead ``csrc/step.cu`` in the transition's, select's and write-back's
+place: the action draw, that kernel, the observation kernel, the
+reward's sum into its slot and the step index, about six launches).  Then those of one sweep of the two-key
 domain on an UnlockToUnlock layout, and how many of them write a full
 (N, K1, K2, Cd, H, W) block; then PPO's on BabyAI-GoToDoor: the
 collector's step and the minibatch step (each one CUDA graph on the

@@ -25,7 +25,11 @@ CPU the same step runs in a Python loop (``_lane_scan_eager``).  On a
 CUDA device the step's observation and its checksum are one hand-written
 kernel (``csrc/obs.cu``, :func:`obs_checksum_lanes`); everywhere else,
 and in ``obs_lanes`` and ``obs_image_lanes`` on any device, they are
-plain code.
+plain code.  On a CUDA device, for a family with no hook, the step's
+transition, autoreset and write-back are one more (``csrc/step.cu``,
+:func:`step_lanes_kernel`, in place; :func:`step_path` decides); hooked
+families, BabyAI and the CPU step through the plain ``step_lanes_env``
+and the autoreset select, which PPO's collector also calls.
 """
 
 from __future__ import annotations
@@ -521,6 +525,169 @@ def _obs_launch():
     return fn
 
 
+_I32_FIELDS = frozenset({
+    "marks", "vmarks", "agent_x", "agent_y", "agent_dir", "carrying_marks", "step_count", "aux",
+    "mission",
+})
+# csrc/step.cu's StepArgs.flags.
+_STEP_FLAGS = {"no_boxes": 1, "no_marks": 2, "fixed_mission": 4, "fixed_aux": 8}
+_BATCH_FIRST = 16
+
+
+class _Fields(ctypes.Structure):
+    """``csrc/step.cu``'s ``LaneFields``: a pointer a field, in ``_FIELDS``'
+    order."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in _FIELDS]
+
+
+class _StepArgs(ctypes.Structure):
+    """``csrc/step.cu``'s ``StepArgs``, field for field."""
+
+    _fields_ = [
+        ("cur", _Fields), ("fresh", _Fields),
+        *((name, ctypes.c_void_p) for name in (
+            "actions", "t", "reset_count", "reward", "dones", "wins", "ends")),
+        ("action_row", ctypes.c_int64),
+        *((name, ctypes.c_int32) for name in (
+            "action_bytes", "B", "H", "W", "max_steps", "rounds", "n_aux", "n_mission", "flags")),
+    ]
+
+
+def _field_dtype(name: str) -> torch.dtype:
+    if name in _I32_FIELDS:
+        return torch.int32
+    return torch.bool if name in ("terminated", "truncated") else _U8
+
+
+def step_path(env: Environment, device: torch.device) -> str:
+    """The step that ``_Scan`` takes, from the env record and the device
+    alone: ``"kernel"`` (``csrc/step.cu``, :func:`step_lanes_kernel`) on a
+    CUDA device for a family with no hook and a fixed step limit, else
+    ``"plain"`` (``step_lanes_env`` and the plain autoreset select)."""
+    hooks = (env.action_map, env.pre_step_lanes, env.post_step_lanes)
+    fixed_limit = env.params.opt("dynamic_max_steps_slot") is None
+    if device.type == "cuda" and all(h is None for h in hooks) and fixed_limit:
+        return "kernel"
+    return "plain"
+
+
+def step_lanes_kernel(
+    params: EnvParams,
+    ls: LaneState,
+    reset_count: torch.Tensor,
+    fresh,
+    rounds: int,
+    actions: torch.Tensor,
+    t: torch.Tensor,
+    reward: torch.Tensor,
+    dones: torch.Tensor,
+    wins: torch.Tensor,
+    ends: torch.Tensor,
+    autoreset: str,
+) -> None:
+    """One step of the lanes ``ls``, in place, as one launch of
+    ``csrc/step.cu`` on the current stream: :func:`step_lanes`' transition
+    and truncation, then, in each lane that is done, ``reset_count``
+    incremented and the lane's fresh layout over every field but the
+    family's fixed ones (``_skip_fields``), as ``_select_pool`` and
+    ``_select_lanes`` give it.
+
+    ``fresh`` is a lane-major pool of ``rounds`` rounds, (R, ..., B) ("pool"
+    and "cached": round ``reset_count % rounds``), or a batch-first
+    :class:`EnvState` of B layouts ("regen").  ``actions`` is (T, B), read at
+    row ``t``, or one step's (B,), int32 or int64; ``t`` a one-element int64
+    index on the device.  The per-lane reward is written to ``reward`` (B,)
+    float32; the lanes done, terminated, and terminated with a positive
+    reward are added into ``dones[t]``, ``ends[t]`` and ``wins[t]`` (int64).
+
+    It checks every tensor it passes (device, dtype, shape, contiguity) and
+    raises on any other input, and on a step limit set per episode; there is
+    no fallback.  Counters ``lanes.step_kernel.launches`` and
+    ``lanes.step_kernel.launches.<autoreset>``."""
+    if params.opt("dynamic_max_steps_slot") is not None:
+        raise ValueError("step_lanes_kernel: a step limit set per episode is not in the kernel")
+    batch_first = isinstance(fresh, EnvState)
+    if batch_first != (autoreset == "regen"):
+        raise ValueError("step_lanes_kernel: 'regen' takes a batch-first EnvState, the other "
+                         f"modes a lane-major pool; got {type(fresh).__name__} in {autoreset!r}")
+    h, w, b = params.height, params.width, ls.agent_x.shape[0]
+    n_aux, n_mission = ls.aux.shape[0], ls.mission.shape[0]
+    dev = ls.grid_obj.device
+    if dev.type != "cuda":
+        raise ValueError(f"step_lanes_kernel: the lanes are on {dev}, not a CUDA device")
+
+    def lane_shape(name):
+        n = {"aux": n_aux, "mission": n_mission}.get(name, h * w if name in _PLANES else None)
+        return (b,) if n is None else (n, b)
+
+    args = [(f"ls.{n}", getattr(ls, n), _field_dtype(n), lane_shape(n)) for n in _FIELDS]
+    if batch_first:
+        for f in dataclasses.fields(EnvState):
+            x = getattr(fresh, f.name)
+            shape = {"agent_pos": (b, 2), "aux": (b, n_aux), "mission": (b, n_mission)}.get(
+                f.name, (b, h, w) if f.name in _PLANES else (b,))
+            dtype = torch.int32 if f.name == "agent_pos" else _field_dtype(f.name)
+            args.append((f"fresh.{f.name}", x, dtype, shape))
+    else:
+        args += [(f"fresh.{n}", getattr(fresh, n), _field_dtype(n), (rounds, *lane_shape(n)))
+                 for n in _FIELDS]
+    if actions.dtype not in (torch.int32, torch.int64) or rounds < 1:
+        raise ValueError(f"step_lanes_kernel: {actions.dtype} actions, {rounds} rounds")
+    horizon = dones.numel()
+    args += [
+        ("actions", actions, actions.dtype, (b,) if actions.dim() < 2 else (actions.shape[0], b)),
+        ("t", t, torch.int64, (1,)), ("reset_count", reset_count, torch.int32, (b,)),
+        ("reward", reward, torch.float32, (b,)), ("dones", dones, torch.int64, (horizon,)),
+        ("wins", wins, torch.int64, (horizon,)), ("ends", ends, torch.int64, (horizon,)),
+    ]
+    for name, x, dtype, shape in args:
+        if (x.device != dev or x.dtype != dtype or tuple(x.shape) != shape
+                or not x.is_contiguous()):
+            raise ValueError(
+                f"step_lanes_kernel: {name}: want contiguous {dtype} {shape} on {dev}, got "
+                f"{x.dtype} {tuple(x.shape)} on {x.device} (contiguous: {x.is_contiguous()})"
+            )
+
+    st = _StepArgs()
+    for name in _FIELDS:
+        setattr(st.cur, name, getattr(ls, name).data_ptr())
+        pos = batch_first and name in ("agent_x", "agent_y")  # agent_pos (B, 2): x, then y
+        src = fresh.agent_pos if pos else getattr(fresh, name)
+        setattr(st.fresh, name, src.data_ptr() + 4 * (pos and name == "agent_y"))
+    for name, x in (("actions", actions), ("t", t), ("reset_count", reset_count),
+                    ("reward", reward), ("dones", dones), ("wins", wins), ("ends", ends)):
+        setattr(st, name, x.data_ptr())
+    st.action_row = b if actions.dim() == 2 else 0
+    st.action_bytes = actions.element_size()
+    st.B, st.H, st.W, st.max_steps, st.rounds = b, h, w, params.max_steps, rounds
+    st.n_aux, st.n_mission = n_aux, n_mission
+    st.flags = sum(bit for k, bit in _STEP_FLAGS.items() if params.opt(k, False)) + (
+        _BATCH_FIRST if batch_first else 0)
+    with torch.cuda.device(dev):
+        err = _step_launch()(ctypes.byref(st), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"step_lanes_launch failed: CUDA error {err}")
+    profiling.count("lanes.step_kernel.launches")
+    profiling.count(f"lanes.step_kernel.launches.{autoreset}")
+
+
+@functools.cache
+def _step_launch():
+    """``csrc/step.cu``'s entry point, built and loaded at its first call;
+    raises if its ``StepArgs`` is not the size of :class:`_StepArgs`."""
+    lib = _kernels.library("step")
+    if lib.step_args_bytes() != ctypes.sizeof(_StepArgs):
+        raise RuntimeError(
+            f"csrc/step.cu's StepArgs is {lib.step_args_bytes()} bytes, its mirror "
+            f"{ctypes.sizeof(_StepArgs)}"
+        )
+    fn = lib.step_lanes_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def obs_image_lanes(params: EnvParams, ls: LaneState) -> torch.Tensor:
     """(B, view, view, 3) uint8 batch in the reference's ``[x, y]`` layout."""
     v = params.agent_view_size
@@ -645,7 +812,9 @@ def lane_rollout(
     ``(horizon, batch_size)`` integer tensor used instead of the draws.
     The observation encoder runs every step and is folded into
     ``obs_checksum``, so the steps/s include observations.  On a CUDA
-    device the step runs as one captured CUDA graph (``_lane_scan``).
+    device the step runs as one captured CUDA graph (``_lane_scan``); a
+    family with no hook steps there through ``csrc/step.cu``
+    (:func:`step_path`), a rank of a group on its own lanes.
 
     With a ``group`` (``parallel/sharding.py``) each rank runs its
     ``batch_size / N`` lanes on ``group.device`` (``device`` is not read),
@@ -735,9 +904,9 @@ class _Carry(NamedTuple):
     reset_count: torch.Tensor  # (B,) i32
     t: torch.Tensor  # () i64
     rewards: torch.Tensor  # (T,) f32
-    dones: torch.Tensor  # (T,) i64
-    wins: torch.Tensor  # (T,) i64
-    ends: torch.Tensor  # (T,) i64
+    dones: torch.Tensor  # (T,) i64, zeroed: the kernel step adds into slot t
+    wins: torch.Tensor  # (T,) i64, zeroed
+    ends: torch.Tensor  # (T,) i64, zeroed
     checksums: torch.Tensor  # (T,) i64, zeroed: the step adds into slot t
 
     def clone(self) -> "_Carry":
@@ -808,9 +977,12 @@ def capture_in_span(name: str, device, capture):
 class _Scan:
     """One rollout's scan: ``_lane_scan``'s set-up, and its step, which
     reads the pool, the given actions and the generator, and writes
-    nothing but a carry's tensors.  Its one host-side choice is the
-    step's own shape (the mode, the skipped fields, the hooks), so the
-    step can be captured once and replayed."""
+    nothing but a carry's tensors (and, on the kernel path, its reward
+    buffer).  Its one host-side choice is the step's own shape (the path,
+    the mode, the skipped fields, the hooks), so the step can be captured
+    once and replayed.  ``path`` is :func:`step_path`'s: ``step`` runs
+    ``step_kernel`` or ``step_plain``, two steps that share no logic and
+    give the same carry bit for bit."""
 
     def __init__(
         self,
@@ -837,37 +1009,90 @@ class _Scan:
         hooked = env.pre_step_lanes is not None or env.post_step_lanes is not None
         if hooked and env.hook_rng and generator is None:
             raise ValueError(f"{env.env_id}: its hooks draw; pass a generator")
+        self.path = step_path(env, dev)
+        if self.path == "kernel":
+            # The kernel reads the pool and the actions where they lie, and a
+            # rank's slice of a group's lanes (``shard_lanes``) is strided.
+            pool = LaneState(**{name: getattr(pool, name).contiguous() for name in _FIELDS})
+            actions = None if actions is None else actions.contiguous()
         self.env, self.generator, self.pool = env, generator, pool
         self.batch_size, self.horizon, self.autoreset = batch_size, horizon, autoreset
         self.hook_gen = generator if hooked and env.hook_rng else None
         self.actions = None if actions is None else actions.to(dev)
         self.skip = _skip_fields(env.params)
         self.init_ls = LaneState(**{name: getattr(pool, name)[0] for name in _FIELDS})
+        # The kernel step's per-lane reward, summed into the carry's slot.
+        self.reward = (torch.empty(batch_size, dtype=torch.float32, device=dev)
+                       if self.path == "kernel" else None)
 
         def empty(dtype):
             return torch.empty(horizon, dtype=dtype, device=dev)
 
+        def zeros():
+            return torch.zeros(horizon, dtype=torch.int64, device=dev)
+
         # The carried state is a copy: the step writes into it, and in
         # "cached" mode it reads the pool's round 0 as its fresh layouts
         # ("regen" generates them every step).  The step adds its
-        # observation checksum into its slot, so the slots start at 0.
+        # observation checksum (and, on the kernel path, its counts) into
+        # its slot, so those slots start at 0.
         self.carry = _Carry(
             ls=_clone_lanes(self.init_ls),
             reset_count=torch.zeros(batch_size, dtype=torch.int32, device=dev),
             t=torch.zeros((), dtype=torch.int64, device=dev),
             rewards=empty(torch.float32),
-            dones=empty(torch.int64),
-            wins=empty(torch.int64),
-            ends=empty(torch.int64),
-            checksums=torch.zeros(horizon, dtype=torch.int64, device=dev),
+            dones=zeros(),
+            wins=zeros(),
+            ends=zeros(),
+            checksums=zeros(),
         )
 
     def step(self, c: _Carry) -> None:
-        """One step of JAX's scan body, in its order, on the carry ``c``.
-        Its parts are ``graph_span``s: ``lanes.step`` holds
+        """One step of JAX's scan body on the carry ``c``, by ``path``."""
+        if self.path == "kernel":
+            self.step_kernel(c)
+        else:
+            self.step_plain(c)
+
+    def step_kernel(self, c: _Carry) -> None:
+        """The step as ``csrc/step.cu`` takes it (:func:`step_lanes_kernel`),
+        on a CUDA device, for a family with no hook: the action draw (unless
+        actions are given, which the kernel reads at ``t``); "regen"'s
+        ``generate``; the kernel, which steps, resets and counts in place;
+        the observation kernel; the reward's sum.  The generator's draws come
+        in the plain step's order.  Its parts are ``graph_span``s:
+        ``lanes.step`` holds ``generator.generate`` ("regen"),
+        ``lanes.transition`` (the kernel) and ``lanes.observation`` (the
+        checksum and the reward's sum); the draw is ``lanes.step``'s own
+        time."""
+        env = self.env
+        t = c.t.view(1)
+        with profiling.graph_span("lanes.step"):
+            act = self.actions
+            if act is None:
+                act = torch.randint(
+                    0, env.action_dim, (self.batch_size,), generator=self.generator,
+                    device=self.device, dtype=torch.int32,
+                )
+            fresh = self.pool
+            if self.autoreset == "regen":
+                with profiling.graph_span("generator.generate"):
+                    fresh = env.generate(self.generator, env.params, self.batch_size, self.device)
+            with profiling.graph_span("lanes.transition"):
+                step_lanes_kernel(env.params, c.ls, c.reset_count, fresh, self.rounds, act, t,
+                                  self.reward, c.dones, c.wins, c.ends, self.autoreset)
+            with profiling.graph_span("lanes.observation"):
+                obs_checksum_lanes(env.params, c.ls, c.checksums, t)
+                c.rewards.index_copy_(0, t, self.reward.sum().view(1))
+            c.t.add_(1)
+
+    def step_plain(self, c: _Carry) -> None:
+        """The step in plain code, on any device and for every family, in
+        JAX's order.  Its parts are ``graph_span``s: ``lanes.step`` holds
         ``lanes.transition``, ``generator.generate`` ("regen"),
         ``lanes.select`` and ``lanes.observation``; the write-back is
-        ``lanes.step``'s own time."""
+        ``lanes.step``'s own time.  Counts ``lanes.plain_steps``."""
+        profiling.count("lanes.plain_steps")
         env = self.env
         t = c.t.view(1)
         with profiling.graph_span("lanes.step"):
@@ -991,7 +1216,10 @@ def _lane_scan(
     state.  The counters ``lanes.captures``, ``lanes.capture_ms`` and
     ``lanes.pool_bytes`` (``utils/profiling.py``) sum the captures, their
     host time and their memory pools' bytes.  The closing sums are
-    ``lanes.result``.
+    ``lanes.result``.  ``lanes.step_kernel.launches`` (and ``.<autoreset>``)
+    count the kernel step's host launches, two a graphed call (the
+    capture's warm-up and the capture); ``lanes.plain_steps`` the plain
+    step's host calls.
 
     With a ``group``, ``pool`` and ``actions`` are this rank's
     ``batch_size`` lanes; ``total_reward``, ``episodes``, ``successes``,

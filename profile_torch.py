@@ -12,7 +12,9 @@ the card's name and power limit, then:
 * the device time of each part of a rollout step (transition, autoreset
   select, observation and checksum: the plain ``obs_lanes`` and its sum,
   and ``obs_checksum_lanes``, the one kernel that the step launches on a
-  card), each timed alone with CUDA events on the same state, over 32
+  card; and ``step_lanes_kernel``, the one kernel that takes the plain
+  transition's, select's and write-back's place on a card, on a copy of
+  the state), each timed alone with CUDA events on the same state, over 32
   repetitions;
 * for 32 steps of the rollout loop, eager (``lanes._lane_scan_eager``) and
   as the rollout runs on a card (the step captured once as a CUDA graph,
@@ -368,6 +370,9 @@ def main(argv=None) -> int:
         return ((obj.to(torch.int64) + color + obj_state) * vis).sum()
 
     slot = torch.zeros(1, dtype=torch.int64, device=dev)
+    # The step kernel writes in place: its own copy of the state and counts.
+    kernel_ls, kernel_resets = L._clone_lanes(ls), resets.clone()
+    counts, reward = torch.zeros(3, 1, dtype=torch.int64, device=dev), torch.empty(b, device=dev)
 
     parts = {
         "transition (step_lanes)": lambda: L.step_lanes_env(env, ls, act),
@@ -377,6 +382,10 @@ def main(argv=None) -> int:
         "observation + checksum": observe,
         "observation + checksum (csrc/obs.cu)": lambda: L.obs_checksum_lanes(
             params, ls, slot, slot.new_zeros(1)
+        ),
+        "transition, select and write-back (csrc/step.cu)": lambda: L.step_lanes_kernel(
+            params, kernel_ls, kernel_resets, pool, POOL_ROUNDS, act, slot.new_zeros(1), reward,
+            counts[0], counts[1], counts[2], "pool"
         ),
     }
     results = {"card": card, "batch": b, "steps": steps, "parts_ms": {}}

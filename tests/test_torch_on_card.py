@@ -65,7 +65,15 @@ kernel on the card (``csrc/obs.cu``): it equals the plain ``obs_lanes``
 sum bit for bit on stepped states of DoorKey-8x8 and 16x16 (staged in
 shared memory and read from device memory), a see-through id, a BabyAI
 id and views of 3, 9 and 63 columns, refuses a view of 65, and a graphed
-rollout through it equals an eager one through the plain path.
+rollout through it equals an eager one through the plain path.  The
+step's transition, autoreset and write-back are one kernel on the card
+for a family with no hook (``csrc/step.cu``): step by step on the same
+carry it equals the plain step bit for bit (DoorKey-8x8 and 16x16,
+Playground with its box planes, MultiRoom-N6, Empty-8x8; "pool",
+"cached" and "regen"; drawn and given actions; every lane reset), as it
+does on hand-made lanes with every kind of front cell under every
+action; it counts two launches a graphed rollout (a hooked family none),
+takes a rank's strided slice of a pool, and refuses other inputs.
 """
 
 from __future__ import annotations
@@ -848,10 +856,11 @@ def test_traced_rollout_stamps_each_part_of_the_step(card, autoreset):
     in the capture's warm-up step; the parts' sum is at most the step's;
     the result equals the untraced call's bit for bit; the untraced call
     keeps no record, and its capture holds the traced one's nodes less the
-    stamps, two a span."""
+    stamps, two a span.  DoorKey steps through ``csrc/step.cu``, whose
+    autoreset is inside ``lanes.transition``: there is no ``lanes.select``."""
     env = port.make("MiniGrid-DoorKey-8x8-v0")
     b, horizon, rounds = 4096, 100, 2
-    parts = ["lanes.step", "lanes.transition", "lanes.select", "lanes.observation"]
+    parts = ["lanes.step", "lanes.transition", "lanes.observation"]
     if autoreset == "regen":
         parts.append("generator.generate")
 
@@ -888,6 +897,7 @@ def test_traced_rollout_stamps_each_part_of_the_step(card, autoreset):
     assert {r["name"] for r in children} == set(parts[1:])
     assert sum(r["device_ms"] for r in children) <= step["device_ms"]
     assert cap["attrs"]["stamp_nodes"] == 2 * len(parts)
+    assert not [r for r in recs if r["name"] == "lanes.select"]
 
     g = torch.Generator(device=card).manual_seed(9)
     pool = tlanes._lane_pool(env, g, b, autoreset, rounds, card)
@@ -1096,3 +1106,250 @@ def test_ppo_captures_once_per_train_state(card, tmp_path):
         ts, m = rollout_only.update(ts)
     assert rollout_only.captures == {"collector": 1, "learner": 0}
     assert bool(torch.isfinite(m.mean_reward))
+
+
+# --- the rollout step as one kernel (csrc/step.cu) -------------------------
+
+_STEP_IDS = ["MiniGrid-DoorKey-8x8-v0", "MiniGrid-DoorKey-16x16-v0", "MiniGrid-Playground-v0",
+             "MiniGrid-MultiRoom-N6-v0", "MiniGrid-Empty-8x8-v0"]
+
+
+def _carries_equal(a, b, what: str) -> None:
+    """Every tensor of two carries equal; the rewards as bits, since slots
+    not yet written hold whatever their memory held."""
+    _assert_lanes_equal(a.ls, b.ls, what)
+    assert torch.equal(_bits(a.rewards), _bits(b.rewards)), f"{what} rewards"
+    for name in ("reset_count", "t", "dones", "wins", "ends", "checksums"):
+        assert torch.equal(getattr(a, name), getattr(b, name)), f"{what} {name}"
+
+
+def _kernel_steps_as_plain(scan, carry, steps: int, what: str):
+    """``steps`` steps from ``carry`` by ``scan.step_plain`` on one copy and
+    ``scan.step_kernel`` on another, each step from the same generator
+    state: after every step the carries, and the generator's states, are
+    equal bit for bit.  Returns the plain step's carry."""
+    plain, kernel = carry.clone(), carry.clone()
+    g = scan.generator
+    for i in range(steps):
+        start = None if g is None else g.get_state()
+        scan.step_plain(plain)
+        if g is not None:
+            after = g.get_state()
+            g.set_state(start)
+        scan.step_kernel(kernel)
+        if g is not None:
+            assert torch.equal(g.get_state(), after), f"{what} step {i}: generator"
+        _carries_equal(kernel, plain, f"{what} step {i}:")
+    return plain
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("given", [False, True])
+@pytest.mark.parametrize("autoreset", ["pool", "cached", "regen"])
+@pytest.mark.parametrize("env_id", _STEP_IDS)
+def test_step_kernel_equals_plain(card, env_id, autoreset, given):
+    """The kernel step (``csrc/step.cu``) and the plain step on the same
+    carry, step by step: every field, the reset counts, the step's reward,
+    done, won and ended counts, the observation checksum and the
+    generator's state equal bit for bit.  The step limit is cut to 64, so
+    every lane resets; Playground keeps its box planes."""
+    env = port.make(env_id)
+    env.params = env.params.replace(max_steps=64)
+    b, horizon, rounds = 1024, 80, 3
+    g = torch.Generator(device=card).manual_seed(31)
+    pool = tlanes._lane_pool(env, g, b, autoreset, rounds, card)
+    acts = None
+    if given:
+        acts = torch.randint(0, env.action_dim, (horizon, b), generator=g, device=card,
+                             dtype=torch.int32)
+    scan = tlanes._Scan(env, g, pool, b, horizon, autoreset, rounds, acts)
+    assert scan.path == "kernel"
+    plain = _kernel_steps_as_plain(scan, scan.carry, horizon, f"{env_id} {autoreset}")
+    assert int(plain.reset_count.min()) > 0
+    assert int(plain.checksums.sum()) > 0
+
+
+# Front cells (obj, color, state, contains_obj, contains_color), None for
+# the grid's edge; what the agent carries (obj, color, contains_obj,
+# contains_color).
+_FRONTS = [(1, 0, 0, 1, 0), (2, 5, 0, 1, 0), (3, 1, 0, 1, 0), (4, 4, 0, 1, 0), (4, 4, 1, 1, 0),
+           (4, 4, 2, 1, 0), (4, 2, 2, 1, 0), (5, 4, 0, 1, 0), (6, 0, 0, 1, 0), (7, 2, 0, 5, 4),
+           (7, 3, 0, 1, 0), (8, 1, 0, 1, 0), (9, 0, 0, 1, 0), None]
+_CARRIED = [(1, 0, 1, 0), (5, 4, 1, 0), (6, 0, 1, 0), (7, 2, 6, 1)]
+_DIRS = [(1, 0), (0, 1), (-1, 0), (0, -1)]
+
+
+def _hand_made_lanes(device, max_steps: int, g: torch.Generator):
+    """A 5x5 lane for each front cell of ``_FRONTS`` (an empty, wall and
+    floor cell, an open, closed and locked yellow door, a locked blue one,
+    a key, a ball, a box holding a key and an empty one, the goal, lava, and
+    the grid's edge), each thing carried of ``_CARRIED``, each of the seven
+    actions and each direction: the agent faces the centre cell, or, at the
+    edge, faces out from the middle of a side.  Marks, aux and mission
+    planes are random; every fifth lane is one step from its limit.
+    Returns the lanes and their actions (B,) int64."""
+    lanes = [(f, c, a, d) for f in _FRONTS for c in _CARRIED for a in range(7) for d in range(4)]
+    b, hw = len(lanes), 25
+
+    def rand(hi, shape, dtype=torch.int32):
+        return torch.randint(0, hi, shape, generator=g, device=device, dtype=dtype)
+
+    ls = tlanes.LaneState(
+        grid_obj=torch.ones((hw, b), dtype=torch.uint8), grid_color=torch.zeros((hw, b), dtype=torch.uint8),
+        grid_state=torch.zeros((hw, b), dtype=torch.uint8),
+        contains_obj=torch.ones((hw, b), dtype=torch.uint8),
+        contains_color=torch.zeros((hw, b), dtype=torch.uint8),
+        marks=rand(1000, (hw, b)).cpu(), vmarks=rand(1000, (hw, b)).cpu(),
+        agent_x=torch.zeros(b, dtype=torch.int32), agent_y=torch.zeros(b, dtype=torch.int32),
+        agent_dir=torch.zeros(b, dtype=torch.int32),
+        carrying_obj=torch.zeros(b, dtype=torch.uint8), carrying_color=torch.zeros(b, dtype=torch.uint8),
+        carrying_contains_obj=torch.zeros(b, dtype=torch.uint8),
+        carrying_contains_color=torch.zeros(b, dtype=torch.uint8),
+        carrying_marks=rand(1000, (b,)).cpu(),
+        step_count=torch.tensor([max_steps - 1 if i % 5 == 0 else i % (max_steps - 1)
+                                 for i in range(b)], dtype=torch.int32),
+        terminated=torch.zeros(b, dtype=torch.bool), truncated=torch.zeros(b, dtype=torch.bool),
+        aux=rand(50, (24, b)).cpu(), mission=rand(50, (48, b)).cpu(),
+    )
+    actions = torch.zeros(b, dtype=torch.int64)
+    for i, (front, carried, action, d) in enumerate(lanes):
+        dx, dy = _DIRS[d]
+        if front is None:  # at the middle of the side it faces, facing out
+            x, y = 2 + 2 * dx, 2 + 2 * dy
+        else:
+            x, y = 2 - dx, 2 - dy
+            for plane, v in zip(("grid_obj", "grid_color", "grid_state", "contains_obj",
+                                 "contains_color"), front):
+                getattr(ls, plane)[2 * 5 + 2, i] = v
+        ls.agent_x[i], ls.agent_y[i], ls.agent_dir[i] = x, y, d
+        for field, v in zip(("carrying_obj", "carrying_color", "carrying_contains_obj",
+                             "carrying_contains_color"), carried):
+            getattr(ls, field)[i] = v
+        actions[i] = action
+    return tlanes.LaneState(**{n: getattr(ls, n).to(device) for n in tlanes._FIELDS}), actions.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kept", [False, True])
+@pytest.mark.parametrize("autoreset", ["pool", "regen"])
+def test_step_kernel_hand_made_fronts(card, autoreset, kept):
+    """Three steps of the hand-made lanes (``_hand_made_lanes``: a box, a
+    ball, a key, open, closed and locked doors, lava, the goal and the
+    grid's edge in front, under all seven actions, given as int64), by the
+    kernel and the plain step: equal bit for bit after each.  ``kept``
+    keeps the box, mark, aux and mission planes (reset from random fresh
+    layouts), else they are the family's fixed planes, as DoorKey's."""
+    env = port.make("MiniGrid-Empty-5x5-v0")
+    flags = {k: not kept for k in ("no_boxes", "no_marks", "fixed_mission", "fixed_aux")}
+    env.params = env.params.replace(max_steps=100, see_through_walls=False).with_extra(**flags)
+    g = torch.Generator(device=card).manual_seed(12)
+    ls, first = _hand_made_lanes(card, env.params.max_steps, g)
+    b, rounds, horizon = ls.agent_x.shape[0], 3, 3
+
+    def random_like(x, lead=()):
+        shape = (*lead, *x.shape)
+        if x.dtype == torch.bool:
+            return torch.randint(0, 2, shape, generator=g, device=card) == 1
+        return torch.randint(0, 9, shape, generator=g, device=card, dtype=x.dtype)
+
+    pool = tlanes.LaneState(**{n: random_like(getattr(ls, n), (rounds,)) for n in tlanes._FIELDS})
+    if autoreset == "regen":
+        batch_first = tlanes.from_lanes(env.params, tlanes.LaneState(
+            **{n: random_like(getattr(ls, n)) for n in tlanes._FIELDS}))
+        env.generate = lambda generator, params, n, device: batch_first
+    acts = torch.randint(0, 7, (horizon, b), generator=g, device=card, dtype=torch.int64)
+    acts[0] = first
+    scan = tlanes._Scan(env, g, pool, b, horizon, autoreset, rounds, acts)
+    assert scan.path == "kernel"
+    carry = scan.carry._replace(
+        ls=ls, reset_count=torch.randint(0, 6, (b,), generator=g, device=card, dtype=torch.int32))
+    plain = _kernel_steps_as_plain(scan, carry, horizon, f"hand-made {autoreset} kept={kept}")
+    # The first step won, died in lava and truncated.
+    assert int(plain.ends[0]) > int(plain.wins[0]) > 0
+    assert int(plain.dones[0]) > int(plain.ends[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env_id,autoreset,kernel", [
+    ("MiniGrid-DoorKey-8x8-v0", "pool", True),
+    ("MiniGrid-DoorKey-8x8-v0", "regen", True),
+    ("MiniGrid-Empty-5x5-v0", "cached", True),
+    ("MiniGrid-Dynamic-Obstacles-8x8-v0", "pool", False),
+    ("BabyAI-GoToLocal-v0", "pool", False),
+])
+def test_step_kernel_counts_its_launches(card, env_id, autoreset, kernel):
+    """A graphed rollout launches the kernel step twice (the capture's
+    warm-up and the capture), counted under its autoreset mode; a hooked
+    family (Dynamic-Obstacles, a BabyAI id) calls the plain step twice
+    instead and launches no kernel step."""
+    env = port.make(env_id)
+    names = ["lanes.step_kernel.launches", f"lanes.step_kernel.launches.{autoreset}",
+             "lanes.plain_steps"]
+    before = [profiling.counter(n) for n in names]
+    tlanes.lane_rollout(env, torch.Generator(device=card).manual_seed(3), 512, 20, autoreset, 2,
+                        device=card)
+    got = [profiling.counter(n) - n0 for n, n0 in zip(names, before)]
+    assert got == ([2, 2, 0] if kernel else [0, 0, 2])
+
+
+@pytest.mark.cuda
+def test_step_kernel_takes_a_rank_slice(card):
+    """A rank's slice of a group's pool and actions (strided views, as
+    ``shard_lanes`` gives them) steps through the kernel as a contiguous
+    copy of them does."""
+    env = port.make("MiniGrid-Empty-5x5-v0")  # T above max_steps=100: every lane resets
+    b, horizon, rounds = 1024, 120, 2
+    g = torch.Generator(device=card).manual_seed(5)
+    pool = tlanes._lane_pool(env, g, 2 * b, "pool", rounds, card)
+    acts = torch.randint(0, env.action_dim, (horizon, 2 * b), generator=g, device=card,
+                         dtype=torch.int32)
+    half = tlanes.LaneState(**{n: getattr(pool, n)[..., b:] for n in tlanes._FIELDS})
+    assert not half.grid_obj.is_contiguous() and not acts[:, b:].is_contiguous()
+    got = tlanes._lane_scan(env, None, half, b, horizon, "pool", rounds, acts[:, b:])
+    copy = tlanes.LaneState(**{n: getattr(half, n).contiguous() for n in tlanes._FIELDS})
+    want = tlanes._lane_scan(env, None, copy, b, horizon, "pool", rounds, acts[:, b:].contiguous())
+    _assert_rollouts_equal(got, want)
+    assert int(want.resets_per_env.min()) > 0
+
+
+@pytest.mark.cuda
+def test_step_kernel_refuses_other_inputs(card):
+    """A plane or actions of another type, a pool of other rounds, a buffer
+    on the CPU, a short or strided tensor, a batch-first layout in "pool"
+    mode and a step limit set per episode raise before any launch, and
+    leave the carry as it was; the inputs as the step passes them launch."""
+    env = port.make("MiniGrid-DoorKey-8x8-v0")
+    b = 256
+    g = torch.Generator(device=card).manual_seed(2)
+    pool = tlanes._lane_pool(env, g, b, "pool", 2, card)
+    scan = tlanes._Scan(env, g, pool, b, 4, "pool", 2, None)
+    c = scan.carry
+    acts = torch.zeros(b, dtype=torch.int32, device=card)
+    before = tlanes._clone_lanes(c.ls)
+    launches = profiling.counter("lanes.step_kernel.launches")
+
+    def call(**changes):
+        kw = dict(params=env.params, ls=c.ls, reset_count=c.reset_count, fresh=pool, rounds=2,
+                  actions=acts, t=c.t.view(1), reward=scan.reward, dones=c.dones, wins=c.wins,
+                  ends=c.ends, autoreset="pool")
+        kw.update(changes)
+        tlanes.step_lanes_kernel(**kw)
+
+    for changes in [
+        dict(ls=c.ls.replace(grid_obj=c.ls.grid_obj.to(torch.int32))),
+        dict(actions=acts.to(torch.int16)),
+        dict(rounds=3),
+        dict(reward=scan.reward.cpu()),
+        dict(reset_count=c.reset_count[:-1]),
+        dict(ls=c.ls.replace(agent_x=torch.stack([c.ls.agent_x, c.ls.agent_x], 1)[:, 0])),
+        dict(fresh=env.generate(g, env.params, b, card)),
+        dict(params=env.params.with_extra(dynamic_max_steps_slot=0)),
+    ]:
+        with pytest.raises(ValueError):
+            call(**changes)
+    assert profiling.counter("lanes.step_kernel.launches") == launches
+    _assert_lanes_equal(c.ls, before, "refused")
+    call()
+    torch.cuda.synchronize()
+    assert profiling.counter("lanes.step_kernel.launches") == launches + 1
+    assert int(c.ls.step_count.min()) == 1
