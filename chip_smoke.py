@@ -48,19 +48,14 @@ Phases (any failure raises, exits nonzero and prints no "ok" line):
    thread-block cluster's shared memory), at one door slot (a cluster of
    4) and two (a cluster of 8); then on 32 DoorKey-16x16 layouts, 24
    sweeps, on the wide route (V in the shared memory of a cluster of 16,
-   swept in place), the route for V too large for a cluster of 8; the
-   global kernel (V in device memory, one block a layout; no route takes
-   it any more), launched directly on the same layouts, within 1e-6 of
-   the plain version too, and timed beside the wide route in turns
-   (global, wide, wide, global), as it is on 512 DoorKey-16x16 layouts at
-   96 sweeps, the B2 bench's size (wide against global there, within
-   1e-6; the user's call and the plain version timed too, V within 1e-6).  Then the same 32 layouts at two door slots, where V (4.2 MB a
-   layout) is too large for 16 CTAs: the grid route through the wrapper
-   (groups of 20 CTAs, V resident in their shared memory), and the global
-   kernel beside it in turns.  Then 64 DoorKey-8x8 layouts at the default
-   max_doors of ``extract_key_layout`` (seven: V 8.5 MB a layout), the
-   grid route.  The global kernel is also checked at the 8x8 shape; no
-   part of the main path launches it.
+   swept in place), the route for V too large for a cluster of 8; and on
+   512 DoorKey-16x16 layouts at 96 sweeps, the B2 bench's size (the
+   user's call and the plain version timed, V within 1e-6).  Then the
+   same 32 layouts at two door slots, where V (4.2 MB a layout) is too
+   large for 16 CTAs: the grid route through the wrapper (groups of 20
+   CTAs, V resident in their shared memory).  Then 64 DoorKey-8x8 layouts
+   at the default max_doors of ``extract_key_layout`` (seven: V 8.5 MB a
+   layout), the grid route.
 5. greedy solve: the max_doors=1 policy of phase 3, stepped by the port's
    ``step_lanes`` on the card, reaches the goal in every layout in exactly
    ``steps_to_go`` steps with the closed-form return.
@@ -98,13 +93,12 @@ Phases (any failure raises, exits nonzero and prints no "ok" line):
    in at least as many attempts as it has layouts to give.
 9. B2 on the families' layouts: ``cuda_key_value_iteration`` (128 sweeps)
    on 512 KeyCorridorS3R2 layouts at six door slots (C = 64, the wide
-   route, double-buffered; the global kernel timed beside it in turns on
-   the same layouts), 512 ObstructedMaze-1Dl layouts at one (11 wide and
+   route, double-buffered), 512 ObstructedMaze-1Dl layouts at one (11 wide and
    6 high, the cluster route), the target named by aux slots 0-1, the
    KeyCorridorS3R3 layouts of 512 that have at most seven doors (C = 128,
-   the grid route, resident; the global kernel beside it in turns), and 4
+   the grid route, resident), and 4
    LockedRoom layouts at six door slots (19x19, V 134 MB a layout, the
-   grid route streamed; the global kernel once, for its time); every
+   grid route streamed); every
    other family's layouts have at most that many doors.  V within 1e-6 of the plain version; the
    greedy policy, stepped by ``step_lanes_env`` with the family's hook,
    picks up the target in exactly ``key_steps_to_go`` steps with the
@@ -273,8 +267,8 @@ ROLLOUT_B, ROLLOUT_T, POOL_ROUNDS = 65536, 768, 4
 VI_B, VI_SWEEPS = 1024, 128
 KEY_B, KEY_SWEEPS = 512, 96
 KEY16_ENV, KEY16_B, KEY16_SWEEPS = "MiniGrid-DoorKey-16x16-v0", 32, 24
-# The B2 bench's size (bench.py:141), where the wide route is timed
-# against the global route on DoorKey-16x16 (1.08 GB of V).
+# The B2 bench's size (bench.py:141), where the wide route is timed on
+# DoorKey-16x16 (1.08 GB of V).
 KEY16_BENCH_B, KEY16_BENCH_SWEEPS = 512, 96
 # B1 at more door slots: (env, max_doors) for the 64-bit walk mask and for
 # walkability bytes in shared memory.
@@ -520,66 +514,6 @@ def gen(seed: int) -> torch.Generator:
     return torch.Generator(device=DEVICE).manual_seed(seed)
 
 
-def global_against_wide(name: str, masks, shape, sweeps: int, reps: int) -> dict:
-    """B2's global route (the route these shapes took before the wide one)
-    and the wide route on the same masks, each launched directly and timed
-    in turns: global, wide, wide, global.  Their V must agree within
-    KEY_ATOL.  Returns the four times and the difference."""
-    from minigrid_dynamicprogramming_tpu_torch.dp import cuda_vi
-
-    def run_global():
-        return cuda_vi._key_vi_kernel_global(masks, GAMMA, sweeps, shape)
-
-    def run_wide():
-        return cuda_vi._key_vi_kernel_wide(masks, GAMMA, sweeps, shape)
-
-    diff = float((run_wide() - run_global()).abs().max())
-    require(diff <= KEY_ATOL, f"{name}: the wide and global routes within {KEY_ATOL}")
-    ms = [cuda_ms(f, reps) for f in (run_global, run_wide, run_wide, run_global)]
-    out = {"shape": name, "global_ms": [ms[0], ms[3]], "wide_ms": [ms[1], ms[2]],
-           "max_abs_wide_minus_global": diff}
-    print(f"[key_vi global against wide] {name}: global {ms[0]:.4f} / {ms[3]:.4f} ms, "
-          f"wide {ms[1]:.4f} / {ms[2]:.4f} ms, max|wide - global| {diff:.3g}", flush=True)
-    return out
-
-
-def grid_against_global(name: str, masks, shape, sweeps: int, reps: int) -> dict:
-    """The global kernel (the route these shapes took before the grid
-    route) and the grid route on the same masks, each launched directly and
-    timed in turns: global, grid, grid, global (``reps`` = 0: the global
-    kernel once, then the grid route twice).  Their V must agree within
-    KEY_ATOL.  Returns the times and the difference."""
-    from minigrid_dynamicprogramming_tpu_torch.dp import cuda_vi
-
-    n = cuda_vi.key_vi_route(*shape[1:3], shape[4] * shape[5])[1]
-
-    def run_global():
-        return cuda_vi._key_vi_kernel_global(masks, GAMMA, sweeps, shape)
-
-    def run_grid():
-        return cuda_vi._key_vi_kernel_grid(masks, GAMMA, sweeps, shape, n)
-
-    if reps:
-        diff = float((run_grid() - run_global()).abs().max())
-        ms = [cuda_ms(f, reps) for f in (run_global, run_grid, run_grid, run_global)]
-        glob, grid = [ms[0], ms[3]], [ms[1], ms[2]]
-    else:
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        v_global = run_global()
-        end.record()
-        end.synchronize()
-        glob = [start.elapsed_time(end)]
-        diff = float((run_grid() - v_global).abs().max())
-        del v_global
-        grid = [cuda_ms(run_grid, 1, warmup=0), cuda_ms(run_grid, 1, warmup=0)]
-    require(diff <= KEY_ATOL, f"{name}: the grid and global routes within {KEY_ATOL}")
-    out = {"shape": name, "global_ms": glob, "grid_ms": grid, "max_abs_grid_minus_global": diff}
-    print(f"[key_vi global against grid] {name}: global {' / '.join(f'{t:.4f}' for t in glob)} ms, "
-          f"grid {grid[0]:.4f} / {grid[1]:.4f} ms, max|grid - global| {diff:.3g}", flush=True)
-    return out
-
-
 def grid_design(C: int, h: int, w: int, n: int, ptxas) -> dict:
     """The grid route's plan at this shape, for a kernels-line row: mode,
     CTAs a layout, groups the card holds, threads, shared memory, and the
@@ -717,7 +651,7 @@ def graph_against_eager(env, L, card: str) -> dict:
     """Phase 2a: one pool of the headline's shape stepped ROLLOUT_T times,
     graphed and eager (``scan_graphed_and_eager``).  Host seconds and ms
     a step of each run, the capture's ms and its memory pool's bytes."""
-    pool = L._lane_pool(env, gen(2), ROLLOUT_B, "pool", POOL_ROUNDS, torch.device(DEVICE))
+    pool = L.lane_pool(env, gen(2), ROLLOUT_B, "pool", POOL_ROUNDS, torch.device(DEVICE))
     g_s, e_s, res, capture = scan_graphed_and_eager(env, L, pool, ROLLOUT_B, ROLLOUT_T, "pool",
                                            POOL_ROUNDS, gen(3).get_state(), "graph")
     require(int(res.resets_per_env.min()) >= 1, "every lane reset")
@@ -848,7 +782,7 @@ def step_kernel(env, L, ptxas, launches: float) -> list:
     rows = []
     for mode in ("pool", "regen"):
         g = gen(6)
-        pool = L._lane_pool(env, g, b, mode, POOL_ROUNDS, dev)
+        pool = L.lane_pool(env, g, b, mode, POOL_ROUNDS, dev)
         scan = L._Scan(env, g, pool, b, STEP_CHECK_STEPS, mode, POOL_ROUNDS, None)
         require(scan.path == "kernel", "DoorKey-8x8 takes the kernel step on the card")
         c = scan.carry
@@ -998,7 +932,6 @@ def family_rollouts(make, L, card: str, ids, runs: dict, seed: int, workers,
         # The same pool and the run's actions, drawn again from the
         # generator's state (hooks that draw nothing leave it alone).
         t0 = time.perf_counter()
-        hooked = env.pre_step_lanes is not None or env.post_step_lanes is not None
         if pooled:
             flat, accepted = env.generate(g_again, env.params, R * B, DEVICE, return_accepted=True)
             pool = L.stack_rounds(flat, B, R)
@@ -1008,7 +941,7 @@ def family_rollouts(make, L, card: str, ids, runs: dict, seed: int, workers,
                         f"every room, at least the {R * B} layouts of the pool")
             del flat
         else:
-            pool = L._lane_pool(env, g_again, B, "pool", R, dev)
+            pool = L.lane_pool(env, g_again, B, "pool", R, dev)
         if against_eager:
             torch.cuda.synchronize()
             pool_s = time.perf_counter() - t0
@@ -1025,7 +958,7 @@ def family_rollouts(make, L, card: str, ids, runs: dict, seed: int, workers,
             entry["eager_ms_per_step"] = 1e3 * eager_s / T
             del eager
             t0 = time.perf_counter()
-        if hooked and env.hook_rng:
+        if env.hooks_draw:
             n_obs = int((pool.grid_obj[0, :, 0] == OBJ_BALL).sum())
             require(bool(check_dynamic_obstacles(res.final_state, env.params, n_obs).all()),
                     f"{env_id}: the final state holds {n_obs} balls named by aux")
@@ -1036,9 +969,9 @@ def family_rollouts(make, L, card: str, ids, runs: dict, seed: int, workers,
                               dtype=torch.int32)
                 for _ in range(T)
             ])[:, :CPU_LANES]
-            final = L.LaneState(**{n: getattr(res.final_state, n)[..., :CPU_LANES] for n in L._FIELDS})
+            final = res.final_state.map(lambda x: x[..., :CPU_LANES])
             on_card = replay_summary(L, env.params, final, res.resets_per_env[:CPU_LANES])
-            sub = {n: getattr(pool, n)[..., :CPU_LANES].cpu().numpy() for n in L._FIELDS}
+            sub = vars(pool.map(lambda x: x[..., :CPU_LANES].cpu().numpy()))
             pending.append((env_id, on_card, workers.submit(cpu_replay, env_id, sub, acts.cpu().numpy(), R)))
             entry["card_equals_cpu"] = {"lanes": CPU_LANES, "steps": T}
         entry["check_s"] = time.perf_counter() - t0
@@ -1071,7 +1004,7 @@ def dynamic_obstacles_steps(env, L, pool, n_obs: int, g) -> dict:
     """DYN_OBS_STEPS steps of ``step_lanes_env`` from pool round 0: after
     every step each lane keeps its balls (``check_dynamic_obstacles``) and
     every reward is 0, -1 or in (0, 1]."""
-    ls = L.LaneState(**{n: getattr(pool, n)[0] for n in L._FIELDS})
+    ls = pool.round(0)
     ok = torch.ones_like(ls.terminated)
     rewards_ok = torch.ones_like(ls.terminated)
     collisions = torch.zeros((), dtype=torch.int64, device=DEVICE)
@@ -1171,10 +1104,6 @@ def key_families(make, drive, kernel_row, ptxas) -> list:
         del policy
         masks = cuda_vi.key_vi_masks(layouts)
         if route == "wide":
-            entry["global_against_wide"] = global_against_wide(
-                f"{env_id} {b} layouts, {KEY_FAMILY_SWEEPS} sweeps", masks, v.shape,
-                KEY_FAMILY_SWEEPS, reps=3,
-            )
             in_place = cuda_vi.key_vi_wide_in_place(C, h * w, n)
             G = cuda_vi.key_vi_wide_groups(h * w)
             design = dict(
@@ -1196,15 +1125,7 @@ def key_families(make, drive, kernel_row, ptxas) -> list:
                 compiled=compiled(ptxas, "key_vi_cluster_kernelILi0ELi0E"),
             )
         else:
-            # The grid route; the global kernel, in turns with the grid route; at LockedRoom
-            # (V 134 MB a layout) once, for its time.
-            pair = grid_against_global(
-                f"{env_id} {b} layouts, {KEY_FAMILY_SWEEPS} sweeps", masks, v.shape,
-                KEY_FAMILY_SWEEPS, reps=0 if "LockedRoom" in env_id else 3,
-            )
-            entry["global_against_grid"] = pair
-            design = dict(grid_design(C, h, w, n, ptxas), global_yardstick_ms=pair["global_ms"],
-                          grid_in_turns_ms=pair["grid_ms"])
+            design = grid_design(C, h, w, n, ptxas)
         kernel_row(
             f"key_vi_{env_id.removeprefix('MiniGrid-').removesuffix('-v0')}",
             f"{CSRC}/key_vi.cu", f"{PALLAS_VI}:452", counts["key_vi"], err,
@@ -2109,7 +2030,7 @@ def two_rank_gloo(make) -> dict:
     from minigrid_dynamicprogramming_tpu_torch.parallel import lanes as L
 
     env = make(GLOO_ENV)
-    pool = L._lane_pool(env, gen(11), GLOO_B, "pool", POOL_ROUNDS, torch.device(DEVICE))
+    pool = L.lane_pool(env, gen(11), GLOO_B, "pool", POOL_ROUNDS, torch.device(DEVICE))
     actions = np.random.default_rng(11).integers(0, env.action_dim, (GLOO_T, GLOO_B)).astype(np.int64)
     single = L._lane_scan(env, None, pool, GLOO_B, GLOO_T, "pool", POOL_ROUNDS,
                           torch.from_numpy(actions).to(DEVICE))
@@ -2469,7 +2390,7 @@ def regen_rollouts(make, card: str) -> list:
     rows = []
     for k, (env_id, b, horizon) in enumerate(REGEN_ROLLOUTS):
         env = make(env_id)
-        pool = L._lane_pool(env, gen(40 + k), b, "regen", 1, torch.device(DEVICE))
+        pool = L.lane_pool(env, gen(40 + k), b, "regen", 1, torch.device(DEVICE))
         g_s, e_s, e_res, capture = scan_graphed_and_eager(env, L, pool, b, horizon, "regen", 1,
                                                  gen(50 + k).get_state(), f"regen {env_id}")
         require(int(e_res.episodes) > 0, f"regen {env_id}: episodes")
@@ -2600,7 +2521,6 @@ def run(args, t_start: float, workers) -> int:
         torch.cuda.synchronize()
         counts = {name: profiling.counter(c) - before[name] for name, c in counters.items()}
         print(f"[main path] {part}: launches {counts}", flush=True)
-        require(not counts["key_vi_global"], f"{part}: no route launches the global kernel")
         return out, counts
 
     # 1. Card and build.
@@ -2644,7 +2564,7 @@ def run(args, t_start: float, workers) -> int:
     capture_ms, graph_pool_bytes = capture["capture_ms"], capture["graph_pool_bytes"]
     # The same pool again, from the same generator state, timed and checked.
     t0 = time.perf_counter()
-    pool = L._lane_pool(env, g_pool, ROLLOUT_B, "pool", POOL_ROUNDS, torch.device(DEVICE))
+    pool = L.lane_pool(env, g_pool, ROLLOUT_B, "pool", POOL_ROUNDS, torch.device(DEVICE))
     torch.cuda.synchronize()
     pool_s = time.perf_counter() - t0
     episodes = int(res.episodes)
@@ -2755,7 +2675,7 @@ def run(args, t_start: float, workers) -> int:
         del got, lay
 
     # 4. B2 on the key-position domain: the cluster route at 8x8, then the
-    # global route at 16x16.
+    # wide and grid routes at 16x16.
     def key_path():
         states = env.generate(gen(3), env.params, KEY_B, device=DEVICE)
         layouts = TK.extract_key_layout(states, max_doors=1)
@@ -2772,10 +2692,7 @@ def run(args, t_start: float, workers) -> int:
     _, K, C, _, _, _ = kv.shape
     route, n = cuda_vi.key_vi_route(K, C, h * w)
     require(route == "cluster", "the 8x8 shape's route is the cluster")
-    kv_global = cuda_vi._key_vi_kernel_global(key_masks, GAMMA, KEY_SWEEPS, kv.shape)
-    err_global = float((kv_global - kv_plain).abs().max())
-    require(err_global <= KEY_ATOL, f"B2's global route within {KEY_ATOL} at 8x8")
-    del kv_plain, kv_global
+    del kv_plain
     G = cuda_vi.key_vi_groups(h * w)
     key_work = cuda_vi.key_vi_work(key_layouts, KEY_SWEEPS)
     kernel_row(
@@ -2839,13 +2756,8 @@ def run(args, t_start: float, workers) -> int:
     require(err16 <= KEY_ATOL, f"B2's wide route within {KEY_ATOL} at DoorKey-16x16")
     require(bool((kv16 > 0).any()), "some DoorKey-16x16 state reaches the goal")
     m16 = cuda_vi.key_vi_masks(l16)
-    # The global route, launched directly on the same layouts.
-    err16_global = float(
-        (cuda_vi._key_vi_kernel_global(m16, GAMMA, KEY16_SWEEPS, kv16.shape) - kv16_plain).abs().max()
-    )
-    require(err16_global <= KEY_ATOL, f"B2's global route within {KEY_ATOL} at DoorKey-16x16")
-    print(f"[key_vi 16x16] {KEY16_B} layouts, {KEY16_SWEEPS} sweeps: max|kernel - plain| wide {err16:.3g}, "
-          f"global {err16_global:.3g}", flush=True)
+    print(f"[key_vi 16x16] {KEY16_B} layouts, {KEY16_SWEEPS} sweeps: max|kernel - plain| {err16:.3g}",
+          flush=True)
     del kv16_plain
     K16, C16, h16, w16 = kv16.shape[1], kv16.shape[2], env16.params.height, env16.params.width
     n16 = cuda_vi.key_vi_route(K16, C16, h16 * w16)[1]
@@ -2867,20 +2779,12 @@ def run(args, t_start: float, workers) -> int:
         shared_bytes=cuda_vi.key_vi_wide_shared_bytes(C16, h16 * w16, n16, in_place16),
         compiled=compiled(ptxas, "key_vi_wide_kernelILb1E"),
     )
-    results["key_vi_global_against_wide"] = [global_against_wide(
-        f"{KEY16_ENV} {KEY16_B} layouts, {KEY16_SWEEPS} sweeps", m16, kv16.shape, KEY16_SWEEPS, reps=5,
-    )]
     del kv16, m16
     # The B2 bench's size: 512 layouts, 96 sweeps (1.08 GB of V).
     bench16 = TK.extract_key_layout(
         env16.generate(gen(12), env16.params, KEY16_BENCH_B, device=DEVICE), max_doors=1
     )
-    mb16 = cuda_vi.key_vi_masks(bench16)
-    bench_shape = (KEY16_BENCH_B, K16, C16, 4, h16, w16)
-    pair = global_against_wide(
-        f"{KEY16_ENV} {KEY16_BENCH_B} layouts, {KEY16_BENCH_SWEEPS} sweeps", mb16, bench_shape,
-        KEY16_BENCH_SWEEPS, reps=3,
-    )
+    pair = {"shape": f"{KEY16_ENV} {KEY16_BENCH_B} layouts, {KEY16_BENCH_SWEEPS} sweeps"}
     pair["bound_ms"], pair["bound_by"] = bound(*cuda_vi.key_vi_work(bench16, KEY16_BENCH_SWEEPS))
     # The user's call (masks, then the wide route) and the plain version.
     pair["wrapper_ms"] = cuda_ms(
@@ -2896,8 +2800,8 @@ def run(args, t_start: float, workers) -> int:
     require(pair["max_abs_err"] <= KEY_ATOL, f"B2's wide route within {KEY_ATOL} at 512 DoorKey-16x16 layouts")
     print(f"[key_vi 16x16, {KEY16_BENCH_B} layouts] wrapper {pair['wrapper_ms']:.4f} ms, plain "
           f"{pair['plain_ms']:.2f} ms, max|kernel - plain| {pair['max_abs_err']:.3g}", flush=True)
-    results["key_vi_global_against_wide"].append(pair)
-    del bench16, mb16
+    results["key_vi_wide_bench"] = pair
+    del bench16
 
     # The same 32 layouts at two door slots: V is 4.2 MB a layout, too large
     # for 16 CTAs, so the wrapper takes the grid route (resident).
@@ -2913,11 +2817,6 @@ def run(args, t_start: float, workers) -> int:
     m16d2 = cuda_vi.key_vi_masks(l16d2)
     C16d2 = kv16d2.shape[2]
     n16d2 = cuda_vi.key_vi_route(K16, C16d2, h16 * w16)[1]
-    pair = grid_against_global(
-        f"{KEY16_ENV} {KEY16_B} layouts, {KEY16_SWEEPS} sweeps, max_doors 2", m16d2, kv16d2.shape,
-        KEY16_SWEEPS, reps=5,
-    )
-    results["key_vi_global_against_grid"] = [pair]
     kernel_row(
         "key_vi_grid", f"{CSRC}/key_vi.cu", f"{PALLAS_VI}:452", counts16d2["key_vi"], err16d2,
         lambda: cuda_vi.cuda_key_value_iteration(l16d2, GAMMA, KEY16_SWEEPS),
@@ -2927,8 +2826,6 @@ def run(args, t_start: float, workers) -> int:
         kernel_route="grid",
         route_launches={r: counts16d2[f"key_vi_{r}"] for r in cuda_vi.ROUTES},
         shape=f"{KEY16_B} layouts 16x16, {KEY16_SWEEPS} sweeps, max_doors 2 (K={K16}, C={C16d2})",
-        global_checked_at_8x8=err_global, global_yardstick_ms=pair["global_ms"],
-        grid_in_turns_ms=pair["grid_ms"],
         **grid_design(C16d2, h16, w16, n16d2, ptxas),
     )
     del kv16d2, m16d2

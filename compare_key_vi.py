@@ -18,15 +18,13 @@ are the same in both.  Shapes:
   layouts at 24 sweeps, as ``chip_smoke.py`` runs it, and 512 at 96, the
   B2 bench's size) and KeyCorridorS3R2 at six door slots (512 layouts, 128
   sweeps, as ``chip_smoke.py`` phase 9 runs it), against the other
-  checkout's wide route if it has one (then V equal bit for bit), else
-  its global route (V within 1e-6).
+  checkout's wide route (V equal bit for bit).
 * The shapes this checkout sends to its grid route, as ``chip_smoke.py``
   runs them: DoorKey-16x16 at two door slots (32 layouts, 24 sweeps),
   DoorKey-8x8 at seven (64 layouts, 96 sweeps), the KeyCorridorS3R3
   layouts of 512 that have at most seven doors (128 sweeps) and LockedRoom
   at six (4 layouts, 128 sweeps; streamed), against the other checkout's
-  grid route if it has one (bit for bit), else its global route (not at
-  LockedRoom, where it takes seconds).
+  grid route (bit for bit).
 
 Prints one line per shape and, last, the card's name and power limit.
 """
@@ -45,7 +43,7 @@ from pathlib import Path
 
 import torch
 
-from chip_smoke import DEVICE, GAMMA, KEY_ATOL, bound, card_line, cuda_ms, gen, require
+from chip_smoke import DEVICE, GAMMA, bound, card_line, cuda_ms, gen, require
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SHAPES = (
@@ -80,7 +78,7 @@ def other_library(checkout: Path) -> ctypes.CDLL:
 
 
 def other_launch(lib, route: str, masks, shape, sweeps: int, n: int) -> torch.Tensor:
-    """V from the other checkout's cluster, wide, grid or global route."""
+    """V from the other checkout's cluster, wide or grid route."""
     b, K, C, _, h, w = shape
     v = torch.empty(shape, dtype=torch.float32, device=masks[0].device)
     stream = torch.cuda.current_stream().cuda_stream
@@ -98,7 +96,7 @@ def other_launch(lib, route: str, masks, shape, sweeps: int, n: int) -> torch.Te
         fn.argtypes = [_P] * 4 + [_I] * 7 + [_F, _I, _P]
         err = fn(*ptrs, v.data_ptr(), b, C, h, w, n, key_vi_wide_groups(h * w),
                  int(key_vi_wide_in_place(C, h * w, n)), GAMMA, sweeps, stream)
-    elif route == "grid":
+    else:
         from minigrid_dynamicprogramming_tpu_torch.dp.cuda_vi import key_vi_grid_resident, key_vi_grid_threads
 
         resident, threads = key_vi_grid_resident(K, C, h * w), key_vi_grid_threads(h * w)
@@ -113,11 +111,6 @@ def other_launch(lib, route: str, masks, shape, sweeps: int, n: int) -> torch.Te
         fn.argtypes = [_P] * 6 + [_I] * 8 + [_F, _I, _P]
         err = fn(*ptrs, v.data_ptr(), scratch.data_ptr(), count.data_ptr(), b, C, h, w, n, threads,
                  groups, int(resident), GAMMA, sweeps, stream)
-    else:
-        scratch = torch.empty_like(v)
-        fn = lib.key_vi_global_launch
-        fn.argtypes = [_P] * 5 + [_I] * 4 + [_F, _I, _P]
-        err = fn(*ptrs, v.data_ptr(), scratch.data_ptr(), b, C, h, w, GAMMA, sweeps, stream)
     require(err == 0, f"the other checkout's {route} launch: CUDA error {err}")
     return v
 
@@ -153,26 +146,21 @@ def main(argv=None) -> int:
         shape = (b, K, C, 4, h, w)
         got_route, n = cuda_vi.key_vi_route(K, C, h * w)
         require(got_route == route, f"{env_id}: this checkout's route is {route}")
-        other_route = route if hasattr(lib, f"key_vi_{route}_launch") else "global"
-        if other_route == "global" and "LockedRoom" in env_id:
-            continue
         masks = cuda_vi.key_vi_masks(layouts)
 
         def this():
             return cuda_vi._key_vi_kernel(masks, GAMMA, sweeps, shape)
 
         def other():
-            return other_launch(lib, other_route, masks, shape, sweeps, n)
+            return other_launch(lib, route, masks, shape, sweeps, n)
 
         diff = float((this() - other()).abs().max())
-        if other_route == route:
-            require(diff == 0.0, f"{env_id}: the {route} route's V equal bit for bit")
-        require(diff <= KEY_ATOL, f"{env_id}: V within {KEY_ATOL} of the other checkout's")
+        require(diff == 0.0, f"{env_id}: the {route} route's V equal bit for bit")
         ms = [cuda_ms(f, REPS) for f in (other, this, this, other)]
         bound_ms, bound_by = bound(*cuda_vi.key_vi_work(layouts, sweeps))
         row = {
             "env": env_id, "max_doors": doors, "layouts": b, "sweeps": sweeps,
-            "this_route": route, "other_route": other_route, "cluster": n,
+            "route": route, "cluster": n,
             "other_ms": [ms[0], ms[3]], "this_ms": [ms[1], ms[2]],
             "max_abs_diff": diff, "bound_ms": bound_ms, "bound_by": bound_by,
         }

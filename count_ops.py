@@ -77,8 +77,8 @@ def count(fn, big_numel: int = 0) -> Count:
 def step_counts(env_id: str) -> dict:
     env = make(env_id)
     g = torch.Generator().manual_seed(0)
-    pool = L._lane_pool(env, g, 64, "pool", 2, "cpu")
-    ls = L.LaneState(**{n: getattr(pool, n)[0] for n in L._FIELDS})
+    pool = L.lane_pool(env, g, 64, "pool", 2, "cpu")
+    ls = pool.round(0)
     act = torch.randint(0, env.action_dim, (64,), generator=g, dtype=torch.int32)
     new, reward, term = L.step_lanes(env.params, ls, act)
     scan = L._Scan(env, g, pool, 64, 1, "pool", 2, None)

@@ -7,6 +7,12 @@ keyed by a hash of the source, the shared headers and the flags, so a
 changed source rebuilds.  :func:`build` compiles every stale source at
 once, one ``nvcc`` process each, all started together.
 
+Every wrapper of a kernel goes through the same three steps here:
+:func:`entry` fetches a C entry point with its argument types,
+:func:`check` refuses a tensor of another device, dtype, shape or layout,
+and :func:`launch` calls the entry point on the current stream and raises
+on the CUDA error it returns.
+
 Nothing here runs at import time: the package imports on machines with no
 CUDA toolkit, where only the kernels' plain versions run.
 """
@@ -21,6 +27,8 @@ import shutil
 import subprocess
 from pathlib import Path
 from typing import Dict, Iterable, Optional
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "_build"
@@ -95,3 +103,34 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built if needed."""
     return ctypes.CDLL(str(build([name])[name]))
+
+
+def entry(name: str, fn: str, argtypes):
+    """The C entry point ``fn`` of ``csrc/<name>.cu``, built and loaded if
+    need be, taking ``argtypes`` and returning an int (a launch's
+    cudaError_t, 0 = ok)."""
+    f = getattr(library(name), fn)
+    f.argtypes = argtypes
+    f.restype = ctypes.c_int
+    return f
+
+
+def check(who: str, device: torch.device, tensors: Dict[str, tuple]) -> None:
+    """Raise unless each ``label: (tensor, dtype, shape)`` of ``tensors`` is
+    a contiguous tensor of that dtype and shape on ``device``."""
+    for label, (x, dtype, shape) in tensors.items():
+        shape = tuple(shape)
+        if x.device != device or x.dtype != dtype or tuple(x.shape) != shape or not x.is_contiguous():
+            raise ValueError(
+                f"{who}: {label}: want contiguous {dtype} {shape} on {device}, got {x.dtype} "
+                f"{tuple(x.shape)} on {x.device} (contiguous: {x.is_contiguous()})"
+            )
+
+
+def launch(device: torch.device, fn, *args) -> None:
+    """``fn(*args, stream)`` on the current stream of ``device``; raises on
+    the cudaError_t it returns."""
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} failed: CUDA error {err}")

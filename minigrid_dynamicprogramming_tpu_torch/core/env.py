@@ -31,12 +31,13 @@ is registered once, lane-major, with these signatures::
     post_step_lanes(params, generator, prev, ls, action, reward, terminated)
         -> (ls, reward, terminated)
 
-``generator`` is the rollout's ``torch.Generator`` when ``hook_rng`` is
-True and None otherwise (the hooks of such families draw nothing).  The
-JAX record's batch-first ``pre_step``/``post_step`` slots have no
-counterpart, and neither has its ``generate_batch``: the port's
-``generate`` is already batched, so a family with a pooled generator
-(MultiRoom) registers it as its ``generate``.  ``generate_stats``, where a
+``generator`` is the rollout's ``torch.Generator`` where the hooks draw
+(:attr:`Environment.hooks_draw`: the family has a hook and ``hook_rng``)
+and None otherwise.  The JAX record's batch-first ``pre_step``/
+``post_step`` slots have no counterpart, and neither has its
+``generate_batch``: the port's ``generate`` is already batched, so a
+family with a pooled generator (MultiRoom) registers it as its
+``generate``.  ``generate_stats``, where a
 family has one, takes ``generate``'s arguments and returns ``(state,
 GenStats)``, the acceptance telemetry of ``utils/telemetry.py``.
 """
@@ -97,18 +98,13 @@ class Environment:
     ) -> Tuple[Dict[str, torch.Tensor], EnvState, torch.Tensor, torch.Tensor, torch.Tensor, Dict]:
         """One transition of every env in the batch; ``action`` is ``(B,)``
         or one action for all.  ``generator`` feeds the hooks of families
-        that draw (``hook_rng``), and must then be given.  No auto-reset."""
+        that draw (:attr:`hooks_draw`), and must then be given.  No
+        auto-reset."""
         from minigrid_dynamicprogramming_tpu_torch.parallel import lanes as L
 
-        hooked = self.pre_step_lanes is not None or self.post_step_lanes is not None
-        draws = hooked and self.hook_rng
-        if draws and generator is None:
-            raise ValueError(f"{self.env_id}: its hooks draw; pass a generator")
         b = state.agent_dir.shape[0]
         action = torch.as_tensor(action, device=state.agent_dir.device).expand(b)
-        ls, reward, terminated = L.step_lanes_env(
-            self, L.to_lanes(state), action, generator if draws else None
-        )
+        ls, reward, terminated = L.step_lanes_env(self, L.to_lanes(state), action, generator)
         obs = self.observation_lanes(ls)
         return obs, L.from_lanes(self.params, ls), reward, terminated, ls.truncated, {}
 
@@ -143,6 +139,13 @@ class Environment:
         from minigrid_dynamicprogramming_tpu_torch.ops.obs import agent_sees
 
         return agent_sees(self.params, state, x, y)
+
+    @property
+    def hooks_draw(self) -> bool:
+        """Whether a step draws from the generator: the family has a pre- or
+        post-step hook, and ``hook_rng``."""
+        hooked = self.pre_step_lanes is not None or self.post_step_lanes is not None
+        return hooked and self.hook_rng
 
     @property
     def default_params(self) -> EnvParams:

@@ -126,10 +126,6 @@
 //     nothing.
 //   dp/cuda_vi.py mirrors both plans and tests/test_torch_cuda_vi.py checks
 //   them, as for the wide route.
-// * global (key_vi_global_kernel): the first kernel of this file, kept as
-//   the yardstick the grid route is timed against; no route launches it.
-//   The double buffer lives in device memory (out and a scratch buffer the
-//   wrapper allocates), one block per layout with a barrier between sweeps.
 //
 // All of them compute the TPU kernel's dense (4, K, HW) one-hot key-front
 // and drop masks as index predicates, and take its f32 masks as bytes.
@@ -152,7 +148,6 @@ constexpr uint8_t kWalkFront = 1;    // in bounds, walkable, door open
 constexpr uint8_t kClosedFront = 2;  // faces a closed door
 constexpr uint8_t kUnlockFront = 4;  // faces a locked door the key opens
 
-constexpr int kGlobalThreads = 512;
 constexpr int kCtaThreads = 256;  // threads of a cluster CTA, at most
 constexpr int kCtasPerSm = 3;     // resident CTAs the registers must allow
 constexpr int kWideThreads = 1024;  // threads of a wide CTA, at most
@@ -632,80 +627,6 @@ key_vi_wide_kernel(const uint8_t* __restrict__ cell_flags,  // (B, 4, HW)
   } else {
     float* out = v_out + (b * K + row0) * kslab;
     for (int i = threadIdx.x; i < ngen * kslab; i += blockDim.x) out[i] = fin[i];
-  }
-}
-
-__global__ void __launch_bounds__(kGlobalThreads)
-key_vi_global_kernel(const uint8_t* __restrict__ cell_flags,  // (B, 4, HW)
-                     const uint8_t* __restrict__ cfg_flags,   // (B, C, 4, HW)
-                     const uint8_t* __restrict__ door_bit,    // (B, 4, HW) front door's bit
-                     float* v_out,      // (B, K, C, 4, HW)
-                     float* v_scratch,  // (B, K, C, 4, HW)
-                     int C, int H, int W, float gamma, int n_sweeps) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int HW = H * W;
-  const int CARRIED = HW;
-  const int slab = 4 * HW;      // states per (k, c)
-  const int kslab = C * slab;   // states per k
-  const int S = (HW + 1) * kslab;
-  uint8_t* s_cell = smem;
-  uint8_t* s_cfg = s_cell + slab;
-  uint8_t* s_bit = s_cfg + kslab;
-
-  const size_t b = blockIdx.x;
-  for (int i = threadIdx.x; i < slab; i += blockDim.x) {
-    s_cell[i] = cell_flags[b * slab + i];
-    s_bit[i] = door_bit[b * slab + i];
-  }
-  for (int i = threadIdx.x; i < kslab; i += blockDim.x) {
-    s_cfg[i] = cfg_flags[b * kslab + i];
-  }
-  // Start in the buffer that makes the last sweep land in v_out.
-  float* cur = ((n_sweeps & 1) ? v_scratch : v_out) + b * S;
-  float* nxt = ((n_sweeps & 1) ? v_out : v_scratch) + b * S;
-  for (int i = threadIdx.x; i < S; i += blockDim.x) cur[i] = 0.f;
-  __syncthreads();
-
-  for (int sweep = 0; sweep < n_sweeps; ++sweep) {
-    for (int s = threadIdx.x; s < S; s += blockDim.x) {
-      const int cell = s % HW;
-      const int d = (s / HW) & 3;
-      const int kc = s / slab;
-      const int c = kc % C;
-      const int k = kc / C;
-      const int x = cell % W + (d == 0 ? 1 : d == 2 ? -1 : 0);
-      const int y = cell / W + (d == 1 ? 1 : d == 3 ? -1 : 0);
-      const int front = (x >= 0 && x < W && y >= 0 && y < H) ? y * W + x : -1;
-      const int dh = d * HW + cell;
-      const float* vkc = cur + kc * slab;
-      const uint8_t f = s_cell[dh];
-      const uint8_t g = s_cfg[c * slab + dh];
-      // stay (done, failed actions) and left/right.
-      float q = fmaxf(vkc[dh], fmaxf(vkc[((d + 3) & 3) * HW + cell],
-                                     vkc[((d + 1) & 3) * HW + cell]));
-      // forward: blocked by the key lying in front; lava is worth 0.
-      if ((g & kWalkFront) && k != front && !(f & kLavaFront)) {
-        q = fmaxf(q, vkc[d * HW + front]);
-      }
-      // pickup: the key in front moves to the CARRIED row.
-      if (k == front) q = fmaxf(q, cur[CARRIED * kslab + c * slab + dh]);
-      // drop: the carried key lands on the front cell.
-      if (k == CARRIED && (f & kDropFront)) {
-        q = fmaxf(q, cur[front * kslab + c * slab + dh]);
-      }
-      // toggle: a closed door always opens, a locked one only if carried.
-      if ((g & kClosedFront) || ((g & kUnlockFront) && k == CARRIED)) {
-        q = fmaxf(q, cur[k * kslab + (c | s_bit[dh]) * slab + dh]);
-      }
-      q = gamma * q;
-      // terminals: stepping onto the goal, picking up the target.
-      if ((f & kGoalFront) || ((f & kTargetFront) && k != CARRIED)) q = 1.f;
-      nxt[s] = q;
-    }
-    __syncthreads();
-    float* t = cur;
-    cur = nxt;
-    nxt = t;
   }
 }
 
@@ -1280,34 +1201,4 @@ extern "C" int key_vi_grid_launch(const void* cell_flags, const void* cfg_flags,
       static_cast<const uint8_t*>(cfg_flags), static_cast<const uint8_t*>(door_bit),
       static_cast<float*>(v_out), static_cast<float*>(scratch), static_cast<uint32_t*>(count), B,
       C, H, W, n, gamma, n_sweeps));
-}
-
-// --- global route ----------------------------------------------------------
-
-extern "C" size_t key_vi_global_shared_bytes(int C, int HW) {
-  return static_cast<size_t>(C + 2) * 4 * HW;
-}
-
-// Launches on `stream`; returns the cudaError_t of the launch (0 = ok).
-extern "C" int key_vi_global_launch(const void* cell_flags,
-                                    const void* cfg_flags,
-                                    const void* door_bit, void* v_out,
-                                    void* v_scratch, int B, int C, int H,
-                                    int W, float gamma, int n_sweeps,
-                                    void* stream) {
-  const size_t smem = key_vi_global_shared_bytes(C, H * W);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        key_vi_global_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  if (B == 0) return 0;
-  key_vi_global_kernel<<<B, kGlobalThreads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(cell_flags),
-      static_cast<const uint8_t*>(cfg_flags),
-      static_cast<const uint8_t*>(door_bit), static_cast<float*>(v_out),
-      static_cast<float*>(v_scratch), C, H, W, gamma, n_sweeps);
-  return static_cast<int>(cudaGetLastError());
 }

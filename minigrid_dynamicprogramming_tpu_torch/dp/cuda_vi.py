@@ -28,9 +28,7 @@ versions.
   ``max_doors`` of ``extract_key_layout``, 19x19 grids), else
   ``streamed`` (V double-buffered in device memory, each layout's (row,
   config) slabs split over the group: KeyCorridorS4R3 and larger at
-  seven door slots, LockedRoom).  The first kernel, ``global`` (one block a
-  layout, V double-buffered in device memory), stays as the yardstick the
-  grid route is timed against; no route launches it.
+  seven door slots, LockedRoom).
 
 What bounds each kernel on an H100, and what its design does about it, is
 noted at the top of its ``.cu`` file.  A wrapper checks its inputs, then
@@ -74,13 +72,6 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _U8, _I32, _BOOL = torch.uint8, torch.int32, torch.bool
 
 
-def _lib_fn(name: str, fn: str, argtypes):
-    f = getattr(_kernels.library(name), fn)
-    f.argtypes = argtypes
-    f.restype = ctypes.c_int
-    return f
-
-
 def _check_layouts(layouts, spec) -> torch.device:
     """Raise unless every field has its dtype and shape (``spec`` maps a
     field to its dtype and dims, with "B", "H", "W", "D" for the layout's
@@ -104,23 +95,6 @@ def _check_layouts(layouts, spec) -> torch.device:
 def _check_run(gamma: float, n_sweeps: int) -> None:
     if not 0.0 < gamma <= 1.0 or n_sweeps < 0:
         raise ValueError(f"want 0 < gamma <= 1 and n_sweeps >= 0, got {gamma}, {n_sweeps}")
-
-
-def _check_mask(t: torch.Tensor, name: str, dtype, shape) -> None:
-    if t.dtype != dtype or tuple(t.shape) != tuple(shape) or not t.is_contiguous():
-        raise ValueError(
-            f"{name}: want contiguous {dtype} {tuple(shape)}, got {t.dtype} "
-            f"{tuple(t.shape)} (contiguous: {t.is_contiguous()})"
-        )
-
-
-def _launch(dev: torch.device, fn, *args) -> None:
-    """Call the C entry point on the current stream of ``dev``; it returns
-    the launch's cudaError_t."""
-    with torch.cuda.device(dev):
-        err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{fn.__name__} failed: CUDA error {err}")
 
 
 def _nbytes(record) -> int:
@@ -232,16 +206,18 @@ def _vi_kernel(masks, gamma: float, n_sweeps: int, shape) -> torch.Tensor:
     walk_front, cell_flags, door_slot, toggle_cfg = masks
     b, C, _, h, w = shape
     D = toggle_cfg.shape[2]
-    _check_mask(walk_front, "walk_front", _U8, (b, C, 4, h * w))
-    _check_mask(cell_flags, "cell_flags", _U8, (b, 4, h * w))
-    _check_mask(door_slot, "door_slot", torch.int8, (b, 4, h * w))
-    _check_mask(toggle_cfg, "toggle_cfg", _I32, (b, C, D))
+    dev = walk_front.device
+    _kernels.check("vi masks", dev, {
+        "walk_front": (walk_front, _U8, (b, C, 4, h * w)),
+        "cell_flags": (cell_flags, _U8, (b, 4, h * w)),
+        "door_slot": (door_slot, torch.int8, (b, 4, h * w)),
+        "toggle_cfg": (toggle_cfg, _I32, (b, C, D)),
+    })
     lpb, G = vi_plan(C, D, h * w)
     _check_vi_plan(C, D, h * w, lpb, G)
-    dev = walk_front.device
     v = torch.empty(shape, dtype=torch.float32, device=dev)
-    fn = _lib_fn("vi", "vi_launch", [_P] * 5 + [_I] * 7 + [_F, _I, _P])
-    _launch(
+    fn = _kernels.entry("vi", "vi_launch", [_P] * 5 + [_I] * 7 + [_F, _I, _P])
+    _kernels.launch(
         dev, fn,
         walk_front.data_ptr(), cell_flags.data_ptr(), door_slot.data_ptr(),
         toggle_cfg.data_ptr(), v.data_ptr(), b, C, D, h, w, lpb, G, gamma, n_sweeps,
@@ -347,7 +323,7 @@ KEY_GRID_ROWS = 32  # rows of a resident grid CTA, at most (kGridRows: a bit eac
 # CTAs of a layout on the grid route, at most: a group must be resident at
 # once, one CTA an SM, and an H100 SXM has 132 SMs.
 KEY_GRID_MAX_CTAS = 128
-ROUTES = ("cluster", "wide", "grid", "global")
+ROUTES = ("cluster", "wide", "grid")
 
 
 def key_vi_groups(hw: int) -> int:
@@ -468,7 +444,7 @@ def key_vi_route(K: int, C: int, hw: int) -> Tuple[str, int]:
 def key_vi_active_clusters(C: int, h: int, w: int, n: int) -> int:
     """Clusters of ``n`` CTAs of the cluster kernel that the current card
     can hold at once (``cudaOccupancyMaxActiveClusters``)."""
-    fn = _lib_fn("key_vi", "key_vi_cluster_occupancy", [_I] * 5)
+    fn = _kernels.entry("key_vi", "key_vi_cluster_occupancy", [_I] * 5)
     got = fn(C, h, w, n, key_vi_groups(h * w))
     if got < 0:
         raise RuntimeError(f"key_vi_cluster_occupancy failed: CUDA error {-got}")
@@ -478,7 +454,7 @@ def key_vi_active_clusters(C: int, h: int, w: int, n: int) -> int:
 def key_vi_wide_active_clusters(C: int, h: int, w: int, n: int = KEY_WIDE_CLUSTER) -> int:
     """Clusters of ``n`` CTAs of the wide kernel that the current card can
     hold at once (``cudaOccupancyMaxActiveClusters``)."""
-    fn = _lib_fn("key_vi", "key_vi_wide_occupancy", [_I] * 6)
+    fn = _kernels.entry("key_vi", "key_vi_wide_occupancy", [_I] * 6)
     got = fn(C, h, w, n, key_vi_wide_groups(h * w), int(key_vi_wide_in_place(C, h * w, n)))
     if got < 0:
         raise RuntimeError(f"key_vi_wide_occupancy failed: CUDA error {-got}")
@@ -489,7 +465,7 @@ def key_vi_grid_active_groups(C: int, h: int, w: int, n: int, resident: bool) ->
     """Groups of ``n`` grid CTAs that the current card holds at once: the
     CTAs it holds (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` times
     its SMs) over n."""
-    fn = _lib_fn("key_vi", "key_vi_grid_occupancy", [_I] * 6)
+    fn = _kernels.entry("key_vi", "key_vi_grid_occupancy", [_I] * 6)
     got = fn(C, h, w, n, key_vi_grid_threads(h * w), int(resident))
     if got < 0:
         raise RuntimeError(f"key_vi_grid_occupancy failed: CUDA error {-got}")
@@ -499,9 +475,11 @@ def key_vi_grid_active_groups(C: int, h: int, w: int, n: int, resident: bool) ->
 def _check_key_masks(masks, shape) -> None:
     cell_flags, cfg_flags, door_bit = masks
     b, K, C, _, h, w = shape
-    _check_mask(cell_flags, "cell_flags", _U8, (b, 4, h * w))
-    _check_mask(cfg_flags, "cfg_flags", _U8, (b, C, 4, h * w))
-    _check_mask(door_bit, "door_bit", _U8, (b, 4, h * w))
+    _kernels.check("key_vi masks", cell_flags.device, {
+        "cell_flags": (cell_flags, _U8, (b, 4, h * w)),
+        "cfg_flags": (cfg_flags, _U8, (b, C, 4, h * w)),
+        "door_bit": (door_bit, _U8, (b, 4, h * w)),
+    })
 
 
 def _key_vi_kernel_cluster(masks, gamma: float, n_sweeps: int, shape, n: int) -> torch.Tensor:
@@ -517,8 +495,8 @@ def _key_vi_kernel_cluster(masks, gamma: float, n_sweeps: int, shape, n: int) ->
         raise ValueError(f"no cluster of {n} CTAs of {G} groups for K={K}, H*W={h * w}")
     dev = masks[0].device
     v = torch.empty(shape, dtype=torch.float32, device=dev)
-    fn = _lib_fn("key_vi", "key_vi_cluster_launch", [_P] * 4 + [_I] * 6 + [_F, _I, _P])
-    _launch(
+    fn = _kernels.entry("key_vi", "key_vi_cluster_launch", [_P] * 4 + [_I] * 6 + [_F, _I, _P])
+    _kernels.launch(
         dev, fn, *(m.data_ptr() for m in masks), v.data_ptr(), b, C, h, w, n, G,
         gamma, n_sweeps,
     )
@@ -541,8 +519,8 @@ def _key_vi_kernel_wide(masks, gamma: float, n_sweeps: int, shape,
         raise ValueError(f"no wide cluster of {n} CTAs of {G} groups for K={K}, C={C}, H*W={h * w}")
     dev = masks[0].device
     v = torch.empty(shape, dtype=torch.float32, device=dev)
-    fn = _lib_fn("key_vi", "key_vi_wide_launch", [_P] * 4 + [_I] * 7 + [_F, _I, _P])
-    _launch(
+    fn = _kernels.entry("key_vi", "key_vi_wide_launch", [_P] * 4 + [_I] * 7 + [_F, _I, _P])
+    _kernels.launch(
         dev, fn, *(m.data_ptr() for m in masks), v.data_ptr(), b, C, h, w, n, G,
         int(in_place), gamma, n_sweeps,
     )
@@ -575,28 +553,11 @@ def _key_vi_kernel_grid(masks, gamma: float, n_sweeps: int, shape, n: int) -> to
     # one layout of V a group, the double buffer's second half.
     scratch = torch.empty((groups, 4 if resident else K, C * 4 * hw), dtype=torch.float32, device=dev)
     count = torch.zeros(groups, dtype=torch.int32, device=dev)
-    fn = _lib_fn("key_vi", "key_vi_grid_launch", [_P] * 6 + [_I] * 8 + [_F, _I, _P])
-    _launch(
+    fn = _kernels.entry("key_vi", "key_vi_grid_launch", [_P] * 6 + [_I] * 8 + [_F, _I, _P])
+    _kernels.launch(
         dev, fn, *(m.data_ptr() for m in masks), v.data_ptr(), scratch.data_ptr(),
         count.data_ptr(), b, C, h, w, n, key_vi_grid_threads(hw), groups, int(resident),
         gamma, n_sweeps,
-    )
-    return v
-
-
-def _key_vi_kernel_global(masks, gamma: float, n_sweeps: int, shape) -> torch.Tensor:
-    """Launch the global kernel of ``csrc/key_vi.cu`` (one block a layout, V
-    double-buffered in device memory), the yardstick of the grid route; no
-    route takes it.  V of ``shape`` (B, K, C, 4, H, W) f32."""
-    _check_key_masks(masks, shape)
-    b, K, C, _, h, w = shape
-    dev = masks[0].device
-    v = torch.empty(shape, dtype=torch.float32, device=dev)
-    scratch = torch.empty(shape, dtype=torch.float32, device=dev)
-    fn = _lib_fn("key_vi", "key_vi_global_launch", [_P] * 5 + [_I] * 4 + [_F, _I, _P])
-    _launch(
-        dev, fn, *(m.data_ptr() for m in masks), v.data_ptr(), scratch.data_ptr(),
-        b, C, h, w, gamma, n_sweeps,
     )
     return v
 

@@ -56,10 +56,11 @@ JAX compiles the whole update into one program, its collector and its
 minibatch loop each a ``lax.scan``.  Here each loop has a step that reads
 and writes only tensors of fixed address, its index on the device: the
 collector's (``_collect_step``: the observation of the carried lanes, the
-policy's draw, the env step, auto-reset, the step's row of the
-trajectory) and the learner's (``_learn_step``: the rank's share of the
-minibatch's envs through the epoch's permutation, the loss, its backward,
-the clip and Adam, the step's loss terms).  On a CUDA device each step is captured
+policy's draw, the step's row of the trajectory, the env step and
+auto-reset through the lane engine's plain step, ``lanes.AutoresetStep``)
+and the learner's (``_learn_step``: the rank's share of the minibatch's
+envs through the epoch's permutation, the loss, its backward, the clip
+and Adam, the step's loss terms).  On a CUDA device each step is captured
 once as a CUDA graph (``lanes.capture_step``) and replayed,
 ``rollout_len`` and ``epochs * num_minibatches`` times an update; on the
 CPU the same steps run in Python loops, as they do on any device in
@@ -121,7 +122,6 @@ from minigrid_dynamicprogramming_tpu_torch.parallel.sharding import (
 )
 from minigrid_dynamicprogramming_tpu_torch.utils import profiling
 
-AUTORESETS = ("pool", "cached", "regen")
 # One lane engine serves both of JAX's collectors.
 COLLECTORS = ("lanes", "vmap")
 
@@ -349,8 +349,7 @@ class PPO:
         device="cuda",
         group: Optional[EnvGroup] = None,
     ):
-        if config.autoreset not in AUTORESETS:
-            raise ValueError(f"unknown autoreset mode {config.autoreset!r}")
+        L.autoreset_rounds(config.autoreset, config.pool_rounds)  # raises on an unknown mode
         if config.collector not in COLLECTORS:
             raise ValueError(f"unknown collector {config.collector!r}")
         if config.num_envs % config.num_minibatches:
@@ -371,9 +370,6 @@ class PPO:
         positions, weights = minibatch_shares(config.num_envs // config.num_minibatches, self.world)
         self._share = positions[self.rank].to(self.device)
         self._row_weight = weights[self.rank].repeat(config.rollout_len).to(self.device)
-        self._skip = L._skip_fields(env.params)
-        hooked = env.pre_step_lanes is not None or env.post_step_lanes is not None
-        self._hook_draws = hooked and env.hook_rng
         # Whether an update replays its loops as CUDA graphs: on a CUDA
         # device; the learner only where a graph can hold its collectives.
         self._capture = self.device.type == "cuda"
@@ -407,10 +403,8 @@ class PPO:
             pool = None
             env_state = env.generate(g, env.params, B, dev)
         else:
-            pool = L._lane_pool(env, g, B, cfg.autoreset, cfg.pool_rounds, dev)
-            env_state = L.from_lanes(
-                env.params, L.LaneState(**{n: getattr(pool, n)[0] for n in L._FIELDS})
-            )
+            pool = L.lane_pool(env, g, B, cfg.autoreset, cfg.pool_rounds, dev)
+            env_state = L.from_lanes(env.params, pool.round(0))
         return TrainState(
             model=model,
             optimizer=optimizer,
@@ -459,7 +453,7 @@ class PPO:
     def _final(self, c: _Rollout):
         """The carried lanes as a batch-first state and its observation,
         both copies."""
-        ls = L._clone_lanes(c.ls)
+        ls = c.ls.clone()
         return L.from_lanes(self.env.params, ls), self.env.observation_lanes(ls)
 
     # -- the collector -------------------------------------------------------
@@ -474,7 +468,7 @@ class PPO:
     def _rollout_carry(self, ts: TrainState) -> _Rollout:
         if self._rollout is None:
             cfg, dev = self.config, self.device
-            ls = L._clone_lanes(L.to_lanes(ts.env_state))
+            ls = L.to_lanes(ts.env_state).clone()
             obs = self.env.observation_lanes(ls)
             T, B = cfg.rollout_len, self.num_envs
 
@@ -501,22 +495,21 @@ class PPO:
 
     def _load(self, c: _Rollout, ts: TrainState) -> None:
         """The TrainState's lanes and reset counts into the carry, at step 0."""
-        ls = L.to_lanes(ts.env_state)
-        for name in L._FIELDS:
-            getattr(c.ls, name).copy_(getattr(ls, name))
+        c.ls.copy_(L.to_lanes(ts.env_state))
         c.reset_count.copy_(ts.reset_count)
         c.t.zero_()
 
     def _collect_step(self, c: _Rollout, model: ActorCritic, pool, g: torch.Generator) -> None:
         """One step of JAX's rollout body, in its order, on the carry
         ``c``: the observation of the carried lanes, the policy's draw, the
-        env step and auto-reset.  It reads the model's parameters in
-        place, the pool and the generator, and writes nothing but ``c``.
-        Its parts are ``graph_span``s: ``ppo.collect.step`` holds
-        ``ppo.collect.observation``, ``ppo.collect.policy`` (the forward,
-        the draw and its log-probability) and ``ppo.collect.env`` (the env
-        step, auto-reset and the trajectory's writes)."""
-        env, p = self.env, self.env.params
+        env step and auto-reset (``lanes.AutoresetStep``).  It reads the
+        model's parameters in place, the pool and the generator, and
+        writes nothing but ``c``.  Its parts are ``graph_span``s:
+        ``ppo.collect.step`` holds ``ppo.collect.observation``,
+        ``ppo.collect.policy`` (the forward, the draw and its
+        log-probability) and ``ppo.collect.env`` (the env step, the
+        trajectory's writes and auto-reset)."""
+        env, cfg = self.env, self.config
         t = c.t.view(1)
         with torch.no_grad(), profiling.graph_span("ppo.collect.step"):
             with profiling.graph_span("ppo.collect.observation"):
@@ -526,24 +519,16 @@ class PPO:
                 action = sample_actions(logits, g)
                 logp = logits.log_softmax(-1).gather(1, action[:, None])[:, 0]
             with profiling.graph_span("ppo.collect.env"):
-                ls, reward, term = L.step_lanes_env(env, c.ls, action, g if self._hook_draws else None)
-                done = term | ls.truncated
-                reset_count = c.reset_count + done.to(torch.int32)
-                if pool is None:
-                    fresh = L.to_lanes(env.generate(g, p, self.num_envs, self.device))
-                else:
-                    rounds = pool.agent_dir.shape[0]
-                    fresh = L._select_pool(pool, reset_count % rounds, rounds, self._skip)
-                ls = L._select_lanes(done, fresh, ls, self._skip)
+                plain = L.AutoresetStep(env, cfg.autoreset, cfg.pool_rounds, pool, g, self.num_envs,
+                                        self.device)
+                ls, reward, term, done, reset_count = plain.transition(c.ls, c.reset_count, action)
+                # The observation reads the carried lanes (its direction is
+                # their own tensor): its row is written before the reset.
                 for k, x in obs.items():
                     c.traj.obs[k].index_copy_(0, t, x[None])
                 for buf, x in zip(c.traj[1:], (action, logp, value, reward, done)):
                     buf.index_copy_(0, t, x[None])
-                # A field the step left alone is the carry's own tensor: its
-                # copy onto itself does nothing.
-                for name in L._FIELDS:
-                    getattr(c.ls, name).copy_(getattr(ls, name))
-                c.reset_count.copy_(reset_count)
+                plain.reset(c.ls, c.reset_count, ls, done, reset_count, plain.generate())
                 c.t.add_(1)
 
     def _run_collector(self, ts: TrainState, eager: bool) -> _Rollout:

@@ -27,8 +27,8 @@ from minigrid_dynamicprogramming_tpu_torch.parallel.lanes import (
     LaneState,
     _dir_vec,
     _read,
-    _select_lanes,
     _write,
+    select_lanes,
 )
 
 # Planes a registry gate declares constant for the family: writes to them
@@ -138,7 +138,7 @@ def sample_mask_pos(
 
 def select_state(cond: torch.Tensor, a: LaneState, b: LaneState) -> LaneState:
     """Per-env ``where(cond, a, b)``."""
-    return _select_lanes(cond, a, b)
+    return select_lanes(cond, a, b)
 
 
 def reduce_any_cells(params: EnvParams, ls: LaneState, mask: torch.Tensor) -> torch.Tensor:

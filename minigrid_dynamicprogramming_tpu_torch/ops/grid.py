@@ -190,14 +190,6 @@ def elem_set(arr: torch.Tensor, i, val) -> torch.Tensor:
     return torch.where(index_hit(arr.shape[1], i, arr.device), val, arr)
 
 
-def row_set(arr: torch.Tensor, i, row) -> torch.Tensor:
-    """``arr[b, i, :] = row[b]`` per env on a (B, N, M) tensor; ``row`` is
-    (M,) or (B, M).  An index outside [0, N) writes nothing."""
-    hit = index_hit(arr.shape[1], i, arr.device)[:, :, None]
-    row = torch.as_tensor(row, device=arr.device).to(arr.dtype)
-    return torch.where(hit, row.reshape(-1, 1, arr.shape[2]), arr)
-
-
 def horz_wall_mask(height: int, width: int, x, y, length, device) -> torch.Tensor:
     ys, xs = coord_grids(height, width, device)
     x, y, length = (_per_env(v, device) for v in (x, y, length))

@@ -28,8 +28,8 @@ and in ``obs_lanes`` and ``obs_image_lanes`` on any device, they are
 plain code.  On a CUDA device, for a family with no hook, the step's
 transition, autoreset and write-back are one more (``csrc/step.cu``,
 :func:`step_lanes_kernel`, in place; :func:`step_path` decides); hooked
-families, BabyAI and the CPU step through the plain ``step_lanes_env``
-and the autoreset select, which PPO's collector also calls.
+families, BabyAI and the CPU take the plain step with autoreset,
+:class:`AutoresetStep`, which PPO's collector also takes.
 """
 
 from __future__ import annotations
@@ -113,6 +113,24 @@ class LaneState:
 
     def replace(self, **changes) -> "LaneState":
         return dataclasses.replace(self, **changes)
+
+    def map(self, fn) -> "LaneState":
+        """``fn`` applied to every field."""
+        return LaneState(**{name: fn(getattr(self, name)) for name in _FIELDS})
+
+    def clone(self) -> "LaneState":
+        return self.map(torch.clone)
+
+    def round(self, r: int) -> "LaneState":
+        """Round ``r`` of a pool: each field's views at leading index ``r``."""
+        return self.map(lambda x: x[r])
+
+    def copy_(self, src: "LaneState") -> None:
+        """Every field of ``src`` copied into this state's tensors, in
+        place.  A field that is this state's own tensor is left alone: its
+        copy onto itself does nothing."""
+        for name in _FIELDS:
+            getattr(self, name).copy_(getattr(src, name))
 
 
 _FIELDS = tuple(f.name for f in dataclasses.fields(LaneState))
@@ -483,27 +501,12 @@ def obs_checksum_lanes(params: EnvParams, ls: LaneState, out: torch.Tensor, t: t
         raise ValueError(f"agent_view_size {v} exceeds the visibility sweep's {MAX_VIEW}")
     b = ls.agent_x.shape[0]
     dev = ls.grid_obj.device
-    args = [
-        (ls.grid_obj, _U8, (h * w, b)), (ls.grid_color, _U8, (h * w, b)),
-        (ls.grid_state, _U8, (h * w, b)), (ls.agent_x, torch.int32, (b,)),
-        (ls.agent_y, torch.int32, (b,)), (ls.agent_dir, torch.int32, (b,)),
-        (ls.carrying_obj, _U8, (b,)), (ls.carrying_color, _U8, (b,)),
-        (out, torch.int64, (out.numel(),)), (t, torch.int64, (1,)),
-    ]
-    for x, dtype, shape in args:
-        if (x.device != dev or x.dtype != dtype or tuple(x.shape) != shape
-                or not x.is_contiguous()):
-            raise ValueError(
-                f"obs_checksum_lanes: want contiguous {dtype} {shape} on {dev}, got "
-                f"{x.dtype} {tuple(x.shape)} on {x.device} (contiguous: {x.is_contiguous()})"
-            )
-    with torch.cuda.device(dev):
-        err = _obs_launch()(
-            *(x.data_ptr() for x, _, _ in args), b, h, w, v, int(params.see_through_walls),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"obs_checksum_launch failed: CUDA error {err}")
+    args = _lane_spec(ls, ("grid_obj", "grid_color", "grid_state", "agent_x", "agent_y",
+                           "agent_dir", "carrying_obj", "carrying_color"), h * w)
+    args.update(out=(out, torch.int64, (out.numel(),)), t=(t, torch.int64, (1,)))
+    _kernels.check("obs_checksum_lanes", dev, args)
+    _kernels.launch(dev, _obs_launch(), *(x.data_ptr() for x, _, _ in args.values()), b, h, w, v,
+                    int(params.see_through_walls))
     profiling.count("obs.launches")
     profiling.count(f"obs.launches.{obs_instance(v)}")
 
@@ -519,10 +522,8 @@ def obs_instance(v: int) -> str:
 def _obs_launch():
     """``csrc/obs.cu``'s entry point, built and loaded at its first call:
     the capture's warm-up step, before any graph or span of the step."""
-    fn = _kernels.library("obs").obs_checksum_launch
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    return _kernels.entry("obs", "obs_checksum_launch",
+                          [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 
 
 _I32_FIELDS = frozenset({
@@ -560,11 +561,21 @@ def _field_dtype(name: str) -> torch.dtype:
     return torch.bool if name in ("terminated", "truncated") else _U8
 
 
+def _lane_spec(ls: LaneState, names, hw: int) -> dict:
+    """``_kernels.check``'s entries for the fields ``names`` of ``ls``: each
+    field's dtype and lane-major shape, (HW, B) for a plane, (AUX, B) and
+    (MS, B) for aux and mission, (B,) for the rest."""
+    b = ls.agent_x.shape[0]
+    rows = {"aux": ls.aux.shape[0], "mission": ls.mission.shape[0], **dict.fromkeys(_PLANES, hw)}
+    return {name: (getattr(ls, name), _field_dtype(name),
+                   (rows[name], b) if name in rows else (b,)) for name in names}
+
+
 def step_path(env: Environment, device: torch.device) -> str:
     """The step that ``_Scan`` takes, from the env record and the device
     alone: ``"kernel"`` (``csrc/step.cu``, :func:`step_lanes_kernel`) on a
     CUDA device for a family with no hook and a fixed step limit, else
-    ``"plain"`` (``step_lanes_env`` and the plain autoreset select)."""
+    ``"plain"`` (:class:`AutoresetStep`)."""
     hooks = (env.action_map, env.pre_step_lanes, env.post_step_lanes)
     fixed_limit = env.params.opt("dynamic_max_steps_slot") is None
     if device.type == "cuda" and all(h is None for h in hooks) and fixed_limit:
@@ -590,8 +601,8 @@ def step_lanes_kernel(
     ``csrc/step.cu`` on the current stream: :func:`step_lanes`' transition
     and truncation, then, in each lane that is done, ``reset_count``
     incremented and the lane's fresh layout over every field but the
-    family's fixed ones (``_skip_fields``), as ``_select_pool`` and
-    ``_select_lanes`` give it.
+    family's fixed ones (``_skip_fields``), as :class:`AutoresetStep`
+    gives it.
 
     ``fresh`` is a lane-major pool of ``rounds`` rounds, (R, ..., B) ("pool"
     and "cached": round ``reset_count % rounds``), or a batch-first
@@ -616,38 +627,27 @@ def step_lanes_kernel(
     dev = ls.grid_obj.device
     if dev.type != "cuda":
         raise ValueError(f"step_lanes_kernel: the lanes are on {dev}, not a CUDA device")
-
-    def lane_shape(name):
-        n = {"aux": n_aux, "mission": n_mission}.get(name, h * w if name in _PLANES else None)
-        return (b,) if n is None else (n, b)
-
-    args = [(f"ls.{n}", getattr(ls, n), _field_dtype(n), lane_shape(n)) for n in _FIELDS]
+    lanes = _lane_spec(ls, _FIELDS, h * w)
+    args = {f"ls.{n}": spec for n, spec in lanes.items()}
     if batch_first:
         for f in dataclasses.fields(EnvState):
-            x = getattr(fresh, f.name)
             shape = {"agent_pos": (b, 2), "aux": (b, n_aux), "mission": (b, n_mission)}.get(
                 f.name, (b, h, w) if f.name in _PLANES else (b,))
             dtype = torch.int32 if f.name == "agent_pos" else _field_dtype(f.name)
-            args.append((f"fresh.{f.name}", x, dtype, shape))
+            args[f"fresh.{f.name}"] = (getattr(fresh, f.name), dtype, shape)
     else:
-        args += [(f"fresh.{n}", getattr(fresh, n), _field_dtype(n), (rounds, *lane_shape(n)))
-                 for n in _FIELDS]
+        args.update({f"fresh.{n}": (getattr(fresh, n), dtype, (rounds, *shape))
+                     for n, (_, dtype, shape) in lanes.items()})
     if actions.dtype not in (torch.int32, torch.int64) or rounds < 1:
         raise ValueError(f"step_lanes_kernel: {actions.dtype} actions, {rounds} rounds")
     horizon = dones.numel()
-    args += [
-        ("actions", actions, actions.dtype, (b,) if actions.dim() < 2 else (actions.shape[0], b)),
-        ("t", t, torch.int64, (1,)), ("reset_count", reset_count, torch.int32, (b,)),
-        ("reward", reward, torch.float32, (b,)), ("dones", dones, torch.int64, (horizon,)),
-        ("wins", wins, torch.int64, (horizon,)), ("ends", ends, torch.int64, (horizon,)),
-    ]
-    for name, x, dtype, shape in args:
-        if (x.device != dev or x.dtype != dtype or tuple(x.shape) != shape
-                or not x.is_contiguous()):
-            raise ValueError(
-                f"step_lanes_kernel: {name}: want contiguous {dtype} {shape} on {dev}, got "
-                f"{x.dtype} {tuple(x.shape)} on {x.device} (contiguous: {x.is_contiguous()})"
-            )
+    args.update(
+        actions=(actions, actions.dtype, (b,) if actions.dim() < 2 else (actions.shape[0], b)),
+        t=(t, torch.int64, (1,)), reset_count=(reset_count, torch.int32, (b,)),
+        reward=(reward, torch.float32, (b,)), dones=(dones, torch.int64, (horizon,)),
+        wins=(wins, torch.int64, (horizon,)), ends=(ends, torch.int64, (horizon,)),
+    )
+    _kernels.check("step_lanes_kernel", dev, args)
 
     st = _StepArgs()
     for name in _FIELDS:
@@ -664,10 +664,7 @@ def step_lanes_kernel(
     st.n_aux, st.n_mission = n_aux, n_mission
     st.flags = sum(bit for k, bit in _STEP_FLAGS.items() if params.opt(k, False)) + (
         _BATCH_FIRST if batch_first else 0)
-    with torch.cuda.device(dev):
-        err = _step_launch()(ctypes.byref(st), torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"step_lanes_launch failed: CUDA error {err}")
+    _kernels.launch(dev, _step_launch(), ctypes.byref(st))
     profiling.count("lanes.step_kernel.launches")
     profiling.count(f"lanes.step_kernel.launches.{autoreset}")
 
@@ -682,10 +679,7 @@ def _step_launch():
             f"csrc/step.cu's StepArgs is {lib.step_args_bytes()} bytes, its mirror "
             f"{ctypes.sizeof(_StepArgs)}"
         )
-    fn = lib.step_lanes_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    return _kernels.entry("step", "step_lanes_launch", [ctypes.c_void_p, ctypes.c_void_p])
 
 
 def obs_image_lanes(params: EnvParams, ls: LaneState) -> torch.Tensor:
@@ -715,10 +709,14 @@ def step_lanes_env(
     """:func:`step_lanes` with the env's per-family hooks, in the JAX
     order: ``action_map``; ``prev`` taken after the map and before
     ``pre_step_lanes``; the core step; ``post_step_lanes``, whose
-    termination goes onto the state.  ``generator`` feeds hooks that draw
-    (``env.hook_rng``).  Returns ``(new_state, reward, terminated)``;
-    ``truncated`` lives on the state."""
+    termination goes onto the state.  The hooks get ``generator`` where
+    they draw (``env.hooks_draw``), and None elsewhere; a family whose
+    hooks draw raises without one.  Returns ``(new_state, reward,
+    terminated)``; ``truncated`` lives on the state."""
     params = env.params
+    if env.hooks_draw and generator is None:
+        raise ValueError(f"{env.env_id}: its hooks draw; pass a generator")
+    generator = generator if env.hooks_draw else None
     if env.action_map is not None:
         action = env.action_map(params, action)
     prev = ls
@@ -744,7 +742,7 @@ class LaneRolloutResult(NamedTuple):
     failures: torch.Tensor  # () i64: the other terminations
 
 
-def _select_lanes(
+def select_lanes(
     done: torch.Tensor, fresh: LaneState, cur: LaneState, skip: tuple = ()
 ) -> LaneState:
     """Per-lane ``where(done, fresh, cur)``; fields in ``skip`` keep the
@@ -772,6 +770,8 @@ def _select_pool(pool: LaneState, r_idx: torch.Tensor, rounds: int, skip: tuple 
 
 
 def _skip_fields(params: EnvParams) -> tuple:
+    """The fields a family keeps fixed (registry flags), which a reset
+    leaves alone."""
     skip = ()
     if params.opt("no_boxes", False):
         skip += ("contains_obj", "contains_color")
@@ -782,6 +782,78 @@ def _skip_fields(params: EnvParams) -> tuple:
     if params.opt("fixed_aux", False):
         skip += ("aux",)
     return skip
+
+
+AUTORESETS = ("pool", "cached", "regen")
+
+
+def autoreset_rounds(autoreset: str, pool_rounds: int) -> int:
+    """The layout batches :func:`lane_pool` generates in the mode
+    ``autoreset`` (one of ``AUTORESETS``): ``pool_rounds`` for "pool", else
+    the initial batch only.  Raises on another mode."""
+    if autoreset not in AUTORESETS:
+        raise ValueError(f"unknown autoreset mode {autoreset!r}")
+    return pool_rounds if autoreset == "pool" else 1
+
+
+class AutoresetStep:
+    """The plain step with JAX's autoreset, which ``lane_rollout``'s plain
+    step and PPO's collector both take, in three calls in this order, so
+    that each caller puts its own spans around them (none is opened here):
+
+    1. :meth:`transition`: ``step_lanes_env``, looked up when it is called,
+       its hooks drawing from ``generator`` where they draw; ``done =
+       terminated | truncated``; the reset counts plus ``done``;
+    2. :meth:`generate`: in "regen", a fresh batch of layouts
+       (``env.generate``), drawn after the hooks; None in the other modes;
+    3. :meth:`reset`: each done lane's next layout over every field but
+       the family's fixed ones (:meth:`select`), written with the reset
+       counts into the carried tensors in place.
+
+    ``pool`` is :func:`lane_pool`'s (R, ..., B) for "pool" and "cached";
+    "regen" reads none.  On a card, ``csrc/step.cu`` steps a family with
+    no hook the same way (:func:`step_lanes_kernel`), but it writes no
+    per-lane reward or done, which PPO records, so PPO stays on this
+    step."""
+
+    def __init__(self, env: Environment, autoreset: str, pool_rounds: int,
+                 pool: Optional[LaneState], generator: Optional[torch.Generator],
+                 batch_size: int, device):
+        self.rounds = autoreset_rounds(autoreset, pool_rounds)
+        self.env, self.autoreset, self.pool, self.generator = env, autoreset, pool, generator
+        self.batch_size, self.device = batch_size, device
+        self.skip = _skip_fields(env.params)
+
+    def transition(self, ls: LaneState, reset_count: torch.Tensor, action: torch.Tensor):
+        """Returns ``(ls, reward, terminated, done, reset_count)``, all new."""
+        ls, reward, term = step_lanes_env(self.env, ls, action, self.generator)
+        done = term | ls.truncated
+        return ls, reward, term, done, reset_count + done.to(torch.int32)
+
+    def generate(self) -> Optional[EnvState]:
+        if self.autoreset != "regen":
+            return None
+        return self.env.generate(self.generator, self.env.params, self.batch_size, self.device)
+
+    def select(self, ls: LaneState, done: torch.Tensor, reset_count: torch.Tensor,
+               flat: Optional[EnvState]) -> LaneState:
+        """``ls`` with each done lane's next layout: pool round
+        ``reset_count % rounds`` ("pool"), round 0 ("cached"), or its own
+        of :meth:`generate`'s ``flat`` ("regen")."""
+        if self.autoreset == "pool":
+            fresh = _select_pool(self.pool, reset_count % self.rounds, self.rounds, self.skip)
+        elif self.autoreset == "regen":
+            fresh = to_lanes(flat)
+        else:
+            fresh = self.pool.round(0)
+        return select_lanes(done, fresh, ls, self.skip)
+
+    def reset(self, carry: LaneState, carry_resets: torch.Tensor, ls: LaneState,
+              done: torch.Tensor, reset_count: torch.Tensor, flat: Optional[EnvState]) -> None:
+        """:meth:`select`, then it and ``reset_count`` copied into ``carry``
+        and ``carry_resets``."""
+        carry.copy_(self.select(ls, done, reset_count, flat))
+        carry_resets.copy_(reset_count)
 
 
 def lane_rollout(
@@ -835,7 +907,7 @@ def lane_rollout(
         profiling.load_stamps(dev)
     with profiling.span("lanes.rollout"):
         with profiling.span("lanes.pool"):
-            pool = _lane_pool(env, generator, lanes, autoreset, pool_rounds, dev)
+            pool = lane_pool(env, generator, lanes, autoreset, pool_rounds, dev)
         return _lane_scan(
             env, generator, pool, lanes, horizon, autoreset, pool_rounds, actions, group
         )
@@ -847,15 +919,7 @@ def shard_lanes(ls: LaneState, group: EnvGroup) -> LaneState:
     return shard_batch(ls, group, axis=-1)
 
 
-def _rounds(autoreset: str, pool_rounds: int) -> int:
-    """The layout batches ``_lane_pool`` generates: ``pool_rounds`` for
-    "pool", else the initial batch only."""
-    if autoreset not in ("pool", "cached", "regen"):
-        raise ValueError(f"unknown autoreset mode {autoreset!r}")
-    return pool_rounds if autoreset == "pool" else 1
-
-
-def _lane_pool(
+def lane_pool(
     env: Environment,
     generator: torch.Generator,
     batch_size: int,
@@ -863,11 +927,12 @@ def _lane_pool(
     pool_rounds: int,
     device,
 ) -> LaneState:
-    """``rounds`` generated layout batches, lane-major, stacked on a leading
-    rounds axis."""
+    """:func:`autoreset_rounds` generated layout batches, lane-major,
+    stacked on a leading rounds axis: the pool of ``lane_rollout`` and of
+    PPO's collector."""
     if not supports_lanes(env):
         raise ValueError(f"{env.env_id}: the lane engine does not cover its hooks")
-    rounds = _rounds(autoreset, pool_rounds)
+    rounds = autoreset_rounds(autoreset, pool_rounds)
     with profiling.span("generator.generate"):
         flat = env.generate(generator, env.params, rounds * batch_size, device)
     return stack_rounds(flat, batch_size, rounds)
@@ -910,11 +975,7 @@ class _Carry(NamedTuple):
     checksums: torch.Tensor  # (T,) i64, zeroed: the step adds into slot t
 
     def clone(self) -> "_Carry":
-        return _Carry(_clone_lanes(self.ls), *(x.clone() for x in self[1:]))
-
-
-def _clone_lanes(ls: LaneState) -> LaneState:
-    return LaneState(**{name: getattr(ls, name).clone() for name in _FIELDS})
+        return _Carry(self.ls.clone(), *(x.clone() for x in self[1:]))
 
 
 def capture_step(step, warmup, device, generator: Optional[torch.Generator] = None,
@@ -995,7 +1056,6 @@ class _Scan:
         pool_rounds: int,
         actions: Optional[torch.Tensor],
     ):
-        self.rounds = _rounds(autoreset, pool_rounds)
         self.device = dev = pool.grid_obj.device
         if autoreset == "regen" and generator is None:
             raise ValueError('"regen" generates from the generator; pass one')
@@ -1006,21 +1066,17 @@ class _Scan:
             raise ValueError(
                 f"actions must be ({horizon}, {batch_size}), got {tuple(actions.shape)}"
             )
-        hooked = env.pre_step_lanes is not None or env.post_step_lanes is not None
-        if hooked and env.hook_rng and generator is None:
-            raise ValueError(f"{env.env_id}: its hooks draw; pass a generator")
         self.path = step_path(env, dev)
         if self.path == "kernel":
             # The kernel reads the pool and the actions where they lie, and a
             # rank's slice of a group's lanes (``shard_lanes``) is strided.
-            pool = LaneState(**{name: getattr(pool, name).contiguous() for name in _FIELDS})
+            pool = pool.map(torch.Tensor.contiguous)
             actions = None if actions is None else actions.contiguous()
         self.env, self.generator, self.pool = env, generator, pool
         self.batch_size, self.horizon, self.autoreset = batch_size, horizon, autoreset
-        self.hook_gen = generator if hooked and env.hook_rng else None
+        self.plain = AutoresetStep(env, autoreset, pool_rounds, pool, generator, batch_size, dev)
+        self.rounds = self.plain.rounds
         self.actions = None if actions is None else actions.to(dev)
-        self.skip = _skip_fields(env.params)
-        self.init_ls = LaneState(**{name: getattr(pool, name)[0] for name in _FIELDS})
         # The kernel step's per-lane reward, summed into the carry's slot.
         self.reward = (torch.empty(batch_size, dtype=torch.float32, device=dev)
                        if self.path == "kernel" else None)
@@ -1037,7 +1093,7 @@ class _Scan:
         # observation checksum (and, on the kernel path, its counts) into
         # its slot, so those slots start at 0.
         self.carry = _Carry(
-            ls=_clone_lanes(self.init_ls),
+            ls=pool.round(0).clone(),
             reset_count=torch.zeros(batch_size, dtype=torch.int32, device=dev),
             t=torch.zeros((), dtype=torch.int64, device=dev),
             rewards=empty(torch.float32),
@@ -1087,13 +1143,14 @@ class _Scan:
             c.t.add_(1)
 
     def step_plain(self, c: _Carry) -> None:
-        """The step in plain code, on any device and for every family, in
-        JAX's order.  Its parts are ``graph_span``s: ``lanes.step`` holds
-        ``lanes.transition``, ``generator.generate`` ("regen"),
-        ``lanes.select`` and ``lanes.observation``; the write-back is
-        ``lanes.step``'s own time.  Counts ``lanes.plain_steps``."""
+        """The step in plain code (:class:`AutoresetStep`), on any device
+        and for every family, in JAX's order.  Its parts are
+        ``graph_span``s: ``lanes.step`` holds ``lanes.transition`` (with
+        the action draw), ``generator.generate`` ("regen"),
+        ``lanes.select`` (with the write-back) and ``lanes.observation``.
+        Counts ``lanes.plain_steps``."""
         profiling.count("lanes.plain_steps")
-        env = self.env
+        env, plain = self.env, self.plain
         t = c.t.view(1)
         with profiling.graph_span("lanes.step"):
             with profiling.graph_span("lanes.transition"):
@@ -1104,31 +1161,19 @@ class _Scan:
                     )
                 else:
                     act = self.actions.index_select(0, t)[0]
-                ls, reward, term = step_lanes_env(env, c.ls, act, self.hook_gen)
-                done = term | ls.truncated
-                reset_count = c.reset_count + done.to(torch.int32)
+                ls, reward, term, done, reset_count = plain.transition(c.ls, c.reset_count, act)
+            flat = None
             if self.autoreset == "regen":
                 with profiling.graph_span("generator.generate"):
-                    flat = env.generate(self.generator, env.params, self.batch_size, self.device)
+                    flat = plain.generate()
             with profiling.graph_span("lanes.select"):
-                if self.autoreset == "pool":
-                    fresh = _select_pool(self.pool, reset_count % self.rounds, self.rounds, self.skip)
-                elif self.autoreset == "regen":
-                    fresh = to_lanes(flat)
-                else:
-                    fresh = self.init_ls
-                ls = _select_lanes(done, fresh, ls, self.skip)
+                plain.reset(c.ls, c.reset_count, ls, done, reset_count, flat)
             with profiling.graph_span("lanes.observation"):
-                obs_checksum_lanes(env.params, ls, c.checksums, t)
+                obs_checksum_lanes(env.params, c.ls, c.checksums, t)
                 c.rewards.index_copy_(0, t, reward.sum().view(1))
                 c.dones.index_copy_(0, t, done.sum().view(1))
                 c.wins.index_copy_(0, t, (term & (reward > 0)).sum().view(1))
                 c.ends.index_copy_(0, t, term.sum().view(1))
-            # A field the step left alone is the carry's own tensor: its copy
-            # onto itself does nothing.
-            for name in _FIELDS:
-                getattr(c.ls, name).copy_(getattr(ls, name))
-            c.reset_count.copy_(reset_count)
             c.t.add_(1)
 
     def run_eager(self) -> None:
@@ -1142,7 +1187,7 @@ class _Scan:
         steps a copy of the carry.  Counts ``lanes.captures`` and adds to
         ``lanes.capture_ms`` and ``lanes.pool_bytes``.  Returns ``(graph,
         pool_bytes)``."""
-        draws = self.actions is None or self.hook_gen is not None or self.autoreset == "regen"
+        draws = self.actions is None or self.env.hooks_draw or self.autoreset == "regen"
         graph, capture_ms, pool_bytes = capture_step(
             lambda: self.step(self.carry),
             lambda: self.step(self.carry.clone()),
@@ -1207,7 +1252,7 @@ def _lane_scan(
 ) -> LaneRolloutResult:
     """Step ``horizon`` times from round 0 of ``pool`` with autoreset.
     The hooks draw from ``generator`` after each step's actions, and only
-    where ``env.hook_rng``; "regen" generates from it after the hooks.
+    where ``env.hooks_draw``; "regen" generates from it after the hooks.
 
     On a CUDA device the step is captured once as a CUDA graph and
     replayed ``horizon`` times, as JAX compiles its scan into one program;

@@ -252,13 +252,9 @@ def clear() -> None:
 # --- spans inside a captured CUDA graph ------------------------------------
 
 @functools.cache
-def _stamp_lib() -> ctypes.CDLL:
-    lib = _kernels.library("trace")
-    lib.trace_stamp.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    lib.trace_stamp.restype = ctypes.c_int
-    lib.trace_graph_nodes.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_size_t)]
-    lib.trace_graph_nodes.restype = ctypes.c_int
-    return lib
+def _stamp_fn():
+    return _kernels.entry("trace", "trace_stamp", [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                                   ctypes.c_void_p])
 
 
 def load_stamps(device=None) -> None:
@@ -274,7 +270,8 @@ def load_stamps(device=None) -> None:
 def graph_nodes(graph: torch.cuda.CUDAGraph) -> int:
     """The nodes of a graph captured with ``keep_graph=True``."""
     n = ctypes.c_size_t(0)
-    err = _stamp_lib().trace_graph_nodes(ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.byref(n))
+    fn = _kernels.entry("trace", "trace_graph_nodes", [ctypes.c_void_p, ctypes.POINTER(ctypes.c_size_t)])
+    err = fn(ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.byref(n))
     if err != 0:
         raise RuntimeError(f"trace_graph_nodes failed: CUDA error {err}")
     return n.value
@@ -294,7 +291,7 @@ class GraphStamps:
 
     def __init__(self, device):
         self.device = torch.device(device)
-        self.lib = _stamp_lib()
+        self.fn = _stamp_fn()
         self.buf = torch.zeros((self.SLOTS, 3), dtype=torch.int64, device=self.device)
         self.slots: List[tuple] = []  # (name, parent slot)
         self.kernels = 0
@@ -312,10 +309,7 @@ class GraphStamps:
             RECORDER.local.stamps = prev
 
     def _stamp(self, slot: int, close: int) -> None:
-        stream = torch.cuda.current_stream(self.device).cuda_stream
-        err = self.lib.trace_stamp(self.buf.data_ptr(), slot, close, stream)
-        if err != 0:
-            raise RuntimeError(f"trace_stamp failed: CUDA error {err}")
+        _kernels.launch(self.device, self.fn, self.buf.data_ptr(), slot, close)
         self.kernels += 1
 
     def open(self, name: str, parent: Optional[int]) -> int:

@@ -145,7 +145,7 @@ def profile_regen(results: dict, env_id: str = ENV_ID, b: int = BATCH, steps: in
     dev = torch.device("cuda")
     env = make(env_id)
     g = torch.Generator(device=dev).manual_seed(0)
-    pool = L._lane_pool(env, g, b, "regen", 1, dev)
+    pool = L.lane_pool(env, g, b, "regen", 1, dev)
     out = results[label] = {"env": env_id, "B": b, "steps": steps}
     L._lane_scan_eager(env, g, pool, b, 2, "regen", 1)  # warm-up
     profiled(lambda: L._lane_scan_eager(env, g, pool, b, steps, "regen", 1),
@@ -358,9 +358,9 @@ def main(argv=None) -> int:
     params = env.params
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
-    pool = L._lane_pool(env, g, b, "pool", POOL_ROUNDS, dev)
-    skip = L._skip_fields(params)
-    ls = L.LaneState(**{n: getattr(pool, n)[0] for n in L._FIELDS})
+    pool = L.lane_pool(env, g, b, "pool", POOL_ROUNDS, dev)
+    plain = L.AutoresetStep(env, "pool", POOL_ROUNDS, pool, g, b, dev)
+    ls = pool.round(0)
     act = torch.randint(0, env.action_dim, (b,), generator=g, device=dev, dtype=torch.int32)
     done = torch.rand(b, generator=g, device=dev) < 0.01
     resets = torch.randint(0, 8, (b,), generator=g, device=dev, dtype=torch.int32)
@@ -371,14 +371,12 @@ def main(argv=None) -> int:
 
     slot = torch.zeros(1, dtype=torch.int64, device=dev)
     # The step kernel writes in place: its own copy of the state and counts.
-    kernel_ls, kernel_resets = L._clone_lanes(ls), resets.clone()
+    kernel_ls, kernel_resets = ls.clone(), resets.clone()
     counts, reward = torch.zeros(3, 1, dtype=torch.int64, device=dev), torch.empty(b, device=dev)
 
     parts = {
         "transition (step_lanes)": lambda: L.step_lanes_env(env, ls, act),
-        "autoreset select": lambda: L._select_lanes(
-            done, L._select_pool(pool, resets % POOL_ROUNDS, POOL_ROUNDS, skip), ls, skip
-        ),
+        "autoreset select": lambda: plain.select(ls, done, resets, None),
         "observation + checksum": observe,
         "observation + checksum (csrc/obs.cu)": lambda: L.obs_checksum_lanes(
             params, ls, slot, slot.new_zeros(1)

@@ -118,7 +118,7 @@ print("worker", rank, "ok", distributed.process_summary())
 
 def test_two_process_rollout_equals_one_process(tmp_path):
     env = port.make(ENV_ID)
-    pool = L._lane_pool(env, torch.Generator().manual_seed(0), B, "pool", ROUNDS, torch.device("cpu"))
+    pool = L.lane_pool(env, torch.Generator().manual_seed(0), B, "pool", ROUNDS, torch.device("cpu"))
     actions = np.random.default_rng(0).integers(0, env.action_dim, (T, B)).astype(np.int64)
     outs = [tmp_path / f"rank{r}.npz" for r in range(2)]
     for o in outs:

@@ -139,8 +139,7 @@ def test_first_ball_moves_uniformly():
     p = tenv.params
     _, one = _jax_start(jenv, 1, seed=3)
     b = 4096
-    tls = tlanes.LaneState(**{n: getattr(one, n).expand(*getattr(one, n).shape[:-1], b).clone()
-                              for n in tlanes._FIELDS})
+    tls = one.map(lambda x: x.expand(*x.shape[:-1], b).clone())
     before = to_numpy(tls)
     act = torch.zeros(b, dtype=torch.int32)
     after = to_numpy(tenv.pre_step_lanes(p, torch.Generator().manual_seed(4), tls, act))

@@ -61,7 +61,7 @@ def test_cpu_step_reaches_obs_lanes(monkeypatch):
 
     def checksum():
         g = torch.Generator().manual_seed(3)
-        pool = tlanes._lane_pool(env, g, B, "pool", 2, "cpu")
+        pool = tlanes.lane_pool(env, g, B, "pool", 2, "cpu")
         scan = tlanes._Scan(env, g, pool, B, 1, "pool", 2, None)
         scan.step(scan.carry)
         return scan.carry.checksums

@@ -18,9 +18,8 @@ open and closed doors and after an even and an odd number of sweeps, and
 double-buffered at DoorKey-8x8, the grid route (groups of CTAs that meet
 through device memory) resident at DoorKey-16x16 at two door slots,
 KeyCorridorS3R3 and DoorKey-8x8 at seven, and streamed at LockedRoom and
-a 16x16 grid at seven, through the wrapper and launched directly; the
-global kernel, launched directly, at DoorKey-16x16 at one and two door
-slots; each case checks which route's launch count moved.  The restricted-domain kernel's instance for grid
+a 16x16 grid at seven, through the wrapper and launched directly; each
+case checks which route's launch count moved.  The restricted-domain kernel's instance for grid
 sizes given at run time (and its lava flag) is held on LavaGapS7 (7x7),
 LavaCrossingS9N2 (9x9) and FourRooms (19x19, 361 threads a block; at two
 door slots 208,080 bytes of shared memory), and a hook-free and a
@@ -167,12 +166,11 @@ def test_family_rollout_card_equals_cpu(card, env_id):
     env.params = env.params.replace(max_steps=min(env.params.max_steps, 64))
     b, horizon, rounds = 128, 96, 3
     g = torch.Generator(device=card).manual_seed(8)
-    pool = tlanes._lane_pool(env, g, b, "pool", rounds, card)
+    pool = tlanes.lane_pool(env, g, b, "pool", rounds, card)
     acts = torch.randint(0, env.action_dim, (horizon, b), generator=g, device=card,
                          dtype=torch.int32)
     on_card = tlanes._lane_scan(env, None, pool, b, horizon, "pool", rounds, acts)
-    cpu_pool = tlanes.LaneState(**{n: getattr(pool, n).cpu() for n in tlanes._FIELDS})
-    on_cpu = tlanes._lane_scan(env, None, cpu_pool, b, horizon, "pool", rounds, acts.cpu())
+    on_cpu = tlanes._lane_scan(env, None, pool.map(torch.Tensor.cpu), b, horizon, "pool", rounds, acts.cpu())
     assert int(on_cpu.episodes) > 0
     for n in tlanes._FIELDS:
         assert torch.equal(getattr(on_card.final_state, n).cpu(), getattr(on_cpu.final_state, n)), n
@@ -223,25 +221,6 @@ def test_key_vi_cluster_route_8x8(card, max_doors, n, closed):
     torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
 
 
-@pytest.mark.cuda
-def test_key_vi_global_route_16x16(card):
-    """DoorKey-16x16 takes the wide route in place at one door slot and
-    the grid route at two (4.2 MB of V a layout); the global kernel,
-    launched directly on the same layouts, agrees with both."""
-    states = _states(card, "MiniGrid-DoorKey-16x16-v0", 3, seed=4)
-    layouts = tkey.extract_key_layout(states, 1)
-    got = _key_vi_on_route(layouts, 12, ("wide", 16))
-    want = tkey.key_value_iteration(layouts, GAMMA, 12)[0]
-    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
-    direct = cuda_vi._key_vi_kernel_global(cuda_vi.key_vi_masks(layouts), GAMMA, 12, want.shape)
-    torch.testing.assert_close(direct, want, rtol=0, atol=1e-6)
-    layouts2 = tkey.extract_key_layout(states, 2)
-    got = _key_vi_on_route(layouts2, 12, ("grid", 20))
-    torch.testing.assert_close(got, tkey.key_vi_values(layouts2, GAMMA, 12), rtol=0, atol=1e-6)
-    direct = cuda_vi._key_vi_kernel_global(cuda_vi.key_vi_masks(layouts2), GAMMA, 12, got.shape)
-    torch.testing.assert_close(direct, got, rtol=0, atol=1e-6)
-
-
 def _at_most_doors(states, doors: int):
     keep = (states.grid_obj == OBJ_DOOR).sum(dim=(1, 2)) <= doors
     return dataclasses.replace(states, **{k: v[keep] for k, v in states.__dict__.items()})
@@ -257,6 +236,7 @@ def _at_most_doors(states, doors: int):
     ("MiniGrid-LockedRoom-v0", 6, 2, 0, False, ("grid", 128)),
     ("MiniGrid-LockedRoom-v0", 6, 2, 33, False, ("grid", 128)),
     ("MiniGrid-DoorKey-16x16-v0", 7, 1, 12, True, ("grid", 128)),
+    ("MiniGrid-DoorKey-16x16-v0", 2, 3, 12, False, ("grid", 20)),
 ])
 def test_key_vi_grid_route(card, env_id, max_doors, batch, n_sweeps, closed, route):
     """The grid route through the wrapper, resident (DoorKey-16x16 at two
@@ -284,7 +264,9 @@ def test_key_vi_grid_route(card, env_id, max_doors, batch, n_sweeps, closed, rou
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_sweeps,closed", [(0, False), (1, False), (31, False), (30, True), (31, True)])
+@pytest.mark.parametrize("n_sweeps,closed", [
+    (0, False), (1, False), (12, False), (31, False), (30, True), (31, True),
+])
 def test_key_vi_wide_route_in_place(card, n_sweeps, closed):
     """The in-place sweep at DoorKey-16x16: the hub's CARRIED row ends in
     its second slot after an odd number of sweeps; closed doors make every
@@ -317,16 +299,14 @@ def test_key_vi_families_equal_plain(card, env_id, max_doors, route):
 
 @pytest.mark.cuda
 def test_key_vi_every_cluster_size_agrees(card):
-    """Clusters of 2, 4 and 8 CTAs, the wide route's cluster of 16
-    (double-buffered at this shape) and the global route each match the
-    plain version at DoorKey-8x8: the row split and the remote reads do
-    not change the result."""
+    """Clusters of 2, 4 and 8 CTAs and the wide route's cluster of 16
+    (double-buffered at this shape) each match the plain version at
+    DoorKey-8x8: the row split and the remote reads do not change the
+    result."""
     layouts = tkey.extract_key_layout(_states(card, "MiniGrid-DoorKey-8x8-v0", 9, seed=5), 1)
     masks = cuda_vi.key_vi_masks(layouts)
     shape = (9, 65, 2, 4, 8, 8)
     want = tkey.key_vi_values(layouts, GAMMA, 33)
-    got = cuda_vi._key_vi_kernel_global(masks, GAMMA, 33, shape)
-    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
     for n in (2, 4, 8):
         got = cuda_vi._key_vi_kernel_cluster(masks, GAMMA, 33, shape, n)
         torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
@@ -676,7 +656,7 @@ def _rollout_pair(card, env_id: str, autoreset: str, given: bool, seed: int):
             res = tlanes.lane_rollout(env, g, b, horizon, autoreset, rounds, actions=acts,
                                       device=card)
         else:
-            pool = tlanes._lane_pool(env, g, b, autoreset, rounds, card)
+            pool = tlanes.lane_pool(env, g, b, autoreset, rounds, card)
             res = tlanes._lane_scan_eager(env, g, pool, b, horizon, autoreset, rounds, acts)
         assert profiling.counter("lanes.captures") == captures + graphed
         runs.append((res, torch.randint(0, 1 << 30, (16,), generator=g, device=card)))
@@ -810,7 +790,7 @@ def test_graphed_rollout_goes_through_obs_kernel(card, monkeypatch, autoreset):
 
     monkeypatch.setattr(tlanes, "obs_checksum_lanes", plain)
     g = torch.Generator(device=card).manual_seed(4)
-    pool = tlanes._lane_pool(env, g, b, autoreset, rounds, card)
+    pool = tlanes.lane_pool(env, g, b, autoreset, rounds, card)
     eager = tlanes._lane_scan_eager(env, g, pool, b, horizon, autoreset, rounds)
     assert profiling.counter("obs.launches.v7") == launches + 2
     _assert_rollouts_equal(graphed, eager)
@@ -900,7 +880,7 @@ def test_traced_rollout_stamps_each_part_of_the_step(card, autoreset):
     assert not [r for r in recs if r["name"] == "lanes.select"]
 
     g = torch.Generator(device=card).manual_seed(9)
-    pool = tlanes._lane_pool(env, g, b, autoreset, rounds, card)
+    pool = tlanes.lane_pool(env, g, b, autoreset, rounds, card)
     scan = tlanes._Scan(env, g, pool, b, horizon, autoreset, rounds, None)
     stamps = profiling.GraphStamps(card)
     graph, _ = scan.capture(stamps)
@@ -1157,7 +1137,7 @@ def test_step_kernel_equals_plain(card, env_id, autoreset, given):
     env.params = env.params.replace(max_steps=64)
     b, horizon, rounds = 1024, 80, 3
     g = torch.Generator(device=card).manual_seed(31)
-    pool = tlanes._lane_pool(env, g, b, autoreset, rounds, card)
+    pool = tlanes.lane_pool(env, g, b, autoreset, rounds, card)
     acts = None
     if given:
         acts = torch.randint(0, env.action_dim, (horizon, b), generator=g, device=card,
@@ -1226,7 +1206,7 @@ def _hand_made_lanes(device, max_steps: int, g: torch.Generator):
                              "carrying_contains_color"), carried):
             getattr(ls, field)[i] = v
         actions[i] = action
-    return tlanes.LaneState(**{n: getattr(ls, n).to(device) for n in tlanes._FIELDS}), actions.to(device)
+    return ls.map(lambda x: x.to(device)), actions.to(device)
 
 
 @pytest.mark.cuda
@@ -1252,10 +1232,9 @@ def test_step_kernel_hand_made_fronts(card, autoreset, kept):
             return torch.randint(0, 2, shape, generator=g, device=card) == 1
         return torch.randint(0, 9, shape, generator=g, device=card, dtype=x.dtype)
 
-    pool = tlanes.LaneState(**{n: random_like(getattr(ls, n), (rounds,)) for n in tlanes._FIELDS})
+    pool = ls.map(lambda x: random_like(x, (rounds,)))
     if autoreset == "regen":
-        batch_first = tlanes.from_lanes(env.params, tlanes.LaneState(
-            **{n: random_like(getattr(ls, n)) for n in tlanes._FIELDS}))
+        batch_first = tlanes.from_lanes(env.params, ls.map(random_like))
         env.generate = lambda generator, params, n, device: batch_first
     acts = torch.randint(0, 7, (horizon, b), generator=g, device=card, dtype=torch.int64)
     acts[0] = first
@@ -1300,14 +1279,13 @@ def test_step_kernel_takes_a_rank_slice(card):
     env = port.make("MiniGrid-Empty-5x5-v0")  # T above max_steps=100: every lane resets
     b, horizon, rounds = 1024, 120, 2
     g = torch.Generator(device=card).manual_seed(5)
-    pool = tlanes._lane_pool(env, g, 2 * b, "pool", rounds, card)
+    pool = tlanes.lane_pool(env, g, 2 * b, "pool", rounds, card)
     acts = torch.randint(0, env.action_dim, (horizon, 2 * b), generator=g, device=card,
                          dtype=torch.int32)
-    half = tlanes.LaneState(**{n: getattr(pool, n)[..., b:] for n in tlanes._FIELDS})
+    half = pool.map(lambda x: x[..., b:])
     assert not half.grid_obj.is_contiguous() and not acts[:, b:].is_contiguous()
     got = tlanes._lane_scan(env, None, half, b, horizon, "pool", rounds, acts[:, b:])
-    copy = tlanes.LaneState(**{n: getattr(half, n).contiguous() for n in tlanes._FIELDS})
-    want = tlanes._lane_scan(env, None, copy, b, horizon, "pool", rounds, acts[:, b:].contiguous())
+    want = tlanes._lane_scan(env, None, half.map(torch.Tensor.contiguous), b, horizon, "pool", rounds, acts[:, b:].contiguous())
     _assert_rollouts_equal(got, want)
     assert int(want.resets_per_env.min()) > 0
 
@@ -1321,11 +1299,11 @@ def test_step_kernel_refuses_other_inputs(card):
     env = port.make("MiniGrid-DoorKey-8x8-v0")
     b = 256
     g = torch.Generator(device=card).manual_seed(2)
-    pool = tlanes._lane_pool(env, g, b, "pool", 2, card)
+    pool = tlanes.lane_pool(env, g, b, "pool", 2, card)
     scan = tlanes._Scan(env, g, pool, b, 4, "pool", 2, None)
     c = scan.carry
     acts = torch.zeros(b, dtype=torch.int32, device=card)
-    before = tlanes._clone_lanes(c.ls)
+    before = c.ls.clone()
     launches = profiling.counter("lanes.step_kernel.launches")
 
     def call(**changes):

@@ -11,6 +11,11 @@
   element, given the same gradients.
 * The collector's model inputs equal ``env.observation``, and JAX's, on
   the same states.
+* The collector's env steps equal the lane rollout's plain step, given
+  the actions the policy drew and a generator seeded alike, bit for bit:
+  per-step reward sums and done counts, the final lanes and the reset
+  counts ("pool" and "cached", on a family with no hook and on one whose
+  hook draws nothing).
 * Updates run on Empty-5x5 and GoToRedBallGrey with finite metrics, in
   every auto-reset mode, and PPO learns Empty-5x5 (as the JAX package's
   ``tests/test_ppo.py`` holds its own).
@@ -184,6 +189,34 @@ def test_collector_obs_equals_env_observation(env_id):
         assert torch.equal(traj.obs[k][0], v) and torch.equal(ts.obs[k], v), k
     for k, v in tenv.observation(env_state).items():
         assert torch.equal(last_obs[k], v), k
+
+
+@pytest.mark.parametrize("autoreset", ["pool", "cached"])
+@pytest.mark.parametrize("env_id", ["MiniGrid-DoorKey-8x8-v0", "BabyAI-GoToDoor-v0"])
+def test_collector_steps_as_the_rollout(env_id, autoreset):
+    env = port.make(env_id)
+    env.params = env.params.replace(max_steps=4)  # lanes reset inside the rollout
+    if env_id.startswith("BabyAI-"):
+        env.params = env.params.with_extra(fixed_max_steps=True)
+    B, T, rounds, seed = 16, 10, 3, 5
+    ppo = PPO(env, PPOConfig(num_envs=B, rollout_len=T, num_minibatches=1, autoreset=autoreset,
+                             pool_rounds=rounds), device="cpu")
+    ts = ppo.init(seed)
+    c = ppo._rollout_carry(ts)
+    ppo._load(c, ts)
+    for _ in range(T):
+        ppo._collect_step(c, ts.model, ts.pool, ts.generator)
+    g = torch.Generator().manual_seed(tppo.rank_seed(seed, 0))
+    pool = tlanes.lane_pool(env, g, B, autoreset, rounds, "cpu")
+    scan = tlanes._Scan(env, g, pool, B, T, autoreset, rounds, c.traj.actions)
+    scan.run_eager()
+    r = scan.carry
+    assert int(r.dones.sum()) > 0
+    assert torch.equal(r.rewards, c.traj.rewards.sum(1))
+    assert torch.equal(r.dones, c.traj.dones.sum(1))
+    assert torch.equal(r.reset_count, c.reset_count)
+    for name in tlanes._FIELDS:
+        assert torch.equal(getattr(r.ls, name), getattr(c.ls, name)), name
 
 
 @pytest.mark.parametrize(

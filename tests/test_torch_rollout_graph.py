@@ -62,7 +62,7 @@ def _env(env_id: str):
 def _pool(env, g, autoreset: str) -> tlanes.LaneState:
     """The port's layouts, with a step limit kept in an aux slot (BabyAI's)
     cut to ``MAX_STEPS`` as well."""
-    pool = tlanes._lane_pool(env, g, BATCH, autoreset, ROUNDS, "cpu")
+    pool = tlanes.lane_pool(env, g, BATCH, autoreset, ROUNDS, "cpu")
     slot = env.params.opt("dynamic_max_steps_slot")
     if slot is not None:
         pool.aux[:, slot] = MAX_STEPS

@@ -10,7 +10,7 @@ as CUDA graphs with ``env.generate`` inside them.  Here:
   Dynamic-Obstacles-8x8 (its hooks draw), BabyAI-GoToDoor and
   BabyAI-BossLevel, after one warm-up step;
 * ``lane_rollout(..., "regen")`` equals a hand-written loop of
-  ``step_lanes_env``, ``generate`` and ``_select_lanes`` that draws from a
+  ``step_lanes_env``, ``generate`` and ``select_lanes`` that draws from a
   generator in the same state, in that order (actions, the hooks'
   draws, generation): final state, resets, episodes, reward, checksum;
 * against JAX's ``rollout(env, key, B, None, T, "regen")`` on LavaGapS7
@@ -69,7 +69,7 @@ def _env(env_id: str, max_steps: int = 2):
 def test_regen_step_reads_nothing_to_the_host(env_id):
     env = _env(env_id)
     g = torch.Generator().manual_seed(1)
-    pool = tlanes._lane_pool(env, g, B, "regen", 4, "cpu")
+    pool = tlanes.lane_pool(env, g, B, "regen", 4, "cpu")
     scan = tlanes._Scan(env, g, pool, B, 4, "regen", 4, None)
     scan.step(scan.carry.clone())  # warm-up, as the capture's
     before = to_numpy(pool)
@@ -102,17 +102,16 @@ def _hand_regen(env, g: torch.Generator, b: int, horizon: int) -> dict:
     """The regen rollout written out: each step draws the actions, steps
     (the hooks drawing after them), generates a fresh batch and takes it
     where the lane finished."""
-    draws = env.hook_rng and (env.pre_step_lanes is not None or env.post_step_lanes is not None)
     ls = tlanes.to_lanes(env.generate(g, env.params, b, "cpu"))
     resets = torch.zeros(b, dtype=torch.int32)
     per_env_reward = torch.zeros(b, dtype=torch.float64)
     rewards, dones, checksums = [], [], []
     for _ in range(horizon):
         act = torch.randint(0, env.action_dim, (b,), generator=g, dtype=torch.int32)
-        ls, reward, term = tlanes.step_lanes_env(env, ls, act, g if draws else None)
+        ls, reward, term = tlanes.step_lanes_env(env, ls, act, g)
         done = term | ls.truncated
         fresh = tlanes.to_lanes(env.generate(g, env.params, b, "cpu"))
-        ls = tlanes._select_lanes(done, fresh, ls)
+        ls = tlanes.select_lanes(done, fresh, ls)
         obj, color, obj_state, vis = tlanes.obs_lanes(env.params, ls)
         checksums.append(((obj.to(torch.int64) + color + obj_state) * vis).sum())
         rewards.append(reward.sum())
@@ -145,7 +144,7 @@ def test_regen_rollout_equals_a_hand_written_loop(env_id):
 
 def test_regen_needs_a_generator():
     env = _env(IDS[0])
-    pool = tlanes._lane_pool(env, torch.Generator().manual_seed(0), B, "regen", 4, "cpu")
+    pool = tlanes.lane_pool(env, torch.Generator().manual_seed(0), B, "regen", 4, "cpu")
     with pytest.raises(ValueError, match="regen"):
         tlanes._Scan(env, None, pool, B, 2, "regen", 4, torch.zeros(2, B, dtype=torch.int32))
 

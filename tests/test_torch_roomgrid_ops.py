@@ -149,9 +149,6 @@ def test_write_helpers_mask_out_of_range_indices():
     arr = torch.zeros((3, 4), dtype=torch.int32)
     got = G.elem_set(arr, torch.tensor([-1, 0, 4]), torch.tensor([5, 6, 7]))
     assert got.tolist() == [[0] * 4, [6, 0, 0, 0], [0] * 4]
-    rows = torch.zeros((2, 3, 2), dtype=torch.int64)
-    got = G.row_set(rows, torch.tensor([2, -1]), torch.tensor([[1, 2], [3, 4]]))
-    assert got[0].tolist() == [[0, 0], [0, 0], [1, 2]] and not got[1].any()
 
 
 @pytest.mark.parametrize("fixed_room", [True, False])

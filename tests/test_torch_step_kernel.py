@@ -61,7 +61,7 @@ def test_kernel_wrapper_refuses_the_cpu():
     any build or launch."""
     env = port.make("MiniGrid-DoorKey-5x5-v0")
     g = torch.Generator().manual_seed(1)
-    pool = tlanes._lane_pool(env, g, 4, "pool", 2, torch.device("cpu"))
+    pool = tlanes.lane_pool(env, g, 4, "pool", 2, torch.device("cpu"))
     scan = tlanes._Scan(env, g, pool, 4, 2, "pool", 2, None)
     c = scan.carry
     launches = profiling.counter("lanes.step_kernel.launches")
