@@ -38,6 +38,15 @@ Phases (any failure raises, exits nonzero and prints no "ok" line):
    CUDA graph) beside its bound by bytes (``step_bytes``); in the pool
    mode the whole step, kernel path and plain path, in a graph; its
    launches in phase 2's rollout (2).
+2d. the generator kernel: DoorKey's ``generate`` on the card (five draws,
+   then ``csrc/doorkey_gen.cu``) against the plain generator
+   (``generate_plain``) at DoorKey-5x5, 6x6, 8x8 and 16x16, from the same
+   generator state, every field and the generator's next draw equal bit
+   for bit; then at DoorKey-8x8 at 65536 and 262144 layouts the kernel
+   alone, the whole ``generate`` and the plain generator, each in a CUDA
+   graph, beside the kernel's bound by bytes (``gen_bytes``: every field
+   written), each timed batch held against the plain generator first; its
+   launches in phase 2's rollout (2) and in a short regen rollout.
 3. B1: ``tabular.solve`` on 1024 DoorKey-8x8 layouts, 128 sweeps, at
    max_doors 1 and 2; the kernel's V must equal the plain version's
    exactly.  Then the kernel's other two ways of holding walkability, also
@@ -289,6 +298,11 @@ FAMILY_OTHER = (4096, 64, 2)
 CPU_LANES = 256  # lanes of each family's rollout replayed on the CPU
 VIEW_STEPS, VIEW_CHECK_EVERY = 40, 5  # phase 2b: steps taken, and how often checked
 STEP_CHECK_STEPS = 40  # phase 2c: steps held against the plain step
+# Phase 2d: DoorKey sizes whose generator kernel is held against the plain
+# generator, at each batch; the batches it is timed at on DoorKey-8x8 (the
+# regen cell's and the pool cell's generate).
+GEN_SIZES, GEN_CHECK_B = (5, 6, 8, 16), (4097, 65536)
+GEN_TIMED_B = (65536, 262144)
 REPLAY_WORKERS = 5  # processes for the replays
 DYN_OBS_STEPS = 64  # steps of the DynamicObstacles reward and ball checks
 # The RoomGrid families (phase 8), by id prefix; (B, T, pool rounds) of the
@@ -863,6 +877,113 @@ def step_kernel(env, L, ptxas, launches: float) -> list:
         )
         rows.append(row)
         del scan, plain, kernel, pool, fresh
+    return rows
+
+
+def gen_bytes(params, b: int) -> int:
+    """The bytes one launch of ``csrc/doorkey_gen.cu`` moves for ``b``
+    layouts: it reads the five draws (four bytes each) and writes every
+    field of the batch-first state: five u8 and two int32 planes, the
+    agent's position and direction, what it carries (four u8 and the int32
+    marks), the step count, the two done flags, aux and the mission."""
+    from minigrid_dynamicprogramming_tpu_torch.core.state import AUX_SLOTS, MISSION_SLOTS
+
+    hw = params.height * params.width
+    layout = 5 * hw + 2 * 4 * hw + 8 + 4 + 4 + 4 + 4 + 2 + 4 * (AUX_SLOTS + MISSION_SLOTS)
+    return b * (5 * 4 + layout)
+
+
+def generator_kernel(make, ptxas, pool_launches: float) -> list:
+    """Phase 2d: DoorKey's ``generate`` on the card against the plain
+    generator at GEN_SIZES and GEN_CHECK_B, then at DoorKey-8x8 and each of
+    GEN_TIMED_B held against it again (the row's ``max_abs_err``) and timed
+    in CUDA graphs: the kernel alone from fixed draws (20 launches a
+    graph), the whole ``generate`` (the draws and the launch) and the plain
+    generator (each captured with the generator registered and replayed),
+    beside the kernel's bound by bytes.  A row's ``launches``: at the pool
+    rollout's 262144 layouts ``pool_launches``, the kernel's launches in
+    phase 2's rollout; at the regen step's 65536 those of a short regen
+    rollout at that batch (its start layouts, the capture's warm-up and
+    the capture).  Returns the kernels-line rows."""
+    from minigrid_dynamicprogramming_tpu_torch.envs import doorkey
+    from minigrid_dynamicprogramming_tpu_torch.parallel import lanes as L
+    from minigrid_dynamicprogramming_tpu_torch.utils import profiling
+
+    dev = torch.device(DEVICE)
+    launches = profiling.counter("generator.kernel.launches")
+    checked = 0
+    for n in GEN_SIZES:
+        env = make(f"MiniGrid-DoorKey-{n}x{n}-v0")
+        require(doorkey.generate_path(env, dev) == "kernel", f"DoorKey-{n}x{n} takes the kernel")
+        for b in GEN_CHECK_B:
+            g = gen(70 + n)
+            h = torch.Generator(device=DEVICE).set_state(g.get_state())
+            tree_equal(env.generate(g, env.params, b, dev),
+                       doorkey.generate_plain(h, env.params, b, dev),
+                       f"DoorKey-{n}x{n} B={b}: the kernel's layouts against the plain generator")
+            require(torch.equal(next_draw(g), next_draw(h)),
+                    f"DoorKey-{n}x{n} B={b}: the generator's next draw")
+            checked += b
+    require(profiling.counter("generator.kernel.launches") - launches == len(GEN_SIZES) * len(
+        GEN_CHECK_B), "one launch a generate")
+
+    def replayed_ms(fn, g) -> float:
+        graph, _, _ = L.capture_step(fn, fn, dev, g)
+        try:
+            return cuda_ms(graph.replay, 20)
+        finally:
+            graph.reset()
+
+    env = make(ENV_ID)
+    params, rows = env.params, []
+    before = profiling.counter("generator.kernel.launches")
+    L.lane_rollout(env, gen(8), ROLLOUT_B, 8, "regen", device=DEVICE)
+    torch.cuda.synchronize()
+    regen_launches = profiling.counter("generator.kernel.launches") - before
+    require(regen_launches == 3, "a regen rollout launches the generator kernel 3 times")
+    main_path = {ROLLOUT_B: regen_launches, ROLLOUT_B * POOL_ROUNDS: pool_launches}
+    for b in GEN_TIMED_B:
+        g = gen(9)
+        h = torch.Generator(device=DEVICE).set_state(g.get_state())
+        got, want = env.generate(g, params, b, dev), doorkey.generate_plain(h, params, b, dev)
+        tree_equal(got, want, f"DoorKey-8x8 B={b}: the kernel's layouts against the plain generator")
+        err = max(float((getattr(got, f.name).double() - getattr(want, f.name).double()).abs().max())
+                  for f in dataclasses.fields(want))
+        require(torch.equal(next_draw(g), next_draw(h)), f"DoorKey-8x8 B={b}: the next draw")
+        del got, want
+        draws = dict(split=torch.randint(2, params.width - 2, (b,), generator=g, device=dev,
+                                         dtype=torch.int32),
+                     agent_u=torch.rand(b, generator=g, device=dev),
+                     agent_dir=torch.randint(0, 4, (b,), generator=g, device=dev,
+                                             dtype=torch.int32),
+                     door=torch.randint(1, params.width - 2, (b,), generator=g, device=dev,
+                                        dtype=torch.int32),
+                     key_u=torch.rand(b, generator=g, device=dev))
+        kernel_ms = graphed_ms(lambda: doorkey.layouts_kernel(params, **draws), n=20)
+        generate_ms = replayed_ms(lambda: env.generate(g, params, b, dev), g)
+        plain_ms = replayed_ms(lambda: doorkey.generate_plain(g, params, b, dev), g)
+        bound_ms, bound_by = bound(gen_bytes(params, b), 0)
+        rows.append({
+            "name": f"doorkey_gen_b{b}", "route": "cuda", "source": f"{CSRC}/doorkey_gen.cu",
+            "replaces": None, "launches": main_path.get(b), "max_abs_err": err, "ms": kernel_ms,
+            "generate_ms": generate_ms, "plain_ms": plain_ms, "plain_graphed_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "kernel_only_ms": kernel_ms, "layouts": b, "checked_layouts": checked,
+            "design": "a block of 128 layouts: a thread a layout computes its placements into "
+            "shared memory and writes its scalars; then the block writes each field as one "
+            "contiguous span in 16-byte words, each word's cells computed from the placements",
+            "compiled": compiled(ptxas, "doorkey_gen_kernel"),
+        })
+        print(
+            f"[doorkey_gen] B={b} DoorKey-8x8: equal to the plain generator bit for bit at "
+            f"DoorKey {', '.join(map(str, GEN_SIZES))} ({checked} layouts) and here, max|kernel - "
+            f"plain| {err:.3g}; main-path launches {main_path.get(b)}; kernel {kernel_ms:.5f} "
+            f"ms in a graph, bound {bound_ms:.5f} ms by {bound_by} ({kernel_ms / bound_ms:.2f}x); "
+            f"generate {generate_ms:.5f} ms, plain generator {plain_ms:.4f} ms, both graphed; "
+            f"{rows[-1]['compiled']}",
+            flush=True,
+        )
+        del draws
     return rows
 
 
@@ -2547,6 +2668,7 @@ def run(args, t_start: float, workers) -> int:
     before = capture_counts()
     obs_before = profiling.counter("obs.launches")
     step_before = profiling.counter("lanes.step_kernel.launches")
+    gen_before = profiling.counter("generator.kernel.launches")
     t0 = time.perf_counter()
     res, _ = drive(
         "rollout",
@@ -2559,6 +2681,8 @@ def run(args, t_start: float, workers) -> int:
     require(obs_launches == 2, "the rollout launched the observation kernel in its capture")
     step_launches = profiling.counter("lanes.step_kernel.launches") - step_before
     require(step_launches == 2, "the rollout launched the step kernel in its capture")
+    gen_launches = profiling.counter("generator.kernel.launches") - gen_before
+    require(gen_launches == 1, "the rollout launched the generator kernel for its pool")
     capture = captured_since(before)
     require(capture["captures"] == 1, "the rollout captured its step as one CUDA graph")
     capture_ms, graph_pool_bytes = capture["capture_ms"], capture["graph_pool_bytes"]
@@ -2620,6 +2744,9 @@ def run(args, t_start: float, workers) -> int:
     kernels.append(obs_kernel(env, L, ptxas, obs_launches))
     # 2c. The step kernel at the rollout cells' shapes.
     kernels.extend(step_kernel(env, L, ptxas, step_launches))
+    # 2d. The generator kernel at every DoorKey size, timed at both rollout
+    # cells' generate.
+    kernels.extend(generator_kernel(make, ptxas, gen_launches))
 
     # 3. B1 through solve, at one and two door slots, on the same layouts.
     solved = {}

@@ -12,7 +12,8 @@ whose shape depends on data.  Here:
   the constant tables, ``ops/grid.py:const``);
 * every id's layouts from seeds 0 and 1 at B=8 keep the sha256 digests
   in ``DIGESTS``, those of the generators before they were made
-  capturable: no draw moved, and every value is the same;
+  capturable: no draw moved, and every value is the same; a CPU
+  ``generate`` launches no generator kernel (``csrc/doorkey_gen.cu``);
 * the BabyAI flood fill (``envs/babyai/level.py:objs_reachable``), which
   runs its fixed bound of sweeps, equals a fill run to its fixed point on
   hand-made mazes.
@@ -37,6 +38,7 @@ from minigrid_dynamicprogramming_tpu_torch.core.constants import (
 )
 from minigrid_dynamicprogramming_tpu_torch.core.state import new_state
 from minigrid_dynamicprogramming_tpu_torch.envs.babyai import level as blevel
+from minigrid_dynamicprogramming_tpu_torch.utils import profiling
 
 from ._torch_graph import NoHostReads
 
@@ -79,7 +81,11 @@ def test_generate_reads_nothing_to_the_host(env_id):
 
 @pytest.mark.parametrize("env_id", IDS)
 def test_layouts_equal_the_earlier_generators(env_id):
+    """From seeds 0 and 1 on the CPU, where no id launches DoorKey's
+    generator kernel."""
+    launches = profiling.counter("generator.kernel.launches")
     assert layouts_digests(env_id) == DIGESTS[env_id]
+    assert profiling.counter("generator.kernel.launches") == launches
 
 
 def _maze(rows: list) -> "port.EnvState":

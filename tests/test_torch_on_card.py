@@ -73,6 +73,13 @@ Playground with its box planes, MultiRoom-N6, Empty-8x8; "pool",
 does on hand-made lanes with every kind of front cell under every
 action; it counts two launches a graphed rollout (a hooked family none),
 takes a rank's strided slice of a pool, and refuses other inputs.
+DoorKey's generator is one kernel on the card after its five plain draws
+(``csrc/doorkey_gen.cu``): at DoorKey-5x5, 6x6, 8x8 and 16x16 and 1 to
+65536 layouts it equals the plain generator bit for bit from the same
+generator state (DoorKey-8x8 also at 262144, the pool rollout's
+launch) and leaves the generator where the plain one does; a
+regen rollout launches it once for its start layouts and twice in its
+capture, GoToDoor never, and it refuses other draws.
 """
 
 from __future__ import annotations
@@ -995,10 +1002,13 @@ def test_graphed_regen_ppo_update_equals_eager(card, deterministic, env_id):
 def test_generate_graph_equals_eager(card, env_id):
     """``generate`` at B=64 captured once (the generator registered) and
     replayed twice: each replay equals an eager call from the generator
-    state it started from, and the generators end alike."""
+    state it started from, and the generators end alike.  The DoorKey ids
+    generate through ``csrc/doorkey_gen.cu`` (the capture's warm-up, the
+    capture and the two eager calls launch it), no other id does."""
     env = port.make(env_id)
     g = torch.Generator(device=card).manual_seed(9)
     start = g.get_state()
+    launches = profiling.counter("generator.kernel.launches")
     out = {}
 
     def step():
@@ -1016,6 +1026,8 @@ def test_generate_graph_equals_eager(card, env_id):
         graph.reset()
     assert pool_bytes > 0
     assert torch.equal(_next_draw(g), _next_draw(h))
+    doorkey = env_id.startswith("MiniGrid-DoorKey-")
+    assert profiling.counter("generator.kernel.launches") == launches + (4 if doorkey else 0)
 
 
 @pytest.mark.cuda
@@ -1331,3 +1343,81 @@ def test_step_kernel_refuses_other_inputs(card):
     torch.cuda.synchronize()
     assert profiling.counter("lanes.step_kernel.launches") == launches + 1
     assert int(c.ls.step_count.min()) == 1
+
+
+_DOORKEY_IDS = [f"MiniGrid-DoorKey-{n}x{n}-v0" for n in (5, 6, 8, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "env_id, b",
+    [(env_id, b) for env_id in _DOORKEY_IDS for b in (1, 127, 128, 4097, 65536)]
+    + [("MiniGrid-DoorKey-8x8-v0", 262144)],
+)
+def test_doorkey_gen_kernel_equals_plain(card, env_id, b):
+    """DoorKey's ``generate`` on the card (the five draws, then one launch
+    of ``csrc/doorkey_gen.cu``) equals the plain generator from the same
+    generator state, field by field, bit for bit, and the two generators'
+    next draws are equal; at DoorKey-8x8 also at 262144 layouts, the pool
+    rollout's launch."""
+    from minigrid_dynamicprogramming_tpu_torch.envs import doorkey
+
+    env = port.make(env_id)
+    assert doorkey.generate_path(env, card) == "kernel"
+    g = torch.Generator(device=card).manual_seed(11 + b)
+    h = torch.Generator(device=card).set_state(g.get_state())
+    launches = profiling.counter("generator.kernel.launches")
+    got = env.generate(g, env.params, b, card)
+    assert profiling.counter("generator.kernel.launches") == launches + 1
+    want = doorkey.generate_plain(h, env.params, b, card)
+    for f in dataclasses.fields(want):
+        x, y = getattr(got, f.name), getattr(want, f.name)
+        assert (x.dtype, x.shape) == (y.dtype, y.shape), f.name
+        assert torch.equal(x, y), f.name
+    assert torch.equal(_next_draw(g), _next_draw(h))
+    assert int((got.grid_obj == 5).sum()) == b  # 5: OBJ_KEY, one a layout
+
+
+@pytest.mark.cuda
+def test_doorkey_gen_counts_its_launches(card):
+    """A regen rollout of DoorKey-8x8 launches the generator kernel once
+    for its start layouts (``lane_pool``) and as often as its capture
+    launches it (the warm-up step and the capture: 2), not once a replayed
+    step; a GoToDoor ``generate`` launches it never."""
+    names = ["generator.kernel.launches", "lanes.captures"]
+    before = [profiling.counter(n) for n in names]
+    env = port.make("MiniGrid-DoorKey-8x8-v0")
+    tlanes.lane_rollout(env, torch.Generator(device=card).manual_seed(3), 512, 20, "regen",
+                        device=card)
+    torch.cuda.synchronize()
+    got = [profiling.counter(n) - n0 for n, n0 in zip(names, before)]
+    assert got == [3, 1]
+    other = port.make("BabyAI-GoToDoor-v0")
+    other.generate(torch.Generator(device=card).manual_seed(3), other.params, 64, card)
+    assert profiling.counter("generator.kernel.launches") == before[0] + 3
+
+
+@pytest.mark.cuda
+def test_doorkey_gen_refuses_other_inputs(card):
+    """Draws of another dtype, length, layout or device raise before any
+    launch; the draws as ``generate`` makes them launch."""
+    from minigrid_dynamicprogramming_tpu_torch.envs import doorkey
+
+    env = port.make("MiniGrid-DoorKey-8x8-v0")
+    b = 64
+    g = torch.Generator(device=card).manual_seed(5)
+    draws = dict(split=torch.randint(2, 6, (b,), generator=g, device=card, dtype=torch.int32),
+                 agent_u=torch.rand(b, generator=g, device=card),
+                 agent_dir=torch.randint(0, 4, (b,), generator=g, device=card, dtype=torch.int32),
+                 door=torch.randint(1, 6, (b,), generator=g, device=card, dtype=torch.int32),
+                 key_u=torch.rand(b, generator=g, device=card))
+    launches = profiling.counter("generator.kernel.launches")
+    for changes in [dict(split=draws["split"].long()), dict(agent_u=draws["agent_u"][:-1]),
+                    dict(door=draws["door"].cpu()),
+                    dict(key_u=torch.stack([draws["key_u"]] * 2, 1)[:, 0])]:
+        with pytest.raises(ValueError):
+            doorkey.layouts_kernel(env.params, **{**draws, **changes})
+    assert profiling.counter("generator.kernel.launches") == launches
+    state = doorkey.layouts_kernel(env.params, **draws)
+    assert profiling.counter("generator.kernel.launches") == launches + 1
+    assert bool((state.agent_pos[:, 0] < draws["split"]).all())
