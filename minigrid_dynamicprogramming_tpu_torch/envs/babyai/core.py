@@ -60,6 +60,7 @@ from minigrid_dynamicprogramming_tpu_torch.core.constants import (
 from minigrid_dynamicprogramming_tpu_torch.core.state import EnvParams, EnvState
 from minigrid_dynamicprogramming_tpu_torch.ops import agnostic as AG
 from minigrid_dynamicprogramming_tpu_torch.ops import grid as G
+from minigrid_dynamicprogramming_tpu_torch.utils import profiling
 
 # -- instruction encodings ---------------------------------------------------
 
@@ -429,8 +430,14 @@ def _where(mask, a, b):
 
 def verify_step(params: EnvParams, generator, prev, new, action, reward, terminated):
     """RoomGridLevel.step's verifier pass (roomgrid_level.py:86-103) over a
-    lane-major state: the post-step hook of every BabyAI id.  It draws
-    nothing (``generator`` is None).
+    lane-major state: the post-step hook of every BabyAI id, the span
+    ``babyai.verify``.  It draws nothing (``generator`` is None)."""
+    with profiling.graph_span("babyai.verify"):
+        return _verify(params, new, action, reward, terminated)
+
+
+def _verify(params: EnvParams, new, action, reward, terminated):
+    """:func:`verify_step`'s work.
 
     The id's instruction profile decides in Python what is computed, as it
     decides in JAX what is traced: leaves the profile leaves empty are

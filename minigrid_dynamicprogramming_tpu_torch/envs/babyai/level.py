@@ -44,6 +44,7 @@ from minigrid_dynamicprogramming_tpu_torch.core.state import (
 )
 from minigrid_dynamicprogramming_tpu_torch.envs.babyai import core as B
 from minigrid_dynamicprogramming_tpu_torch.ops import roomgrid as rg
+from minigrid_dynamicprogramming_tpu_torch.utils import profiling
 from minigrid_dynamicprogramming_tpu_torch.utils.telemetry import pooled_stats
 
 GenMissionFn = Callable
@@ -152,13 +153,23 @@ def make_level(
     agent_view_size: int = 7,
     instr_profile=None,
     after_init: Optional[Callable] = None,
+    init_rooms: bool = True,
 ) -> Environment:
     """The :class:`Environment` of one BabyAI level.
 
     ``instr_profile`` is the level's static instruction shape
     (``core.GENERIC_PROFILE``); the verifier and the validation branch on
     it.  ``after_init(state)``, if given, edits the n kept layouts after
-    their instruction is resolved (PutNext's start_carrying)."""
+    their instruction is resolved (PutNext's start_carrying).  With
+    ``init_rooms`` False, ``gen_mission`` lays out the rooms itself
+    (``rg.init``, its first draw), and is given ``None`` for the room
+    context.
+
+    ``generate`` is the span ``babyai.generate`` (attributes ``attempts``
+    and ``layouts``) around the attempts and the kept layouts, holding
+    ``babyai.generate.accept`` (the validation, the stable sort, ``take``,
+    ``init_instr`` and ``after_init``); the counter
+    ``babyai.generate.attempts`` adds the attempts of each call."""
     params = EnvParams(
         width=(room_size - 1) * num_cols + 1,
         height=(room_size - 1) * num_rows + 1,
@@ -179,26 +190,27 @@ def make_level(
         instr_profile=instr_profile,
     )
 
-    def attempts(generator: torch.Generator, p: EnvParams, m: int, dev):
-        state = new_state(m, p.height, p.width, dev)
-        state, ctx = rg.init(generator, state, room_size, num_rows, num_cols)
-        state, codes, ok = gen_mission(generator, p, state, ctx)
-        return state, codes, validate(p, state, codes, ok)
-
     def attempts_and_layouts(generator: torch.Generator, p: EnvParams, batch_size: int, device):
         """(``batch_size`` layouts, each attempt's acceptance in draw
         order)."""
         dev = resolve_device(device)
         n = batch_size
         m = max(n + 8, int(math.ceil(n * (p.opt("gen_oversample") or 1.5))))
-        state, codes, ok = attempts(generator, p, m, dev)
-        order = torch.argsort((~ok).to(torch.int8), stable=True)  # accepted first
-        accepted = ok.sum()
-        idx = torch.arange(n, device=dev)
-        sel = order.index_select(0, torch.where(idx < accepted, idx, idx % accepted.clamp(min=1)))
-        state = B.init_instr(p, take(state, sel), codes.index_select(0, sel))
-        if after_init is not None:
-            state = after_init(state)
+        profiling.count("babyai.generate.attempts", m)
+        with profiling.graph_span("babyai.generate", attempts=m, layouts=n):
+            state, ctx = new_state(m, p.height, p.width, dev), None
+            if init_rooms:
+                state, ctx = rg.init(generator, state, room_size, num_rows, num_cols)
+            state, codes, ok = gen_mission(generator, p, state, ctx)
+            with profiling.graph_span("babyai.generate.accept"):
+                ok = validate(p, state, codes, ok)
+                order = torch.argsort((~ok).to(torch.int8), stable=True)  # accepted first
+                accepted = ok.sum()
+                idx = torch.arange(n, device=dev)
+                sel = order.index_select(0, torch.where(idx < accepted, idx, idx % accepted.clamp(min=1)))
+                state = B.init_instr(p, take(state, sel), codes.index_select(0, sel))
+                if after_init is not None:
+                    state = after_init(state)
         return state, ok
 
     def generate(

@@ -8,6 +8,9 @@ maze, distractors, the agent and a random instruction of the grammar
 
 * ``add_locked_room``'s retry loops are uniform draws over validity masks
   (levelgen.py:85-112);
+* ``connect_all`` makes a fixed number of draws (``ops/roomgrid.py``); an
+  attempt whose rooms those leave unconnected is rejected, where the
+  reference's loop raises ``RecursionError`` and draws the level again;
 * ``rand_obj`` redraws (color, type, loc) until the descriptor matches an
   object (levelgen.py:114-155), at most 100 times after the first draw.
   Here all 101 draws are made at once and the first valid one is kept (the
@@ -46,6 +49,7 @@ from minigrid_dynamicprogramming_tpu_torch.envs.babyai.level import (
 )
 from minigrid_dynamicprogramming_tpu_torch.ops import grid as G
 from minigrid_dynamicprogramming_tpu_torch.ops import roomgrid as rg
+from minigrid_dynamicprogramming_tpu_torch.utils import profiling
 
 OBJ_TYPES = (OBJ_BOX, OBJ_BALL, OBJ_KEY, OBJ_DOOR)  # verifier.py:15
 OBJ_TYPES_NOT_DOOR = (OBJ_BOX, OBJ_BALL, OBJ_KEY)
@@ -166,95 +170,104 @@ def make_levelgen(
         return leaf, (ok1 & (ok2 | ~is_put)) | ~active
 
     def gen(generator, p, state, ctx):
+        """LevelGen.gen_mission over the attempts: the span
+        ``babyai.generate.rooms`` (``rg.init``, the locked room and its
+        key, ``connect_all``, the distractors, the agent), then
+        ``babyai.generate.instr`` (the match tables, the leaves, the
+        unblocking check)."""
         b, dev = state.grid_obj.shape[0], state.grid_obj.device
-        # An optional locked room (levelgen.py:59-60, :85-112): a door on a
-        # uniform edge that has a neighbour, its key in another room.
-        has_locked = torch.rand(b, generator=generator, device=dev) < locked_room_prob
-        valid_edges = ctx.has_edge.reshape(b, 1, -1)
-        pick, _, _ = G.sample_mask_pos(generator, valid_edges)
-        li, lj, lk = (pick // 4) % num_cols, pick // (4 * num_cols), pick % 4
-        sub, sub_ctx, _, door_color, _ = rg.add_door(
-            generator, state, ctx, li, lj, door_idx=lk, locked=True
-        )
-        ki, kj = other_room(generator, b, num_rows, num_cols, li, lj, dev)
-        sub, sub_ctx, _, _ = rg.place_in_room(
-            generator, sub, sub_ctx, room_size, ki, kj, OBJ_KEY, door_color
-        )
-        state, ctx = select_state(has_locked, sub, state), select_state(has_locked, sub_ctx, ctx)
+        with profiling.graph_span("babyai.generate.rooms"):
+            state, ctx = rg.init(generator, state, room_size, num_rows, num_cols)
+            # An optional locked room (levelgen.py:59-60, :85-112): a door on a
+            # uniform edge that has a neighbour, its key in another room.
+            has_locked = torch.rand(b, generator=generator, device=dev) < locked_room_prob
+            valid_edges = ctx.has_edge.reshape(b, 1, -1)
+            pick, _, _ = G.sample_mask_pos(generator, valid_edges)
+            li, lj, lk = (pick // 4) % num_cols, pick // (4 * num_cols), pick % 4
+            sub, sub_ctx, _, door_color, _ = rg.add_door(
+                generator, state, ctx, li, lj, door_idx=lk, locked=True
+            )
+            ki, kj = other_room(generator, b, num_rows, num_cols, li, lj, dev)
+            sub, sub_ctx, _, _ = rg.place_in_room(
+                generator, sub, sub_ctx, room_size, ki, kj, OBJ_KEY, door_color
+            )
+            state, ctx = select_state(has_locked, sub, state), select_state(has_locked, sub_ctx, ctx)
 
-        state, ctx = rg.connect_all(generator, state, ctx, room_size)
-        state, ctx, _, _, _ = rg.add_distractors(
-            generator, state, ctx, room_size, num_rows, num_cols,
-            num_distractors=num_dists, all_unique=False,
-        )
-        # The agent outside the locked room (levelgen.py:66-73).
-        rooms = torch.arange(num_rows * num_cols, device=dev)
-        in_locked = (rooms % num_cols == li[:, None]) & (rooms // num_cols == lj[:, None])
-        apick, _, _ = G.sample_mask_pos(generator, (~(in_locked & has_locked[:, None]))[:, None, :])
-        state = rg.place_agent(
-            generator, state, room_size, i=apick % num_cols, j=apick // num_cols,
-            rows=num_rows, cols=num_cols,
-        )
-        ok = torch.ones(b, dtype=torch.bool, device=dev)
-        if not unblocking:
-            ok = ok & objs_reachable(state)
+            state, ctx = rg.connect_all(generator, state, ctx, room_size)
+            connected = rg.rooms_connected(ctx)
+            state, ctx, _, _, _ = rg.add_distractors(
+                generator, state, ctx, room_size, num_rows, num_cols,
+                num_distractors=num_dists, all_unique=False,
+            )
+            # The agent outside the locked room (levelgen.py:66-73).
+            rooms = torch.arange(num_rows * num_cols, device=dev)
+            in_locked = (rooms % num_cols == li[:, None]) & (rooms // num_cols == lj[:, None])
+            apick, _, _ = G.sample_mask_pos(generator, (~(in_locked & has_locked[:, None]))[:, None, :])
+            state = rg.place_agent(
+                generator, state, room_size, i=apick % num_cols, j=apick // num_cols,
+                rows=num_rows, cols=num_cols,
+            )
+            ok = connected
+            if not unblocking:
+                ok = ok & objs_reachable(state)
 
-        # A random instruction (levelgen.py:157-210).
-        top = G.randint(generator, 0, len(instr_kinds), b, dev)
-        top_kind = G.lookup(  # 0 action, 1 and, 2 seq
-            G.const([("action", "and", "seq").index(k) for k in instr_kinds], torch.int64, dev),
-            top,
-        )
-        before = G.randint(generator, 0, 2, b, dev) == 0
-        # Each seq sub-clause is drawn from {action, and} (levelgen.py:189-199).
-        sub_and = G.randint(generator, 0, 2, b, dev)
-        sub_and_b = G.randint(generator, 0, 2, b, dev)
-        comb = torch.where(
-            top_kind == 2, torch.where(before, B.COMB_BEFORE, B.COMB_AFTER), B.COMB_SINGLE
-        )
-        a_is_and = torch.where(top_kind == 1, 1, torch.where(top_kind == 2, sub_and, 0))
-        b_active = top_kind == 2
-        b_is_and = torch.where(b_active, sub_and_b, 0)
+        with profiling.graph_span("babyai.generate.instr"):
+            # A random instruction (levelgen.py:157-210).
+            top = G.randint(generator, 0, len(instr_kinds), b, dev)
+            top_kind = G.lookup(  # 0 action, 1 and, 2 seq
+                G.const([("action", "and", "seq").index(k) for k in instr_kinds], torch.int64, dev),
+                top,
+            )
+            before = G.randint(generator, 0, 2, b, dev) == 0
+            # Each seq sub-clause is drawn from {action, and} (levelgen.py:189-199).
+            sub_and = G.randint(generator, 0, 2, b, dev)
+            sub_and_b = G.randint(generator, 0, 2, b, dev)
+            comb = torch.where(
+                top_kind == 2, torch.where(before, B.COMB_BEFORE, B.COMB_AFTER), B.COMB_SINGLE
+            )
+            a_is_and = torch.where(top_kind == 1, 1, torch.where(top_kind == 2, sub_and, 0))
+            b_active = top_kind == 2
+            b_is_and = torch.where(b_active, sub_and_b, 0)
 
-        # Descriptor match counts, all cells and outside the locked room.
-        rs = room_size
-        locked_rect = G.rect_mask(
-            p.height, p.width, (li * (rs - 1), lj * (rs - 1)), (rs, rs), dev
-        )
-        tables = (
-            _match_table(p, state),
-            None if implicit_unlock else _match_table(p, state, ~locked_rect),
-        )
-        true = torch.ones_like(b_active)
-        leaf_a0, ok0 = sample_leaf(generator, tables, true, has_locked)
-        leaf_a1, ok1 = sample_leaf(generator, tables, a_is_and == 1, has_locked)
-        leaf_b0, ok2 = sample_leaf(generator, tables, b_active, has_locked)
-        leaf_b1, ok3 = sample_leaf(generator, tables, b_active & (b_is_and == 1), has_locked)
-        ok = ok & ok0 & ok1 & ok2 & ok3
+            # Descriptor match counts, all cells and outside the locked room.
+            rs = room_size
+            locked_rect = G.rect_mask(
+                p.height, p.width, (li * (rs - 1), lj * (rs - 1)), (rs, rs), dev
+            )
+            tables = (
+                _match_table(p, state),
+                None if implicit_unlock else _match_table(p, state, ~locked_rect),
+            )
+            true = torch.ones_like(b_active)
+            leaf_a0, ok0 = sample_leaf(generator, tables, true, has_locked)
+            leaf_a1, ok1 = sample_leaf(generator, tables, a_is_and == 1, has_locked)
+            leaf_b0, ok2 = sample_leaf(generator, tables, b_active, has_locked)
+            leaf_b1, ok3 = sample_leaf(generator, tables, b_active & (b_is_and == 1), has_locked)
+            ok = ok & ok0 & ok1 & ok2 & ok3
 
-        zero = torch.zeros((b, 1), dtype=torch.int32, device=dev)
-        codes = torch.cat([
-            comb[:, None].to(torch.int32), zero,
-            a_is_and[:, None].to(torch.int32), leaf_a0, zero, leaf_a1, zero,
-            b_is_and[:, None].to(torch.int32), leaf_b0, zero, leaf_b1, zero,
-        ], dim=1)
+            zero = torch.zeros((b, 1), dtype=torch.int32, device=dev)
+            codes = torch.cat([
+                comb[:, None].to(torch.int32), zero,
+                a_is_and[:, None].to(torch.int32), leaf_a0, zero, leaf_a1, zero,
+                b_is_and[:, None].to(torch.int32), leaf_b0, zero, leaf_b1, zero,
+            ], dim=1)
 
-        # validate_instrs for unblocking levels (roomgrid_level.py:178-191):
-        # no descriptor may name a key of a locked door's color.
-        if unblocking:
-            locked_door = (state.grid_obj == OBJ_DOOR) & (state.grid_state == STATE_LOCKED)
-            rows = codes.T
-            for c in range(2):
-                for l in range(2):
-                    for d in range(2):
-                        t, col, _ = B.desc_fields(rows, c, l, d)
-                        same = locked_door & (
-                            state.grid_color.to(torch.int32) == col.reshape(-1, 1, 1)
-                        )
-                        bad = (t == OBJ_KEY) & same.flatten(1).any(dim=1) & B.desc_active(
-                            rows, c, l, d
-                        )
-                        ok = ok & ~bad
+            # validate_instrs for unblocking levels (roomgrid_level.py:178-191):
+            # no descriptor may name a key of a locked door's color.
+            if unblocking:
+                locked_door = (state.grid_obj == OBJ_DOOR) & (state.grid_state == STATE_LOCKED)
+                rows = codes.T
+                for c in range(2):
+                    for l in range(2):
+                        for d in range(2):
+                            t, col, _ = B.desc_fields(rows, c, l, d)
+                            same = locked_door & (
+                                state.grid_color.to(torch.int32) == col.reshape(-1, 1, 1)
+                            )
+                            bad = (t == OBJ_KEY) & same.flatten(1).any(dim=1) & B.desc_active(
+                                rows, c, l, d
+                            )
+                            ok = ok & ~bad
         return state, codes, ok
 
     # The instruction's static shape (levelgen.py:157-210): "and" fills a
@@ -268,4 +281,5 @@ def make_levelgen(
     main = tuple(action_kinds)
     second = main if may_and else ()
     profile = (combs, main, second, main if may_seq else (), second if may_seq else ())
-    return make_level(env_id, gen, room_size, num_rows, num_cols, instr_profile=profile)
+    return make_level(env_id, gen, room_size, num_rows, num_cols, instr_profile=profile,
+                      init_rooms=False)

@@ -463,6 +463,29 @@ def connect_all_draws(
     return state, ctx.replace(edge=edge)
 
 
+def rooms_connected(ctx: RoomCtx) -> torch.Tensor:
+    """(B,) bool: every room reachable from every other through the edges
+    that hold a door (a locked one too) or no wall, as the reference's
+    ``connect_all`` walks them (``find_reach``).  ``connect_all`` stops
+    after ``max_itrs`` draws whether or not the rooms are connected; the
+    reference's raises ``RecursionError`` after 5000, and a BabyAI level
+    then draws the whole level again (roomgrid_level.py:118-139), so a
+    level that connects its rooms rejects an attempt where this is
+    False."""
+    b, rows, cols, _ = ctx.edge.shape
+    through = ctx.edge != EDGE_NONE
+    first = torch.arange(rows * cols, device=ctx.edge.device).reshape(1, rows, cols) == 0
+    reach = first.expand(b, rows, cols)
+    for _ in range(rows * cols - 1):
+        grown = reach.clone()
+        grown[:, :, 1:] |= reach[:, :, :-1] & through[:, :, :-1, 0]  # right
+        grown[:, 1:, :] |= reach[:, :-1, :] & through[:, :-1, :, 1]  # down
+        grown[:, :, :-1] |= reach[:, :, 1:] & through[:, :, 1:, 2]  # left
+        grown[:, :-1, :] |= reach[:, 1:, :] & through[:, 1:, :, 3]  # up
+        reach = grown
+    return reach.reshape(b, -1).all(dim=1)
+
+
 def add_distractors(
     generator: torch.Generator,
     state: EnvState,

@@ -170,7 +170,7 @@ class _Span:
             stamps = getattr(RECORDER.local, "stamps", None)
             if self.stamped and stamps is not None:
                 up = stack[-1].slot if stack and stack[-1].stamps is stamps else None
-                self.stamps, self.slot = stamps, stamps.open(self.name, up)
+                self.stamps, self.slot = stamps, stamps.open(self.name, up, self.attrs)
                 stack.append(self)
             return None
         parent = RECORDER.innermost()
@@ -213,11 +213,12 @@ def span(name: str, **attrs) -> _Span:
     return _Span(name, attrs, False)
 
 
-def graph_span(name: str) -> _Span:
+def graph_span(name: str, **attrs) -> _Span:
     """A span inside a step that may be captured as a CUDA graph: stamped
     into the graph while the capture runs in ``GraphStamps.capturing()``
-    with tracing on, else a plain ``span``."""
-    return _Span(name, {}, True)
+    with tracing on, else a plain ``span``.  ``attrs`` go on its record
+    either way."""
+    return _Span(name, attrs, True)
 
 
 def count(name: str, n: float = 1) -> None:
@@ -293,7 +294,7 @@ class GraphStamps:
         self.device = torch.device(device)
         self.fn = _stamp_fn()
         self.buf = torch.zeros((self.SLOTS, 3), dtype=torch.int64, device=self.device)
-        self.slots: List[tuple] = []  # (name, parent slot)
+        self.slots: List[tuple] = []  # (name, parent slot, attributes)
         self.kernels = 0
         self.graph_nodes: Optional[int] = None
         self._host: Optional[torch.Tensor] = None
@@ -312,10 +313,10 @@ class GraphStamps:
         _kernels.launch(self.device, self.fn, self.buf.data_ptr(), slot, close)
         self.kernels += 1
 
-    def open(self, name: str, parent: Optional[int]) -> int:
+    def open(self, name: str, parent: Optional[int], attrs: Optional[dict] = None) -> int:
         if len(self.slots) == self.SLOTS:
             raise RuntimeError(f"more than {self.SLOTS} graph spans in one capture")
-        self.slots.append((name, parent))
+        self.slots.append((name, parent, dict(attrs or {})))
         self._stamp(len(self.slots) - 1, 0)
         return len(self.slots) - 1
 
@@ -333,11 +334,11 @@ class GraphStamps:
         now = time.time_ns()
         ids = [next(RECORDER.ids) for _ in self.slots]
         request = parent.request if parent else ids[0]
-        for slot, (name, up) in enumerate(self.slots):
+        for slot, (name, up, attrs) in enumerate(self.slots):
             RECORDER.add(Record(
                 ids[slot], name,
                 ids[up] if up is not None else (parent.id if parent else None), request,
-                parent.start_ns if parent else now, {"graph": True}, now, 0, (frozen, slot),
+                parent.start_ns if parent else now, {"graph": True, **attrs}, now, 0, (frozen, slot),
             ))
 
     def totals(self, slot: int) -> tuple:

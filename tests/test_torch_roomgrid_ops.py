@@ -123,6 +123,38 @@ def test_connect_all_equals_the_retry_loop(shape, T):
     assert n_added > 0
 
 
+@pytest.mark.parametrize("shape", ["1x2", "3x3", "locked", "corridor"])
+@pytest.mark.parametrize("T", [256, 3])
+def test_rooms_connected_is_the_loops_reach(shape, T):
+    """``rooms_connected`` after ``connect_all``'s draws: every room reached
+    from room (0, 0), as the reference's ``find_reach`` walks the edges;
+    three draws leave some envs unconnected."""
+    state, ctx = _layout(shape, seed=T)
+    rows, cols = ctx.locked.shape[1:]
+    rng = np.random.default_rng(len(shape) + T)
+    draws = [torch.from_numpy(rng.integers(0, n, (B, T))) for n in (cols, rows, 4, 6)]
+    _, out_ctx = RG.connect_all_draws(state, ctx, 5, *draws)
+    want = [_reached(out_ctx.edge[b].numpy(), (0, 0)) == rows * cols for b in range(B)]
+    assert RG.rooms_connected(out_ctx).tolist() == want
+    if T == 3 and shape != "1x2":
+        assert not all(want)
+
+
+def test_levelgen_rejects_unconnected_rooms(monkeypatch):
+    """A LevelGen attempt whose rooms ``connect_all`` left unconnected is
+    rejected, as the reference draws such a level again: with no door
+    added, no attempt is accepted."""
+    import minigrid_dynamicprogramming_tpu_torch as port
+
+    env = port.make("BabyAI-BossLevel-v0")
+    g = torch.Generator().manual_seed(3)
+    _, accepted = env.generate(g, env.params, 16, "cpu", return_accepted=True)
+    assert int(accepted) >= 16
+    monkeypatch.setattr(RG, "connect_all", lambda generator, state, ctx, room_size, **kw: (state, ctx))
+    _, accepted = env.generate(g, env.params, 16, "cpu", return_accepted=True)
+    assert int(accepted) == 0
+
+
 def test_connect_all_excludes_a_color():
     """Each env's doors avoid its excluded color; a negative entry (BabyAI
     Unlock's half of the envs) excludes none, so all six occur."""
