@@ -47,6 +47,19 @@ Phases (any failure raises, exits nonzero and prints no "ok" line):
    graph, beside the kernel's bound by bytes (``gen_bytes``: every field
    written), each timed batch held against the plain generator first; its
    launches in phase 2's rollout (2) and in a short regen rollout.
+2e. the encoder's lookups: ``nets.embed_kernel`` and
+   ``nets.embed_grad_kernel`` (``csrc/embed.cu``) at the PPO cell's shapes
+   (131072 minibatch rows, forward and backward; 32768 collector rows,
+   forward), view 7, bf16, against their twin, ``nn.Embedding``'s
+   composition under autograd (``nets.lookups``, the lookups as the
+   encoder ran them before the kernels, and still runs them on the CPU):
+   the plane and direction features bit for bit, the bag within float32's
+   reordering bound of its 48 products and one bf16 unit of the larger
+   result, each gradient within 2**-12 of its largest entry; the kernels'
+   ms in a CUDA graph beside their bound by bytes (``embed_bytes``), and
+   the composition's ms, which is both the plain version's and the
+   library yardstick.  The rows' launches are the main path's, counted in
+   phase 14.
 3. B1: ``tabular.solve`` on 1024 DoorKey-8x8 layouts, 128 sweeps, at
    max_doors 1 and 2; the kernel's V must equal the plain version's
    exactly.  Then the kernel's other two ways of holding walkability, also
@@ -152,8 +165,9 @@ Phases (any failure raises, exits nonzero and prints no "ok" line):
    (every buffer), final state, reset counts and the collector
    generator's next draw equal bit for bit; after the second, the
    parameters and Adam's state of the graphed run within twice the
-   eager runs' spread, by the mean difference over every element (the
-   embeddings' backward sums with atomics; max and mean printed).  Then
+   eager runs' spread, by the mean difference over every element
+   (PyTorch may pick kernels that sum with atomics; max and mean
+   printed, both 0 since the lookups' backward is ``csrc/embed.cu``).  Then
    the same with PyTorch's deterministic algorithms, graphed and eager:
    everything, parameters and Adam's state included, bit for bit.  Then
    ``profile_torch.profile_ppo``: ms, kernels, graph launches and busy
@@ -303,6 +317,9 @@ STEP_CHECK_STEPS = 40  # phase 2c: steps held against the plain step
 # regen cell's and the pool cell's generate).
 GEN_SIZES, GEN_CHECK_B = (5, 6, 8, 16), (4097, 65536)
 GEN_TIMED_B = (65536, 262144)
+# Phase 2e: the PPO cell's minibatch rows (forward and backward) and
+# collector rows (forward).
+EMBED_TRAIN_B, EMBED_COLLECT_B = 131072, 32768
 REPLAY_WORKERS = 5  # processes for the replays
 DYN_OBS_STEPS = 64  # steps of the DynamicObstacles reward and ball checks
 # The RoomGrid families (phase 8), by id prefix; (B, T, pool rounds) of the
@@ -987,6 +1004,114 @@ def generator_kernel(make, ptxas, pool_launches: float) -> list:
     return rows
 
 
+def embed_bytes(b: int, cells: int, vocab: int, elem: int) -> int:
+    """The bytes a forward (or a backward) of the encoder's lookups moves for
+    ``b`` rows: it reads the uint8 image, the int32 direction and 48
+    codes and the float32 tables (the backward: the codes' and
+    ``code_pos``, and writes the six gradients, as many bytes), and writes
+    (reads) the plane features, the direction's and the bag in the compute
+    dtype.  Scratch the kernels write and read again is not counted."""
+    tables = (28 * 8 + 4 * 16 + (vocab + 48) * 32) * 4
+    return b * (cells * 3 + 4 + 48 * 4) + tables + b * (cells * 24 + 16 + 32) * elem
+
+
+def embed_kernels(ptxas) -> list:
+    """Phase 2e: the encoder's lookups on the card against their twin,
+    ``nn.Embedding``'s composition under autograd, and timed, at EMBED_TRAIN_B rows (forward and backward) and
+    EMBED_COLLECT_B (forward); ids drawn over and beyond every vocabulary.
+    Returns the kernels-line rows."""
+    from minigrid_dynamicprogramming_tpu_torch.models import nets
+
+    dev, dt, view, vocab = torch.device(DEVICE), torch.bfloat16, 7, 64
+    source = f"{CSRC}/embed.cu"
+    rows = []
+    for b in (EMBED_TRAIN_B, EMBED_COLLECT_B):
+        g = torch.Generator().manual_seed(b)
+        ids = tuple(x.to(dev) for x in (
+            torch.randint(0, 20, (b, view, view, 3), generator=g, dtype=torch.uint8),
+            torch.randint(0, 4, (b,), generator=g, dtype=torch.int32),
+            torch.randint(-3, vocab + 6, (b, 48), generator=g, dtype=torch.int32)))
+        tables = tuple(torch.randn(shape, generator=g).to(dev)
+                       for shape in nets.table_shapes(vocab))
+        out, twin = nets.embed_kernel(*ids, dt, tables), nets.lookups(*ids, dt, tables)
+        require(torch.equal(out[0], twin[0]) and torch.equal(out[1], twin[1]),
+                f"embed B={b}: plane and direction features equal the twin's")
+        # The bag's 48 products are summed in float32 in another order than
+        # the twin's: within twice 47 * 2**-24 of their magnitudes' sum,
+        # then each sum rounded to bf16 (half a unit each, one unit of the
+        # larger result together).
+        diff = (out[2].float() - twin[2].float()).abs()
+        scale = nets.lookups(*ids, dt, [t.abs() for t in tables])[2].float()
+        larger = torch.maximum(out[2].float().abs(), twin[2].float().abs())
+        ulp = torch.ldexp(torch.ones_like(diff),
+                          torch.frexp(larger.clamp(min=2.0 ** -126))[1] - 8)
+        require(bool((diff <= 2 * 47 * 2.0 ** -24 * scale + ulp).all()),
+                f"embed B={b}: the bag within the reordering bound and one bf16 unit")
+        bag_err = float(diff.max())
+        bag_ulps = float((diff / ulp).max())
+        del out, twin
+        fwd_ms = graphed_ms(lambda: nets.embed_kernel(*ids, dt, tables), n=20)
+        with torch.no_grad():
+            plain_fwd_ms = cuda_ms(lambda: nets.lookups(*ids, dt, tables), 5)
+        fwd_bound, fwd_by = bound(embed_bytes(b, view * view, vocab, 2), 0)
+        design = ("a block of 128 rows: the tables staged in shared memory in the compute dtype; "
+                  "16-byte words of the plane features, each picked by one image byte; the bag "
+                  "a warp a row, a lane a feature, codes by shuffles")
+        rows.append({
+            "name": f"embed_fwd_b{b}", "route": "cuda", "source": source, "replaces": None,
+            "launches": None, "max_abs_err": bag_err, "ms": fwd_ms, "plain_ms": plain_fwd_ms,
+            "bound_ms": fwd_bound, "bound_by": fwd_by, "library_ms": plain_fwd_ms,
+            "kernel_only_ms": fwd_ms, "rows": b, "design": design,
+            "compiled": compiled(ptxas, "embed_kernelI13__nv_bfloat16"),
+        })
+        print(f"[embed] forward B={b}: planes and direction equal to the twin, the bag within "
+              f"the bound (max {bag_err:.3g}, {bag_ulps:.3g} bf16 units of the result); kernel {fwd_ms:.5f} ms "
+              f"in a graph, bound {fwd_bound:.5f} ms by {fwd_by} ({fwd_ms / fwd_bound:.2f}x); the "
+              f"twin (nn.Embedding's composition) {plain_fwd_ms:.4f} ms; {rows[-1]['compiled']}",
+              flush=True)
+        if b != EMBED_TRAIN_B:
+            continue
+        grads = tuple(torch.randn(shape, generator=g).to(dev, dt)
+                      for shape in ((b, view, view, 24), (b, 16), (b, 32)))
+        leaves = [t.clone().requires_grad_(True) for t in tables]
+
+        def composition():
+            return torch.autograd.grad(nets.lookups(*ids, dt, leaves), leaves, grads)
+
+        got = nets.embed_grad_kernel(*ids, *grads, dt, tables)
+        again = nets.embed_grad_kernel(*ids, *grads, dt, tables)
+        want = composition()
+        require(all(torch.equal(x, y) for x, y in zip(got, again)), "embed: two backwards agree")
+        errs = [float((x - y).abs().max()) / float(y.abs().max()) for x, y in zip(got, want)]
+        require(max(errs) <= 2.0 ** -12, f"embed: gradients within 2**-12 of the twin's ({errs})")
+        del got, again, want
+        grad_ms = graphed_ms(
+            lambda: nets.embed_grad_kernel(*ids, *grads, dt, tables), n=20)
+        library_ms = cuda_ms(composition, 5)
+        grad_bound, grad_by = bound(embed_bytes(b, view * view, vocab, 2)
+                                    + (28 * 8 + 4 * 16 + (vocab + 48) * 32) * 4, 0)
+        rows.append({
+            "name": f"embed_grad_b{b}", "route": "cuda", "source": source, "replaces": None,
+            "launches": None, "max_abs_err": max(errs), "ms": grad_ms,
+            "plain_ms": library_ms - plain_fwd_ms,
+            "bound_ms": grad_bound, "bound_by": grad_by, "library_ms": library_ms - plain_fwd_ms,
+            "library_fwd_bwd_ms": library_ms, "kernel_fwd_bwd_ms": fwd_ms + grad_ms,
+            "kernel_only_ms": grad_ms, "rows": b,
+            "design": "blocks of 128 rows, one partial a table entry: the planes a thread a quad "
+            "column with its accumulators in its own column of shared memory, the direction in "
+            "registers, the mission a warp a row; then a launch sums the partials in block order",
+            "compiled": {k: compiled(ptxas, f"{k}I13__nv_bfloat16")
+                         for k in ("embed_grad_kernel", "embed_grad_sum_kernel")},
+        })
+        print(f"[embed] backward B={b}: two calls equal, relative gaps to the twin {errs}; kernels "
+              f"{grad_ms:.5f} ms in a graph, bound {grad_bound:.5f} ms by {grad_by} "
+              f"({grad_ms / grad_bound:.2f}x); the twin (nn.Embedding's composition) forward and "
+              f"backward {library_ms:.4f} ms against the kernels' "
+              f"{fwd_ms + grad_ms:.5f}; {rows[-1]['compiled']}", flush=True)
+        del grads, leaves
+    return rows
+
+
 def replay_summary(L, params, final, resets) -> dict:
     """What the card-against-CPU check compares, as numpy: the final state
     of some lanes, their observation and their resets."""
@@ -1484,16 +1609,27 @@ def ppo_throughput(make, card: str) -> dict:
     / learner split, the rollout timed by a zero-epoch update."""
     from minigrid_dynamicprogramming_tpu_torch.models import PPO, PPOConfig
 
+    from minigrid_dynamicprogramming_tpu_torch.utils import profiling
+
     env = make(PPO_ENV)
 
-    graphs = {}
+    graphs, launches = {}, {}
+    embed = ("nets.embed.launches", "nets.embed.grad.launches")
+
+    def counted(ppo, ts, what: str):
+        """One update; the lookups' forward and backward launches it adds."""
+        before = [profiling.counter(c) for c in embed]
+        out = ppo.update(ts)
+        torch.cuda.synchronize()
+        launches[what] = [profiling.counter(c) - n for c, n in zip(embed, before)]
+        return out
 
     def timed(epochs: int) -> list:
         cfg = PPOConfig(num_envs=PPO_B, rollout_len=PPO_T, epochs=epochs, num_minibatches=PPO_MB)
         ppo = PPO(env, cfg, device=DEVICE)
         ts = ppo.init(3)
-        for _ in range(PPO_WARMUP):
-            ts, m = ppo.update(ts)
+        for k in range(PPO_WARMUP):
+            ts, m = counted(ppo, ts, f"epochs_{epochs}_warmup_{k}")
         torch.cuda.synchronize()
         times = []
         for _ in range(PPO_TIMED):
@@ -1513,6 +1649,18 @@ def ppo_throughput(make, card: str) -> dict:
     full = timed(2)
     peak = torch.cuda.max_memory_allocated()
     roll = timed(0)
+    # The encoder's lookups launch host-side only outside the replays: the
+    # first update's collector warm-up and capture (a forward each), its
+    # bootstrap forward, its learner warm-up and capture (a forward and a
+    # backward each); a later update's bootstrap forward.  The replays run
+    # the captured kernels, 32 collector forwards and 16 learner steps an
+    # update, with no host launch.
+    want = {"epochs_2_warmup_0": [5, 4], "epochs_2_warmup_1": [1, 0],
+            "epochs_0_warmup_0": [3, 0], "epochs_0_warmup_1": [1, 0]}
+    print(f"[ppo_throughput] the lookups' launches (forward, backward) an update: {launches}",
+          flush=True)
+    require(all(launches.get(k) == v for k, v in want.items()),
+            f"the PPO updates launch the lookups' kernels {want}: {launches}")
     steps = PPO_B * PPO_T
     out = {
         "env": PPO_ENV, "num_envs": PPO_B, "rollout_len": PPO_T, "epochs": 2,
@@ -1520,7 +1668,7 @@ def ppo_throughput(make, card: str) -> dict:
         "env_steps_per_s": steps / statistics.mean(full),
         "rollout_mean_s": statistics.mean(roll),
         "learner_mean_s": statistics.mean(full) - statistics.mean(roll),
-        "peak_bytes": peak, "graphs": graphs, "card": card,
+        "peak_bytes": peak, "graphs": graphs, "card": card, "embed_launches": launches,
     }
     print(f"[ppo_throughput] {out}", flush=True)
     return out
@@ -1573,8 +1721,8 @@ def ppo_graph_against_eager(make, card: str) -> dict:
         d = [(x.double() - y.double()).abs() for x, y in zip(a, b)]
         return max(float(x.max()) for x in d), sum(float(x.sum()) for x in d) / sum(x.numel() for x in d)
 
-    # PyTorch's default algorithms, as PPO runs: the embeddings' backward
-    # sums with atomics, so the learners of two eager runs differ.
+    # PyTorch's default algorithms, as PPO runs: where they pick kernels
+    # that sum with atomics, the learners of two eager runs differ.
     runs = ppo_runs(make, [True] + [False] * PPO_SPREAD_RUNS)
     (_, g_first, g_state), eager = runs[0], runs[1:]
     for k, (_, e_first, _) in enumerate(eager):
@@ -2051,8 +2199,8 @@ def one_rank_nccl(make, card: str) -> dict:
         # PPO at config 5's width: the grouped update (the trajectory
         # all-gathered, the learner's all-reduces in its graph) equals the
         # ungrouped one from the same seed bit for bit, with deterministic
-        # algorithms (the embeddings' backward sums with atomics
-        # otherwise).  Then each learner once more, timed.
+        # algorithms (PyTorch may otherwise pick kernels that sum with
+        # atomics).  Then each learner once more, timed.
         cfg = PPOConfig(num_envs=NCCL_PPO_B, rollout_len=PPO_T, epochs=2, num_minibatches=PPO_MB)
         params, metrics, ms, peaks, learn_peaks, gathered, captures = [], [], [], [], [], [], []
         torch.use_deterministic_algorithms(True, warn_only=True)
@@ -2747,6 +2895,8 @@ def run(args, t_start: float, workers) -> int:
     # 2d. The generator kernel at every DoorKey size, timed at both rollout
     # cells' generate.
     kernels.extend(generator_kernel(make, ptxas, gen_launches))
+    # 2e. The encoder's lookups at the PPO cell's shapes.
+    kernels.extend(embed_kernels(ptxas))
 
     # 3. B1 through solve, at one and two door slots, on the same layouts.
     solved = {}
@@ -3117,6 +3267,15 @@ def run(args, t_start: float, workers) -> int:
     results["ppo_throughput"], counts = drive("PPO throughput", lambda: ppo_throughput(make, card))
     require(not any(counts.values()), "PPO launches no VI kernel")
     phase_s["ppo_throughput"] = time.perf_counter() - t0
+    # Phase 2e's rows: the lookups' launches in the graphed PPO's first and
+    # second updates, forward (both the minibatch's and the collector's
+    # shape) and backward.
+    first, second = (results["ppo_throughput"]["embed_launches"][f"epochs_2_warmup_{k}"]
+                     for k in (0, 1))
+    for row in kernels:
+        if row["name"].startswith("embed_"):
+            k = int(row["name"].startswith("embed_grad"))
+            row["launches"] = {"first_update": first[k], "second_update": second[k]}
 
     # 14a. PPO graphed against eager, and the profile of both.
     t0 = time.perf_counter()

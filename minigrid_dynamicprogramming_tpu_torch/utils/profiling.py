@@ -22,6 +22,12 @@ Counterpart of ``minigrid_dynamicprogramming_tpu/utils/profiling.py``:
   slot holds the sum and the count.  Run eagerly it is a plain ``span``.
 - ``count(name, n)`` adds to a counter; ``counter(name)`` and
   ``counters()`` read them.  Counters always count.
+- ``adopt(context())`` hands a thread's tracing context (whether it
+  traces, its open spans, the stamps of the graph it captures) to work
+  that another thread runs for it while it waits: autograd runs a CUDA
+  backward in its own thread for the device while ``backward()`` blocks
+  its caller, so a span in a custom backward nests where the backward
+  was asked for, and stamps into the graph being captured.
 - Tracing is on while a ``torch.profiler`` session records, or inside a
   ``tracing()`` block.  Off, a span costs a flag test and its ranges: no
   CUDA event, no allocation, no kernel, and a graph captured then holds
@@ -55,9 +61,9 @@ from torch.profiler import ProfilerActivity, profile
 from minigrid_dynamicprogramming_tpu_torch import _kernels
 
 __all__ = [
-    "trace", "span", "graph_span", "tracing", "is_tracing", "count", "counter", "counters",
-    "records", "dropped", "clear", "GraphStamps", "load_stamps", "graph_nodes",
-    "TRACE_FILE", "SPANS_FILE",
+    "trace", "span", "graph_span", "tracing", "is_tracing", "context", "adopt", "count",
+    "counter", "counters", "records", "dropped", "clear", "GraphStamps", "load_stamps",
+    "graph_nodes", "TRACE_FILE", "SPANS_FILE",
 ]
 
 TRACE_FILE = "trace.json"
@@ -131,7 +137,29 @@ RECORDER = Recorder()
 
 
 def is_tracing() -> bool:
-    return RECORDER.forced > 0 or torch._C._autograd._profiler_enabled()
+    return (RECORDER.forced > 0 or getattr(RECORDER.local, "adopted", False)
+            or torch._C._autograd._profiler_enabled())
+
+
+def context() -> tuple:
+    """The calling thread's tracing context, for :func:`adopt`."""
+    return is_tracing(), RECORDER.stack(), getattr(RECORDER.local, "stamps", None)
+
+
+@contextlib.contextmanager
+def adopt(ctx: tuple):
+    """Inside the block, this thread traces as the thread whose
+    :func:`context` ``ctx`` is did: with its tracing switch, onto its open
+    spans (while that thread waits on this one) and into its graph's
+    stamps."""
+    local = RECORDER.local
+    saved = (getattr(local, "adopted", False), getattr(local, "stack", None),
+             getattr(local, "stamps", None))
+    local.adopted, local.stack, local.stamps = ctx
+    try:
+        yield
+    finally:
+        local.adopted, local.stack, local.stamps = saved
 
 
 @contextlib.contextmanager

@@ -79,7 +79,20 @@ DoorKey's generator is one kernel on the card after its five plain draws
 generator state (DoorKey-8x8 also at 262144, the pool rollout's
 launch) and leaves the generator where the plain one does; a
 regen rollout launches it once for its start layouts and twice in its
-capture, GoToDoor never, and it refuses other draws.
+capture, GoToDoor never, and it refuses other draws.  The encoder's
+lookups are ``csrc/embed.cu`` on the card (``nets.EmbedKernel``): in bf16
+and float32, at views 5, 7 and 9 and batches of 1 to 4099 rows, its plane
+and direction features equal ``nn.Embedding``'s composition's
+(``nets.lookups``) on the card bit for bit and its bag within float32's
+reordering bound and one unit of the larger result in bf16
+(``tests/_torch_embed.py``), the six gradients within the float32
+reordering bound of autograd's (bit for bit on dyadic inputs, where every
+sum is exact), and two backward calls agree bit for bit; a lane-major mission and a strided gradient read as they
+lie; forward and backward captured in a CUDA graph replay the eager
+results; it counts one launch a forward and two a backward; a model on
+the card never reaches the composition, and a traced PPO update stamps
+``nets.embed`` under ``ppo.forward`` and ``nets.embed.grad`` under
+``ppo.backward``.
 """
 
 from __future__ import annotations
@@ -948,9 +961,11 @@ def _learner_state(ts) -> list:
 
 @pytest.fixture
 def deterministic():
-    """PyTorch's deterministic algorithms for the test's duration: the
-    embeddings' backward on the card sums with atomics by default, so two
-    eager learners from one state differ in the last bits."""
+    """PyTorch's deterministic algorithms for the test's duration: by
+    default PyTorch may pick kernels that sum with atomics (cuDNN's
+    convolution backward among them), so two eager learners from one state
+    can differ in the last bits.  The encoder's lookups
+    (``csrc/embed.cu``) are deterministic either way."""
     torch.use_deterministic_algorithms(True, warn_only=True)
     yield
     torch.use_deterministic_algorithms(False)
@@ -1421,3 +1436,178 @@ def test_doorkey_gen_refuses_other_inputs(card):
     state = doorkey.layouts_kernel(env.params, **draws)
     assert profiling.counter("generator.kernel.launches") == launches + 1
     assert bool((state.agent_pos[:, 0] < draws["split"]).all())
+
+
+
+# --- the encoder's lookups (csrc/embed.cu) ----------------------------------
+
+def _embed_run(fn, ids, tables, grads, dtype):
+    """``fn.apply``'s outputs and the tables' gradients."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in tables]
+    out = fn.apply(*ids, dtype, *leaves)
+    return [o.detach() for o in out], list(torch.autograd.grad(out, leaves, grads))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dyadic", [False, True])
+@pytest.mark.parametrize("view,b", [(5, 300), (7, 1), (7, 4099), (9, 300)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_embed_kernel_equals_twin(card, dtype, view, b, dyadic):
+    """The kernels against ``nn.Embedding``'s composition under autograd on
+    the card: plane and direction features bit for bit, the bag within
+    float32's reordering bound of its 48 products and one bf16 unit of the
+    larger result (bit for bit on dyadic inputs), the gradients within the
+    reordering bound (bit for bit on dyadic inputs); a second backward
+    equals the first bit for bit."""
+    from minigrid_dynamicprogramming_tpu_torch.models import nets
+
+    from ._torch_embed import (assert_grads_close, bag_bound, composition_grads, inputs,
+                               reorder_bound)
+
+    ids, tables, grads = inputs(b, view, dtype, seed=view + b, dyadic=dyadic, device=card)
+    (x, d, m), got = _embed_run(nets.EmbedKernel, ids, tables, grads, dtype)
+    x0, d0, m0 = nets.lookups(*ids, dtype, tables)
+    want = composition_grads(ids, tables, grads, dtype)
+    assert x.dtype == d.dtype == m.dtype == dtype and x.is_contiguous()
+    assert torch.equal(x, x0) and torch.equal(d, d0)
+    if dyadic:
+        assert torch.equal(m, m0)
+        assert all(torch.equal(a, w) for a, w in zip(got, want))
+    else:
+        assert bool(((m.float() - m0.float()).abs() <= bag_bound(ids, tables, dtype, m, m0)).all())
+        assert_grads_close(got, want, reorder_bound(ids, tables, grads, dtype), dtype,
+                           f"{dtype} {view} {b}")
+    _, again = _embed_run(nets.EmbedKernel, ids, tables, grads, dtype)
+    assert all(torch.equal(a, w) for a, w in zip(got, again)), "deterministic"
+
+
+@pytest.mark.cuda
+def test_embed_kernel_reads_strided_ids_and_gradients(card):
+    """The collector's mission is lane-major (``ls.mission.T``) and the
+    backward's direction and bag gradients are slices of ``cat``'s: each
+    read as it lies equals the contiguous run bit for bit."""
+    from minigrid_dynamicprogramming_tpu_torch.models import nets
+
+    from ._torch_embed import inputs
+
+    dtype = torch.bfloat16
+    ids, tables, grads = inputs(257, 7, dtype, seed=2, device=card)
+    image, direction, mission = ids
+    lane_major = mission.T.contiguous().T
+    dir_wide = torch.stack([direction, direction], 1)[:, 0]
+    assert not lane_major.is_contiguous() and dir_wide.stride(0) == 2
+    wide = torch.cat([grads[1], grads[2], torch.zeros_like(grads[2])], 1)
+    strided = (grads[0], wide[:, :16], wide[:, 16:48])
+    assert strided[2].stride(0) == 80
+    want = _embed_run(nets.EmbedKernel, ids, tables, grads, dtype)
+    got = _embed_run(nets.EmbedKernel, (image, dir_wide, lane_major), tables, strided, dtype)
+    for a, w in zip(got[0] + got[1], want[0] + want[1]):
+        assert torch.equal(a, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_embed_kernel_in_a_graph(card, dtype):
+    """Forward and backward captured once in a CUDA graph and replayed on
+    new ids and gradients copied into its inputs: each replay equals the
+    eager kernels' run on the same inputs, bit for bit."""
+    from minigrid_dynamicprogramming_tpu_torch.models import nets
+
+    from ._torch_embed import inputs
+
+    ids, tables, grads = inputs(1000, 7, dtype, seed=4, device=card)
+    leaves = [t.clone().requires_grad_(True) for t in tables]
+    slots = [x.clone() for x in (*ids, *grads)]
+    out = {}
+
+    def step():
+        o = nets.EmbedKernel.apply(*slots[:3], dtype, *leaves)
+        out["fwd"] = [y.detach() for y in o]
+        out["grad"] = torch.autograd.grad(o, leaves, slots[3:])
+
+    graph, _, _ = tlanes.capture_step(step, step, card)
+    try:
+        for seed in (5, 6):
+            new_ids, _, new_grads = inputs(1000, 7, dtype, seed=seed, device=card)
+            for slot, x in zip(slots, (*new_ids, *new_grads)):
+                slot.copy_(x)
+            graph.replay()
+            want = _embed_run(nets.EmbedKernel, new_ids, tables, new_grads, dtype)
+            for a, w in zip([*out["fwd"], *out["grad"]], want[0] + want[1]):
+                assert torch.equal(a, w), seed
+    finally:
+        graph.reset()
+
+
+@pytest.mark.cuda
+def test_encoder_on_card_goes_through_the_kernels(card, monkeypatch):
+    """An ``ActorCritic`` on the card, forward and backward: one forward
+    launch and two backward launches counted, the composition
+    (``nets.lookups``) never reached (it raises here), and every table given a finite, nonzero gradient."""
+    from minigrid_dynamicprogramming_tpu_torch.models import ActorCritic, init_params, nets
+
+    from ._torch_embed import inputs
+
+    model = init_params(ActorCritic(), torch.Generator().manual_seed(0)).to(card)
+    ids, _, _ = inputs(64, 7, torch.bfloat16, seed=8, device=card)
+
+    def refuse(*args):
+        raise AssertionError("a CUDA tensor reached the composition")
+
+    monkeypatch.setattr(nets, "lookups", refuse)
+    before = profiling.counter("nets.embed.launches"), profiling.counter("nets.embed.grad.launches")
+    logits, _ = model(dict(zip(("image", "direction", "mission"), ids)))
+    logits.sum().backward()
+    torch.cuda.synchronize()
+    after = profiling.counter("nets.embed.launches"), profiling.counter("nets.embed.grad.launches")
+    assert (after[0] - before[0], after[1] - before[1]) == (1, 2)
+    for t in model.encoder.tables():
+        assert bool(torch.isfinite(t.grad).all()) and bool(t.grad.abs().sum() > 0)
+
+
+@pytest.mark.cuda
+def test_embed_kernel_refuses_other_inputs(card):
+    """A CPU image, a float16 compute dtype, ids or tables of another
+    shape raise before any launch."""
+    from minigrid_dynamicprogramming_tpu_torch.models import nets
+
+    from ._torch_embed import inputs
+
+    ids, tables, _ = inputs(16, 7, torch.bfloat16, seed=1, device=card)
+    launches = profiling.counter("nets.embed.launches")
+    bad = [
+        ((ids[0].cpu(), *ids[1:]), torch.bfloat16, tables),
+        (ids, torch.float16, tables),
+        ((ids[0], ids[1][:-1], ids[2]), torch.bfloat16, tables),
+        ((ids[0], ids[1], ids[2][:, :40]), torch.bfloat16, tables),
+        (ids, torch.bfloat16, (*tables[:4], tables[4][:, :16], tables[5])),
+    ]
+    for bad_ids, dtype, bad_tables in bad:
+        with pytest.raises(ValueError):
+            nets.embed_kernel(*bad_ids, dtype, bad_tables)
+    assert profiling.counter("nets.embed.launches") == launches
+    nets.embed_kernel(*ids, torch.bfloat16, tables)
+    assert profiling.counter("nets.embed.launches") == launches + 1
+
+
+@pytest.mark.cuda
+def test_traced_ppo_update_stamps_the_lookups(card):
+    """GoToDoor's graphed update under ``tracing()``: in the graphs
+    captured again with stamps, ``nets.embed`` is stamped under
+    ``ppo.collect.policy`` (32 collector steps) and under ``ppo.forward``
+    (8 minibatch steps), ``nets.embed.grad`` under ``ppo.backward``, each
+    within its parent's time.  (The captures' eager warm-ups keep records
+    of their own, not stamped.)"""
+    ppo = _ppo_on_card(card, _PPO_IDS[0])
+    ts, _ = ppo.update(ppo.init(0))
+    profiling.clear()
+    with profiling.tracing():
+        ppo.update(ts)
+        recs = profiling.records()
+    by_id = {r["id"]: r for r in recs}
+    for name, parent, count in (("nets.embed", "ppo.collect.policy", 32),
+                                ("nets.embed", "ppo.forward", 8),
+                                ("nets.embed.grad", "ppo.backward", 8)):
+        (rec,) = [r for r in recs if r["name"] == name and r["attrs"].get("graph")
+                  and by_id[r["parent"]]["name"] == parent]
+        assert rec["count"] == count and 0 < rec["device_ms"] <= by_id[rec["parent"]]["device_ms"]

@@ -170,3 +170,48 @@ def test_tracing_blocks_nest():
             assert profiling.is_tracing()
         assert profiling.is_tracing()
     assert not profiling.is_tracing()
+
+
+
+def test_adopted_context_nests_another_threads_spans():
+    """A thread that runs work for a waiting one (as autograd's device
+    thread runs a backward) traces inside ``adopt(context())`` as the
+    waiting thread would: its span's parent is that thread's open span.
+    Without it the worker's span is a request of its own."""
+    import threading
+
+    out = {}
+    with profiling.tracing():
+        with profiling.span("outer") as outer:
+            ctx = profiling.context()
+
+            def worker():
+                with profiling.span("alone") as alone:
+                    out["alone"] = alone
+                with profiling.adopt(ctx):
+                    with profiling.span("inner") as inner:
+                        out["inner"] = inner
+
+            t = threading.Thread(target=worker)
+            t.start()
+            t.join()
+    assert out["alone"].parent is None and out["alone"].request == out["alone"].id
+    assert out["inner"].parent == outer.id and out["inner"].request == outer.request
+    assert sorted(r["name"] for r in profiling.records()) == ["alone", "inner", "outer"]
+
+
+def test_adopted_context_carries_its_tracing_switch():
+    """The context taken while tracing traces where it is adopted, also
+    after the tracing block has ended; one taken with tracing off does
+    not."""
+    with profiling.tracing():
+        on = profiling.context()
+    off = profiling.context()
+    with profiling.adopt(on):
+        assert profiling.is_tracing()
+        with profiling.span("kept") as rec:
+            assert rec is not None
+    with profiling.adopt(off):
+        assert not profiling.is_tracing()
+    assert not profiling.is_tracing()
+    assert [r["name"] for r in profiling.records()] == ["kept"]
